@@ -1,0 +1,105 @@
+"""GQA/MQA/MHA self-attention with RoPE and a KV cache, through the
+flash-attention kernel (prefill, train forward) and the decode-attention
+kernel (decode).
+
+KV caches are laid out [B, n_kv, max_len, head_dim] (kv-heads before seq),
+as in the reference package, so a paused session's KV block is the same
+bytes in both packages.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.ref import reference_decode_attention
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import reference_attention
+from .config import AttnSpec, ModelConfig
+from .layers import Ctx, apply_rope, dense_init
+
+
+def check_supported(spec: AttnSpec) -> None:
+    """Raise NotImplementedError for the attention features this port
+    does not build yet (none of them is used by gemma-2b)."""
+    unported = {
+        "rope != 'rope' (M-RoPE, no rope)": spec.rope != "rope",
+        "cross-attention": spec.cross,
+        "non-causal self-attention": not spec.causal,
+        "shared attention weights": spec.shared,
+        "qk_norm": spec.qk_norm,
+        "sliding_window": spec.sliding_window != 0,
+        "logit_softcap": spec.logit_softcap != 0.0,
+    }
+    missing = [name for name, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(
+            f"attention features not ported yet: {', '.join(missing)}")
+
+
+def param_shapes(cfg: ModelConfig, spec: AttnSpec):
+    """{name: (shape, fan_in)} of one sublayer's matrices."""
+    d = cfg.d_model
+    return {
+        "wq": ((d, spec.n_heads, spec.head_dim), d),
+        "wk": ((d, spec.n_kv, spec.head_dim), d),
+        "wv": ((d, spec.n_kv, spec.head_dim), d),
+        "wo": ((spec.n_heads, spec.head_dim, d),
+               spec.n_heads * spec.head_dim),
+    }
+
+
+def init(cfg: ModelConfig, spec: AttnSpec, generator, device, dtype):
+    return {name: dense_init(shape, fan_in, generator, device, dtype)
+            for name, (shape, fan_in) in param_shapes(cfg, spec).items()}
+
+
+def cache_shape(spec: AttnSpec, batch: int, max_len: int):
+    return (batch, spec.n_kv, max_len, spec.head_dim)
+
+
+def apply(params, x, spec: AttnSpec, cfg: ModelConfig, ctx: Ctx,
+          cache=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x [B,S,D] (already normed). Returns (attn_out [B,S,D], cache).
+
+    The cache is updated in place (the reference package rebuilds it
+    functionally): prefill writes positions [0, S), decode writes each
+    slot's position `cache_index[b]` — every slot, dead and parked ones
+    too, whose garbage write the next real decode overwrites."""
+    B, S, D = x.shape
+    dt = ctx.compute_dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dgk->bgsk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dgk->bgsk", x, params["wv"].to(dt))
+    pos = ctx.positions
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), pos,
+                   cfg.rope_theta).transpose(1, 2)
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    flash = reference_attention if ctx.plain else flash_attention
+
+    if cache is None:                                   # train forward
+        out = flash(q.transpose(1, 2), k, v, scale=scale)
+        out = out.transpose(1, 2)                       # [B,S,H,hd]
+    elif ctx.mode == "prefill":
+        cache["k"][:, :, :S] = k
+        cache["v"][:, :, :S] = v
+        # causal attention over the whole cache (as the reference does)
+        # equals attention over its first S rows: positions >= S are
+        # masked for every query < S
+        out = flash(q.transpose(1, 2), cache["k"][:, :, :S],
+                    cache["v"][:, :, :S], scale=scale)
+        out = out.transpose(1, 2)
+    else:                                               # decode, S == 1
+        idx = ctx.cache_index
+        slots = torch.arange(B, device=idx.device)
+        cache["k"][slots, :, idx] = k[:, :, 0].to(cache["k"].dtype)
+        cache["v"][slots, :, idx] = v[:, :, 0].to(cache["v"].dtype)
+        # the decode mask is kv_pos <= index, i.e. index + 1 filled rows
+        lengths = (idx + 1).to(torch.int32)
+        dec = reference_decode_attention if ctx.plain else decode_attention
+        out = dec(q[:, 0], cache["k"], cache["v"], lengths,
+                  scale=scale)[:, None]                 # [B,1,H,hd]
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), cache

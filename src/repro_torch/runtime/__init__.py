@@ -1,0 +1,4 @@
+from .async_engine import AsyncTierRuntime, QueueStats, Transfer  # noqa
+from .clock import CallableClock, VirtualClock, WallClock, ensure_clock  # noqa
+from .service import FixedLatencyModel, Service, SsdQueueModel  # noqa
+from .tiers import PendingFetch, TierSpec, TierStats, TieredStore  # noqa

@@ -1,0 +1,210 @@
+"""Per-tier service-time models for the async tiering runtime.
+
+The flash tier's service times come from the calibrated `ssdsim`
+discrete-event engine: `SsdQueueModel` runs the simulator once per config
+at a ladder of queue depths (closed-loop saturation, 4KiB-granular reads)
+and interpolates (mean latency, achieved IOPS) between them. A fetch of
+`nbytes` at in-flight depth `d` then costs
+
+    occupancy = ceil(nbytes / 4KiB) / IOPS(d)      # throughput share
+    latency   = occupancy + mean_read_latency(d)   # access time overlaps
+
+The runtime serializes occupancies (deeper queue -> longer waits) while
+latencies pipeline. DRAM/HBM keep the fixed-latency model.
+
+Calibration is deterministic (fixed sim seed) and cached per SimConfig,
+so tests pay it once per process. Set the `REPRO_SSDSIM_CACHE` env var
+to a directory to also persist calibration across processes; cache files
+are keyed by a digest of the SimConfig, op count, depth ladder and a
+format version, and carry this package's own `ssdcal-torch-` prefix so
+that the JAX reference package and the port never read each other's
+files from a shared directory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import math
+import os
+import pathlib
+import tempfile
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from ..ssdsim.config import SimConfig
+from ..ssdsim.engine import simulate_latency, simulate_peak_iops
+
+CACHE_ENV = "REPRO_SSDSIM_CACHE"
+CACHE_PREFIX = "ssdcal-torch-"
+_CAL_VERSION = 2            # bump when the cached-file schema changes
+
+
+@dataclasses.dataclass(frozen=True)
+class Service:
+    """One scheduled access: how long the tier stays occupied, and the
+    additional pipelined latency before the data is usable."""
+    occupancy: float
+    latency: float
+
+    @property
+    def total(self) -> float:
+        return self.occupancy + self.latency
+
+
+class FixedLatencyModel:
+    """Seed-style model for HBM/DRAM: latency + size/bandwidth."""
+
+    def __init__(self, read_latency: float, read_bw: float):
+        self.read_latency = read_latency
+        self.read_bw = read_bw
+
+    def service(self, nbytes: int, queue_depth: int) -> Service:
+        return Service(occupancy=nbytes / self.read_bw,
+                       latency=self.read_latency)
+
+
+class SsdQueueModel:
+    """Queue-depth-dependent flash service times from the ssdsim DES."""
+
+    DEPTHS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
+    PAGE = 4096
+
+    _cache: Dict[object, "SsdQueueModel"] = {}
+
+    def __init__(self, sim_cfg: Optional[SimConfig] = None,
+                 n_ops: int = 2500):
+        # 4KiB-granular batched reads are the KV/expert fetch unit
+        self.cfg = sim_cfg or SimConfig(l_blk=self.PAGE, read_frac=0.9)
+        self.n_ops = n_ops
+        self._iops: Optional[np.ndarray] = None
+        self._lat: Optional[np.ndarray] = None
+        self._p99: Optional[np.ndarray] = None
+
+    @classmethod
+    def shared(cls, sim_cfg: Optional[SimConfig] = None) -> "SsdQueueModel":
+        key = sim_cfg  # SimConfig is a frozen dataclass -> hashable
+        if key not in cls._cache:
+            cls._cache[key] = cls(sim_cfg)
+        return cls._cache[key]
+
+    # ------------------------------------------------------------ disk cache
+    def _cache_path(self) -> Optional[pathlib.Path]:
+        root = os.environ.get(CACHE_ENV)
+        if not root:
+            return None
+        spec = repr((self.cfg, self.n_ops, self.DEPTHS, _CAL_VERSION))
+        digest = hashlib.blake2b(spec.encode(), digest_size=12).hexdigest()
+        return pathlib.Path(root) / f"{CACHE_PREFIX}{digest}.json"
+
+    def _load_cached(self) -> bool:
+        path = self._cache_path()
+        if path is None or not path.is_file():
+            return False
+        try:
+            blob = json.loads(path.read_text())
+            iops = np.asarray(blob["iops"], float)
+            lat = np.asarray(blob["lat"], float)
+            if len(iops) != len(self.DEPTHS) or len(lat) != len(self.DEPTHS):
+                return False
+            p99 = blob.get("p99")
+            if p99 is not None:
+                p99 = np.asarray(p99, float)
+                if len(p99) != len(self.DEPTHS):
+                    p99 = None
+        except (ValueError, KeyError, TypeError, OSError):
+            # a corrupt or foreign file is a cache miss, never a crash
+            return False
+        self._iops = iops
+        self._lat = lat
+        self._p99 = p99
+        return True
+
+    def _save_cached(self):
+        path = self._cache_path()
+        if path is None:
+            return
+        blob = {"iops": [float(x) for x in self._iops],
+                "lat": [float(x) for x in self._lat]}
+        if self._p99 is not None:
+            blob["p99"] = [float(x) for x in self._p99]
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(blob, f, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass                            # cache is best-effort only
+
+    # ------------------------------------------------------------ calibrate
+    def _calibrate(self):
+        if self._load_cached():
+            self._xs = np.log2(np.asarray(self.DEPTHS, float))
+            return
+        iops, lat = [], []
+        for qd in self.DEPTHS:
+            r = simulate_peak_iops(self.cfg, n_ops=self.n_ops,
+                                   queue_depth=qd)
+            # reads carry the fetch path; guard against degenerate mixes
+            iops.append(max(r.iops * self.cfg.read_frac, 1.0))
+            lat.append(max(r.mean_read_latency, 1e-9))
+        # Queueing theory guarantees throughput and mean latency are
+        # non-decreasing in offered depth; the finite-op DES can exhibit
+        # sub-sample-noise dips, so enforce isotonicity on the ladder
+        # (interpolated values then inherit the monotone property).
+        self._iops = np.maximum.accumulate(np.asarray(iops))
+        self._lat = np.maximum.accumulate(np.asarray(lat))
+        self._xs = np.log2(np.asarray(self.DEPTHS, float))
+        self._save_cached()
+
+    def _calibrate_p99(self):
+        """Open-loop tail percentiles per calibrated depth (the p99-aware
+        prefetch-lead prerequisite): drive the DES with Poisson arrivals
+        at the utilization each depth achieves (rho_d = IOPS(d)/IOPS(max))
+        and take the observed p99 read latency — the M/D/1-like tail at
+        that load, which the closed-loop mean cannot show."""
+        if self._iops is None:
+            self._calibrate()
+        if self._p99 is not None:
+            return
+        peak_total = float(self._iops[-1]) / max(self.cfg.read_frac, 1e-9)
+        p99 = []
+        for iops_d in self._iops:
+            rho = float(np.clip(iops_d / self._iops[-1], 0.02, 0.95))
+            r = simulate_latency(self.cfg, rho, n_ops=self.n_ops,
+                                 peak_iops=peak_total)
+            p99.append(max(r.p99_read_latency, 1e-9))
+        self._p99 = np.maximum.accumulate(np.asarray(p99))
+        self._save_cached()
+
+    def calibration(self) -> Dict[int, Tuple[float, float, float]]:
+        """(IOPS, mean latency, open-loop p99 latency) per calibrated
+        depth — for reports and prefetch-lead sizing."""
+        if self._iops is None:
+            self._calibrate()
+        if self._p99 is None:
+            self._calibrate_p99()
+        return {d: (float(i), float(l), float(p)) for d, i, l, p in
+                zip(self.DEPTHS, self._iops, self._lat, self._p99)}
+
+    def p99(self, queue_depth: int) -> float:
+        """Interpolated open-loop p99 read latency at `queue_depth` — the
+        tail the p99-sized prefetch lead must cover (`service().latency`
+        is the closed-loop mean, which under-sizes the lead exactly when
+        queueing matters)."""
+        if self._p99 is None:
+            self._calibrate_p99()
+        d = float(np.clip(queue_depth, self.DEPTHS[0], self.DEPTHS[-1]))
+        return float(np.interp(math.log2(d), self._xs, self._p99))
+
+    def service(self, nbytes: int, queue_depth: int) -> Service:
+        if self._iops is None:
+            self._calibrate()
+        d = float(np.clip(queue_depth, self.DEPTHS[0], self.DEPTHS[-1]))
+        x = math.log2(d)
+        iops = float(np.interp(x, self._xs, self._iops))
+        lat = float(np.interp(x, self._xs, self._lat))
+        pages = max(1, math.ceil(nbytes / self.PAGE))
+        return Service(occupancy=pages / iops, latency=lat)

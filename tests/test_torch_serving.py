@@ -1,0 +1,207 @@
+"""The PyTorch port's DecodeEngine against the JAX reference engine on the
+same weights (gemma-2b reduced, float32), in the tiered-KV serving
+scenario of examples/serve_tiered_kv.py with a DRAM tier that holds only
+1.5 KV blobs, so paused sessions really reach flash.
+
+Tokens, tiers, stalls and every counter of the store and its runtime
+must be identical: the modeled path is the same Python on both sides,
+and a blob's byte count is what prices its fetch. Blob values compare at
+atol 1e-5 (float32 K/V from two frameworks; the reference carries gemma's
+scaled embedding in float64, so its K/V differ in the last bits)."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.core.policy import Tier as JTier, TieringPolicy as JPolicy
+from repro.models import model as JM
+from repro.parallel.sharding import single_device_rules
+from repro.runtime import TieredStore as JStore, TierSpec as JSpec, \
+    VirtualClock as JClock
+from repro.serving.engine import DecodeEngine as JEngine, Request as JReq
+from repro_torch.configs import get_config
+from repro_torch.core.policy import Tier as TTier, TieringPolicy as TPolicy
+from repro_torch.models import model as TM
+from repro_torch.runtime import TieredStore as TStore, TierSpec as TSpec, \
+    VirtualClock as TClock
+from repro_torch.serving import DecodeEngine as TEngine, Request as TReq
+
+MAX_LEN = 64
+STEP = 5e-3
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = j_get_config("gemma-2b", reduced=True)
+    cfg = get_config("gemma-2b", reduced=True)
+    jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jcfg, cfg, jp, tp
+
+
+def _scenario(make_engine, Req, Policy, Tier, Clock, Store, Spec, cfg):
+    blob = 2 * cfg.n_groups * 1 * MAX_LEN * 32 * 4     # f32 K and V
+    clock = Clock()
+    policy = Policy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
+    store = Store(policy, clock=clock, specs={
+        Tier.HBM: Spec(16e9, 819e9, 1e-7),
+        Tier.DRAM: Spec(1.5 * blob, 45e9, 5e-7),
+        Tier.FLASH: Spec(4e12, 7e9, 2e-5)})
+    eng = make_engine(policy, store)
+    rng = np.random.default_rng(0)
+    reqs = [Req(rid=f"session-{i}", max_new=12,
+                prompt=rng.integers(1, cfg.vocab, 5 + 3 * i).astype(
+                    np.int32)) for i in range(6)]
+    done = eng.run(reqs)
+    out = {"done": [r.rid for r in done], "steps": eng.steps}
+    # two fresh sessions; pausing the second demotes the colder first
+    a, b = (Req(rid=f"session-{i}", max_new=12,
+                prompt=rng.integers(1, cfg.vocab, 9).astype(np.int32))
+            for i in (6, 7))
+    eng.admit(a)
+    eng.admit(b)
+    for _ in range(2):
+        eng.step()
+    tiers = [eng.pause(a.rid), eng.pause(b.rid),
+             store.tier_of(("kv", a.rid))]
+    out["blobs"] = {k: store._data[t][k].copy()
+                    for t in store.tiers for k in store._data[t]}
+    # the hot session comes straight back and goes again
+    eng.resume(b.rid)
+    tiers.append(eng.pause(b.rid))
+    clock.advance(1.2)
+    eng.prefetch(a.rid)
+    clock.advance(3 * STEP)
+    eng.resume(a.rid)
+    eng.resume(b.rid)
+    while eng.live.any():
+        eng.step()
+    out.update(
+        tokens=[r.generated for r in reqs + [a, b]],
+        tiers=[int(t) for t in tiers], stall=eng.kv_stall_time,
+        now=clock.now(),
+        tier_stats={t.name: dataclasses.asdict(s)
+                    for t, s in store.stats.items()},
+        queue_stats={t.name: dataclasses.asdict(s)
+                     for t, s in store.runtime.qstats.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(weights):
+    jcfg, cfg, jp, tp = weights
+    rules = single_device_rules()
+    ref = _scenario(
+        lambda pol, st: JEngine(jcfg, jp, rules, max_slots=4,
+                                max_len=MAX_LEN, policy=pol, store=st,
+                                step_time=STEP),
+        JReq, JPolicy, JTier, JClock, JStore, JSpec, jcfg)
+    port = _scenario(
+        lambda pol, st: TEngine(cfg, tp, max_slots=4, max_len=MAX_LEN,
+                                policy=pol, store=st, step_time=STEP,
+                                device="cpu"),
+        TReq, TPolicy, TTier, TClock, TStore, TSpec, cfg)
+    return ref, port
+
+
+def test_greedy_tokens_identical(runs):
+    ref, port = runs
+    assert port["done"] == ref["done"] and port["steps"] == ref["steps"]
+    assert port["tokens"] == ref["tokens"]
+
+
+def test_tiers_and_stall_identical(runs):
+    ref, port = runs
+    assert port["tiers"] == ref["tiers"]
+    # the colder session was demoted to flash by capacity pressure
+    assert port["tiers"][2] == int(TTier.FLASH)
+    assert port["stall"] == ref["stall"]
+    assert port["now"] == ref["now"]
+
+
+def test_store_and_queue_stats_identical(runs):
+    ref, port = runs
+    assert port["tier_stats"] == ref["tier_stats"]
+    assert port["queue_stats"] == ref["queue_stats"]
+    flash = port["tier_stats"]["FLASH"]
+    assert flash["hits"] >= 1 and flash["prefetch_hits"] >= 1
+    assert flash["demotions"] >= 1
+
+
+def test_paused_blobs_match(runs):
+    ref, port = runs
+    assert port["blobs"].keys() == ref["blobs"].keys()
+    for key, want in ref["blobs"].items():
+        got = port["blobs"][key]
+        assert got.dtype == np.float32 and got.nbytes == want.nbytes
+        np.testing.assert_allclose(got, want, atol=1e-5, err_msg=str(key))
+
+
+def test_pause_resume_roundtrip_matches_uninterrupted(weights):
+    """A session paused mid-decode and resumed after another request
+    cycled through its slot generates what an uninterrupted run does."""
+    _, cfg, _, tp = weights
+    prompt = np.random.default_rng(2).integers(1, cfg.vocab, 6).astype(
+        np.int32)
+
+    def engine():
+        return TEngine(cfg, tp, max_slots=2, max_len=MAX_LEN, device="cpu",
+                       policy=TPolicy(tau_hot=1e-9, tau_be=1e9))
+
+    ref = TReq(rid="s", prompt=prompt, max_new=8)
+    engine().run([ref])
+    eng = engine()
+    req = TReq(rid="s", prompt=prompt, max_new=8)
+    eng.admit(req)
+    for _ in range(3):
+        eng.step()
+    eng.pause("s")
+    other = TReq(rid="o", prompt=prompt[:4], max_new=3)
+    eng.admit(other)
+    while not other.done:
+        eng.step()
+    eng.resume("s")
+    while not req.done:
+        eng.step()
+    assert req.generated == ref.generated
+
+
+def test_checkpoint_restore_regenerates_tokens(weights):
+    _, cfg, _, tp = weights
+    prompt = np.random.default_rng(3).integers(1, cfg.vocab, 7).astype(
+        np.int32)
+    ref = TReq(rid="c", prompt=prompt, max_new=10)
+    TEngine(cfg, tp, max_slots=1, max_len=MAX_LEN, device="cpu").run([ref])
+    eng = TEngine(cfg, tp, max_slots=1, max_len=MAX_LEN, device="cpu",
+                  checkpoint_interval=2)
+    req = TReq(rid="c", prompt=prompt, max_new=10)
+    eng.admit(req)
+    for _ in range(5):
+        eng.step()
+    state = eng.checkpoints()["c"]
+    other = TEngine(cfg, tp, max_slots=1, max_len=MAX_LEN, device="cpu",
+                    store=eng.store)
+    other.restore_checkpoint("c", state)
+    restored = other.slot_req[0]
+    while not restored.done:
+        other.step()
+    assert restored.generated == ref.generated
+
+
+def test_engine_errors(weights):
+    _, cfg, _, tp = weights
+    eng = TEngine(cfg, tp, max_slots=1, max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        eng.admit(TReq(rid="x", prompt=np.ones(16, np.int32)))
+    eng.admit(TReq(rid="a", prompt=np.ones(3, np.int32)))
+    with pytest.raises(RuntimeError, match="no free slots"):
+        eng.admit(TReq(rid="b", prompt=np.ones(3, np.int32)))
+    with pytest.raises(KeyError, match="not live"):
+        eng.pause("b")
+    eng.pause("a")
+    with pytest.raises(KeyError, match="paused"):
+        eng.pause("a")
+    assert torch.count_nonzero(torch.as_tensor(eng.lengths)) == 0
