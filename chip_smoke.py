@@ -13,9 +13,19 @@ Drives the port's serving path on the card and checks it, in phases:
      serves 6 requests through `DecodeEngine`, then parks two sessions
      through a `TieredStore` whose DRAM holds 1.5 KV blobs, so the colder
      one is demoted to flash and comes back through a prefetch on the
-     virtual clock; every kernel's launch counter must move;
+     virtual clock; every serving kernel's launch counter must move;
   5. reduced gemma-2b in float32: the engine's greedy tokens (kernels)
-     equal a greedy loop over the plain PyTorch path.
+     equal a greedy loop over the plain PyTorch path;
+  6. the SSD-resident cuckoo KV store (paper §VII-A): examples/
+     kvstore_demo.py's store (8192 buckets x 8 slots, load 0.7) answers
+     4096 batched GETs through the probe kernel and a timed store's
+     get_many; then a table of 2^23 buckets x 8 slots (512 MiB on the
+     card) answers 2^20 probes, half stored and half absent, and the
+     kernel is held against its plain version and timed;
+  7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
+     1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
+     search on the card, ann_topk against its plain version, and
+     recall@10 > 0.98 at the reference tests' size (8000 vectors).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -54,7 +64,26 @@ KERNELS = {
                          "src/repro/kernels/decode_attention/kernel.py:91"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:100"),
+    "cuckoo_probe": ("src/repro_torch/csrc/cuckoo_probe.cu",
+                     "src/repro/kernels/cuckoo_probe/kernel.py:70"),
+    "ann_topk": ("src/repro_torch/csrc/ann_topk.cu",
+                 "src/repro/kernels/ann_topk/kernel.py:80"),
 }
+SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+# phase 6: examples/kvstore_demo.py's store, and one at deployment size
+KV_DEMO_BUCKETS = 8192
+KV_BUCKETS = 1 << 23           # x 8 slots x (key + value) int32 = 512 MiB
+KV_SLOTS = 8
+KV_LOAD = 0.7
+KV_PROBES = 1 << 20
+# phase 7: the corpus and queries; the reference tests' size
+ANN_N, ANN_D_FULL, ANN_D_RED, ANN_Q = 262_144, 1024, 128, 1024
+ANN_PROMOTE, ANN_K = 64, 10
+ANN_SMALL = (8000, 100)
+# ann_topk vs its plain version: float32 products in another summation
+# order differ by ~1e-6 at these magnitudes (|d| <= 3); ids are compared
+# wherever the plain version's neighbouring distances differ by > 1e-5
+ANN_ATOL, ANN_TIE = 1e-4, 1e-5
 
 
 def _prompts(vocab: int, n: int, rng):
@@ -381,6 +410,7 @@ def phase_serving(cfg, prompts):
           f"kv_stall_time={eng.kv_stall_time!r} s; FLASH {flash_st}")
     print(f"  decode steps {eng.steps}; launches {counts}; peak device "
           f"memory {peak / 1e9:.3f} GB")
+    counts = {name: counts[name] for name in SERVING_KERNELS}
     for name, n in counts.items():
         assert n > 0, f"{name} kernel never launched on the main path"
     return counts
@@ -437,6 +467,254 @@ def phase_reduced(rng):
           f"greedy tokens == plain-path greedy tokens")
 
 
+# ---------------------------------------------------------------- phase 6
+def _fill_table(n_buckets, slots, keys, vals):
+    """Fixture: place keys [n] (distinct, on the card) each into the first
+    free slot of its bucket h1, else of h2, in key order, vectorised by
+    bucket; keys that find neither full bucket free stay out. Returns
+    (bucket_keys, bucket_vals [n_buckets, slots] int32, placed [n] bool)."""
+    import torch
+    from repro_torch.kernels.cuckoo_probe import hash_pair
+
+    dev = keys.device
+    tk = torch.zeros(n_buckets * slots, dtype=torch.int32, device=dev)
+    tv = torch.zeros_like(tk)
+    fill = torch.zeros(n_buckets, dtype=torch.int64, device=dev)
+    placed = torch.zeros(len(keys), dtype=torch.bool, device=dev)
+    for b in hash_pair(keys, n_buckets):
+        idx = (~placed).nonzero().squeeze(1)
+        bb, order = torch.sort(b[idx].long(), stable=True)
+        idx = idx[order]
+        rank = torch.arange(len(bb), device=dev) - torch.searchsorted(bb, bb)
+        slot = fill[bb] + rank
+        ok = slot < slots
+        at = bb[ok] * slots + slot[ok]
+        tk[at] = keys[idx[ok]]
+        tv[at] = vals[idx[ok]]
+        placed[idx[ok]] = True
+        fill += torch.bincount(bb[ok], minlength=n_buckets)
+    return tk.view(n_buckets, slots), tv.view(n_buckets, slots), placed
+
+
+def phase_kvstore():
+    """The cuckoo store through its entry points, then the probe kernel at
+    deployment size against its plain version. Returns (launches, record)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.cuckoo_probe import (cuckoo_probe, hash_pair,
+                                                  reference_cuckoo_probe)
+    from repro_torch.kvstore import BlockedCuckooStore, TimedCuckooStore
+
+    t0 = time.perf_counter()
+    # (a) examples/kvstore_demo.py's scenario
+    timed = TimedCuckooStore(KV_DEMO_BUCKETS, slots=KV_SLOTS,
+                             dram_cache_items=1024, wal_limit=128,
+                             device="cuda")
+    store = timed.inner
+    rng = np.random.default_rng(SEED)
+    n = int(KV_DEMO_BUCKETS * KV_SLOTS * KV_LOAD)
+    keys = rng.choice(np.arange(1, 10**8), size=n, replace=False)
+    for k in keys:
+        store.put(int(k), int(k) % 99991)
+    store.flush()
+    probe = keys[rng.integers(0, n, 4096)].astype(np.int32)
+    kernels.reset_launch_counts()
+    found, vals = store.get_batch(probe)
+    launches = kernels.launch_counts()["cuckoo_probe"]
+    assert found.all() and (vals == probe % 99991).all(), "demo GETs wrong"
+    pf, pv = store.get_batch(probe, use_kernel=False)
+    assert (pf == found).all() and (pv == vals).all()
+    print(f"  demo store: {n} items at load {store.load_factor():.4f}, "
+          f"{store.stats.relocations} relocations; batched GET x"
+          f"{len(probe)} through the kernel: all found, all values right, "
+          f"== plain version; {store.stats}")
+    got = timed.get_many(probe[:100].tolist())
+    assert got == [int(k) % 99991 for k in probe[:100]]
+    print(f"  timed store get_many x100: modeled {timed.clock.now()!r} s\n"
+          + "\n".join("    " + line
+                      for line in timed.modeled_report().splitlines()))
+
+    # (b) 2^23 buckets x 8 slots on the card, filled to ~0.7
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_fill = int(KV_BUCKETS * KV_SLOTS * KV_LOAD)
+    half = KV_PROBES // 2
+    pool = torch.unique(torch.randint(1, 2**31 - 1, (n_fill + n_fill // 8,),
+                                      generator=gen, device=dev))
+    pool = pool[torch.randperm(len(pool), generator=gen, device=dev)]
+    assert len(pool) >= n_fill + half
+    cand, absent = pool[:n_fill], pool[n_fill:n_fill + half]
+    cand_vals = (cand * 2654435761 % 2**31).to(torch.int32)
+    bk, bv, placed = _fill_table(KV_BUCKETS, KV_SLOTS, cand.to(torch.int32),
+                                 cand_vals)
+    stored = cand[placed]
+    big = BlockedCuckooStore.from_table(bk.cpu().numpy(), bv.cpu().numpy(),
+                                        device="cuda")
+    probes = []
+    for _ in range(4):       # distinct probe sets for timing; set 0 checked
+        sel = stored[torch.randperm(len(stored), generator=gen,
+                                    device=dev)[:half]]
+        p = torch.cat([sel, absent]).to(torch.int32)
+        probes.append(p[torch.randperm(len(p), generator=gen, device=dev)])
+    print(f"  deployment table: {KV_BUCKETS} buckets x {KV_SLOTS} slots "
+          f"({2 * bk.numel() * 4 / 2**20:.0f} MiB on the card), "
+          f"{len(stored)} keys placed of {n_fill} (load "
+          f"{big.load_factor():.4f})")
+    kernels.reset_launch_counts()
+    f, v = big.get_batch(probes[0])
+    torch.cuda.synchronize()
+    launches += kernels.launch_counts()["cuckoo_probe"]
+    # the check: kernel == plain version exactly; stored found, absent not
+    bk_d, bv_d = big.device_table()
+    rf, rv = reference_cuckoo_probe(
+        probes[0], *hash_pair(probes[0], KV_BUCKETS), bk_d, bv_d)
+    assert torch.equal(f, rf) and torch.equal(v, rv), "kernel != plain"
+    want_v = torch.zeros_like(v)
+    is_stored = torch.isin(probes[0], stored.to(torch.int32))
+    assert int(is_stored.sum()) == half
+    assert torch.equal(f.bool(), is_stored), "a stored key was missed or " \
+        "an absent one found"
+    want_v[is_stored] = (probes[0][is_stored].long() * 2654435761
+                         % 2**31).to(torch.int32)
+    assert torch.equal(v, want_v), "wrong values"
+    print(f"  check cuckoo_probe      {KV_PROBES} probes (half stored) "
+          f"max_abs_err=0 (exact) ok: {int(f.sum())} found")
+    b1, b2 = hash_pair(probes[0], KV_BUCKETS)
+    rows = int(torch.unique(torch.cat([b1, b2])).numel())
+    # bytes the lookups need: each probed key, each key row touched once,
+    # the hit value, and found + value out
+    nbytes = KV_PROBES * 4 + rows * KV_SLOTS * 4 + half * 4 + KV_PROBES * 8
+    b_ms, b_by = _bound_ms(nbytes, 0, torch.int32)
+    rec = dict(
+        shape=(f"keys [{KV_PROBES}] (half stored), table [{KV_BUCKETS},"
+               f"{KV_SLOTS}] int32 x2"),
+        max_abs_err=0.0,
+        ms=_time_ms([lambda p=p: cuckoo_probe(p, bk_d, bv_d)
+                     for p in probes]),
+        launch_ms=_time_ms([lambda p=p: cuckoo_probe(p, bk_d, bv_d)
+                            for p in probes], queued=False),
+        plain_ms=_time_ms([lambda p=p: reference_cuckoo_probe(
+            p, *hash_pair(p, KV_BUCKETS), bk_d, bv_d) for p in probes],
+            iters=8),
+        library_ms=None, library="none: no PyTorch call probes a cuckoo "
+        "table", bound_ms=b_ms, bound_by=b_by)
+    print(f"  phase 6 wall {time.perf_counter() - t0:.1f} s")
+    return launches, rec
+
+
+# ---------------------------------------------------------------- phase 7
+def _separated_id_mismatches(d_ref_k1, ids, ids_ref):
+    """ids equal wherever the plain version's neighbouring distances (its
+    k+1 nearest, so the k-th has a next) differ by more than ANN_TIE."""
+    import torch
+    gap = d_ref_k1[:, 1:] - d_ref_k1[:, :-1]
+    sep = torch.ones_like(ids, dtype=torch.bool)
+    sep[:, 1:] &= gap[:, :-1] > ANN_TIE
+    sep &= gap > ANN_TIE
+    return int(((ids != ids_ref) & sep).sum()), int(sep.sum())
+
+
+def phase_ann():
+    """Two-stage search over the full corpus on the card, ann_topk held
+    against its plain version and timed. Returns (launches, record)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.ann.corpus import make_corpus, make_queries
+    from repro_torch.ann.progressive import exact_topk, recall_at_k, search
+    from repro_torch.kernels.ann_topk import ann_topk, reference_ann_topk
+
+    t0 = time.perf_counter()
+    full_np, red_np, _ = make_corpus(ANN_N, ANN_D_FULL, ANN_D_RED,
+                                     seed=SEED)
+    qs_np = make_queries(full_np, ANN_Q)
+    full = torch.from_numpy(full_np).cuda()
+    red = torch.from_numpy(red_np).cuda()
+    qs = torch.from_numpy(qs_np).cuda()
+    del full_np
+    small_full, small_red, _ = make_corpus(ANN_SMALL[0], ANN_D_FULL,
+                                           ANN_D_RED)
+    small_q = make_queries(small_full, ANN_SMALL[1])
+    print(f"  corpus {ANN_N} x {ANN_D_FULL} f32 ({full.numel() * 4 / 2**30:.2f}"
+          f" GiB) + reduced {ANN_D_RED}-d, {ANN_Q} queries, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pred, stats = search(qs, red, full, k=ANN_K, promote=ANN_PROMOTE,
+                         device="cuda")
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t1
+    small_pred, _ = search(small_q, small_red, small_full, k=ANN_K,
+                           promote=ANN_PROMOTE, device="cuda")
+    launches = kernels.launch_counts()["ann_topk"]
+
+    truth = exact_topk(qs, full, ANN_K, device="cuda")
+    rec = recall_at_k(pred, truth)
+    small_rec = recall_at_k(small_pred, exact_topk(
+        small_q, small_full, ANN_K, device="cuda"))
+    print(f"  search {ANN_Q} queries over {ANN_N}: recall@{ANN_K} = {rec!r} "
+          f"against exact search on the card; {t_search * 1e3:.1f} ms wall; "
+          f"{stats}")
+    print(f"  search at the reference tests' size ({ANN_SMALL[0]} vectors, "
+          f"{ANN_SMALL[1]} queries): recall@{ANN_K} = {small_rec!r}")
+    assert pred.shape == (ANN_Q, ANN_K) and small_rec > 0.98, small_rec
+    assert int(pred.min()) >= 0 and int(pred.max()) < ANN_N
+    assert bool((pred.sort(dim=1).values.diff(dim=1) > 0).all())
+
+    # ann_topk against its plain version at the path's shapes
+    q_red = qs[:, :ANN_D_RED].contiguous()
+    errs = []
+    for q_, c_, lab in ((q_red, red, f"[{ANN_Q},{ANN_D_RED}] x "
+                         f"[{ANN_N},{ANN_D_RED}]"),
+                        (torch.from_numpy(small_q[:, :ANN_D_RED]).cuda(),
+                         torch.from_numpy(small_red).cuda(),
+                         f"[{ANN_SMALL[1]},{ANN_D_RED}] x "
+                         f"[{ANN_SMALL[0]},{ANN_D_RED}]")):
+        d, ids = ann_topk(q_, c_, k=ANN_PROMOTE)
+        rd, rids = reference_ann_topk(q_, c_, ANN_PROMOTE + 1)
+        err = float((d - rd[:, :-1]).abs().max())
+        bad, n_sep = _separated_id_mismatches(rd, ids, rids[:, :-1])
+        assert err <= ANN_ATOL and bad == 0, (lab, err, bad)
+        errs.append(err)
+        print(f"  check ann_topk          {lab} k={ANN_PROMOTE} "
+              f"max_abs_err={err:.3e}; ids equal at all {n_sep} separated "
+              f"places ({int((ids != rids[:, :-1]).sum())} near-tie swaps) ok")
+
+    cn = torch.sum(red * red, dim=1)
+    nbytes = (q_red.numel() + red.numel()) * 4 + ANN_Q * ANN_PROMOTE * 8
+    b_ms, b_by = _bound_ms(nbytes, 2 * ANN_Q * ANN_N * ANN_D_RED,
+                           torch.float32)
+    out = dict(
+        shape=(f"queries [{ANN_Q},{ANN_D_RED}] corpus [{ANN_N},{ANN_D_RED}]"
+               f" f32, k={ANN_PROMOTE}"),
+        max_abs_err=errs[0],
+        ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
+                    iters=10),
+        launch_ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
+                           iters=10, queued=False),
+        plain_ms=_time_ms([lambda: reference_ann_topk(q_red, red,
+                                                      ANN_PROMOTE)],
+                          iters=5),
+        library_ms=_time_ms([lambda: torch.topk(torch.addmm(
+            cn[None, :], q_red, red.T, alpha=-2.0), ANN_PROMOTE,
+            largest=False)], iters=10),
+        library="torch.addmm(|c|^2, q, c.T, alpha=-2) + torch.topk "
+        "(|c|^2 precomputed)",
+        bound_ms=b_ms, bound_by=b_by)
+    # where stage 1's time goes: the kernel at k = 1 (products, almost no
+    # fold) and a bare float32 GEMM of the same shape
+    k1_ms = _time_ms([lambda: ann_topk(q_red, red, k=1)], iters=10)
+    gemm_ms = _time_ms([lambda: torch.addmm(cn[None, :], q_red, red.T,
+                                            alpha=-2.0)], iters=10)
+    print(f"  time  ann_topk at k=1 {k1_ms:.4f} ms; torch.addmm alone "
+          f"{gemm_ms:.4f} ms (same shape, float32)")
+    print(f"  phase 7 wall {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -480,6 +758,19 @@ def main() -> int:
     counts = phase_serving(cfg, prompts)
     print("[5] reduced gemma-2b, float32, kernels vs plain path")
     phase_reduced(rng)
+    print("[6] cuckoo KV store: demo scenario and a 2^23 x 8 table")
+    counts["cuckoo_probe"], rec["cuckoo_probe"] = phase_kvstore()
+    print("[7] two-stage ANN search over 262,144 vectors")
+    counts["ann_topk"], rec["ann_topk"] = phase_ann()
+    for name in ("cuckoo_probe", "ann_topk"):
+        r = rec[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
+              f"(with host launch {r['launch_ms']:.4f}) plain_ms="
+              f"{r['plain_ms']:.4f} library_ms={lib} ({r['library']}) "
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
+              f"launches {counts[name]}")
+        assert counts[name] > 0, f"{name} kernel never launched on its path"
 
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

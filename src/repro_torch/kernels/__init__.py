@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the serving path, one package each:
+"""Hand-written Hopper kernels, one package each:
 `ops.py` holds the wrapper (kernel on a CUDA tensor, plain version on a
 CPU tensor, nothing else) with its launch counter, `ref.py` the plain
 PyTorch version, and `csrc/<name>.cu` the CUDA C++ source.
@@ -9,12 +9,15 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .ann_topk.ops import ann_topk
+from .cuckoo_probe.ops import cuckoo_probe
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
 from .rmsnorm.ops import rmsnorm
 
 WRAPPERS = {"rmsnorm": rmsnorm, "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "cuckoo_probe": cuckoo_probe, "ann_topk": ann_topk}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -28,7 +28,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("rmsnorm", "decode_attention", "flash_attention")
+SOURCES = ("rmsnorm", "decode_attention", "flash_attention", "cuckoo_probe",
+           "ann_topk")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,8 @@ SIGNATURES = {
     "flash_attention": (
         "flash_attention_fwd",
         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),
+    "cuckoo_probe": ("cuckoo_probe_fwd", [_P] * 5 + [_LL, _I, _I, _P]),
+    "ann_topk": ("ann_topk_fwd", [_P] * 6 + [_I, _LL] + [_I] * 4 + [_P]),
 }
 
 

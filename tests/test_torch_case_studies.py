@@ -1,0 +1,600 @@
+"""The port's case studies (paper §VII: the SSD-resident blocked-cuckoo KV
+store and two-stage ANN search) against the JAX reference, on the same
+seeded numpy inputs.
+
+Exact: the bucket hashes, the probe's plain version, every table, counter
+and `get` of the stores, the virtual-clock times and report of the timed
+store, and the corpus. rtol 1e-12: the Fig. 8 / Fig. 10 analytic models
+(float64 on both sides, summed in the same order). ann_topk's plain
+version: sorted distances to atol 1e-3 and sorted ids > 99% equal, the
+tolerance tests/test_kernels.py holds the Pallas kernel to (float32
+products in another order reorder near-ties). search: ids >= 99% equal
+and recall within 0.005 of the reference's, for the same reason.
+
+The JAX Pallas kernels run in interpret mode, as tests/test_kernels.py
+runs them. On the CPU the port's wrappers take the plain version and
+count no launch; the CUDA kernels are held against the plain versions on
+the card by chip_smoke.py."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.ann import model as j_ann_model
+from repro.ann.corpus import make_corpus as j_make_corpus, \
+    make_queries as j_make_queries
+from repro.ann.progressive import exact_topk as j_exact_topk, \
+    recall_at_k as j_recall, search as j_search
+from repro.core.policy import Tier as JTier, TieringPolicy as JPolicy
+from repro.kernels.ann_topk.ops import ann_topk as j_ann_topk
+from repro.kernels.ann_topk.ref import reference_ann_topk as j_ann_ref
+from repro.kernels.cuckoo_probe.ops import cuckoo_probe as j_probe, \
+    hash_pair as j_hash_pair
+from repro.kernels.cuckoo_probe.ref import \
+    reference_cuckoo_probe as j_probe_ref
+from repro.kvstore import model as j_kv_model
+from repro.kvstore.cuckoo import BlockedCuckooStore as JStore, \
+    h1 as j_h1, h2 as j_h2
+from repro.kvstore.tiered import TimedCuckooStore as JTimed
+from repro.runtime import TieredStore as JTiered, VirtualClock as JClock
+from repro_torch import kernels as K
+from repro_torch.ann import model as t_ann_model
+from repro_torch.ann.corpus import make_corpus, make_queries
+from repro_torch.ann.progressive import exact_topk, recall_at_k, search
+from repro_torch.core.policy import Tier as TTier, TieringPolicy as TPolicy
+from repro_torch.kernels.ann_topk.ops import BLOCKS_PER_SM, split_plan
+from repro_torch.kernels.ann_topk.ref import reference_ann_topk, smallest_k
+from repro_torch.kernels.cuckoo_probe.ops import hash_pair
+from repro_torch.kernels.cuckoo_probe.ref import reference_cuckoo_probe
+from repro_torch.kvstore import model as t_kv_model
+from repro_torch.kvstore.cuckoo import BlockedCuckooStore as TStore, h1, h2
+from repro_torch.kvstore.tiered import TimedCuckooStore as TTimed
+from repro_torch.runtime import TieredStore as TTiered, \
+    VirtualClock as TClock
+
+CPU = "cpu"
+
+
+def _keys(rng, n=2000):
+    """Edge keys (0 is the empty sentinel, negatives wrap to uint32) and
+    random int32 keys."""
+    edge = np.array([0, 1, 2, -1, -2, 2**31 - 1, -2**31, 65535, 65536,
+                     0x9E3779B1 - 2**32], np.int64)
+    rand = rng.integers(-2**31, 2**31, n)
+    return np.concatenate([edge, rand]).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# hashes: exact
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb", [1, 7, 128, 1000, 8192, 2**23 - 1, 2**23,
+                                2**31 - 1])
+def test_hash_pair_and_h1_h2_equal_reference(nb):
+    keys = _keys(np.random.default_rng(nb))
+    jb1, jb2 = (np.asarray(b) for b in j_hash_pair(jnp.asarray(keys), nb))
+    tb1, tb2 = (b.numpy() for b in hash_pair(torch.from_numpy(keys), nb))
+    assert tb1.dtype == jb1.dtype == np.int32
+    np.testing.assert_array_equal(tb1, jb1)
+    np.testing.assert_array_equal(tb2, jb2)
+    # the store's host hashes, on int32 and on int64 keys (flush hashes
+    # int64 arrays)
+    for arr in (keys, keys.astype(np.int64)):
+        np.testing.assert_array_equal(h1(arr, nb), j_h1(arr, nb))
+        np.testing.assert_array_equal(h2(arr, nb), j_h2(arr, nb))
+    np.testing.assert_array_equal(h1(keys, nb), tb1)
+    np.testing.assert_array_equal(h2(keys, nb), tb2)
+
+
+# ---------------------------------------------------------------------------
+# cuckoo probe: the plain version against the Pallas kernel and the oracle
+# ---------------------------------------------------------------------------
+
+def _build_table(nb, slots, n_items, seed=0):
+    """As tests/test_kernels.py builds its tables: first free slot of h1,
+    then of h2."""
+    rng = np.random.default_rng(seed)
+    bk = np.zeros((nb, slots), np.int32)
+    bv = np.zeros((nb, slots), np.int32)
+    keys = rng.choice(np.arange(1, 10**6), size=n_items,
+                      replace=False).astype(np.int32)
+    b1, b2 = (np.asarray(h) for h in j_hash_pair(jnp.asarray(keys), nb))
+    stored = []
+    for kk, x1, x2 in zip(keys, b1, b2):
+        for b in (x1, x2):
+            free = np.where(bk[b] == 0)[0]
+            if len(free):
+                bk[b, free[0]] = kk
+                bv[b, free[0]] = int(kk) % 9973
+                stored.append(kk)
+                break
+    return bk, bv, np.array(stored, np.int32)
+
+
+def _probe_both(probe, bk, bv):
+    nb = bk.shape[0]
+    jf, jv = j_probe(jnp.asarray(probe), jnp.asarray(bk), jnp.asarray(bv))
+    rf, rv = j_probe_ref(jnp.asarray(probe),
+                         *j_hash_pair(jnp.asarray(probe), nb),
+                         jnp.asarray(bk), jnp.asarray(bv))
+    tk, tbk, tbv = (torch.from_numpy(x) for x in (probe, bk, bv))
+    tf, tv = reference_cuckoo_probe(tk, *hash_pair(tk, nb), tbk, tbv)
+    assert tf.dtype == tv.dtype == torch.int32
+    return (np.asarray(jf), np.asarray(jv), np.asarray(rf), np.asarray(rv),
+            tf.numpy(), tv.numpy())
+
+
+@pytest.mark.parametrize("nb,slots,n", [(128, 8, 400), (512, 4, 800),
+                                        (97, 5, 300)])
+def test_cuckoo_probe_plain_equals_reference(nb, slots, n):
+    bk, bv, stored = _build_table(nb, slots, n)
+    rng = np.random.default_rng(1)
+    miss = rng.integers(2 * 10**6, 3 * 10**6, 64).astype(np.int32)
+    probe = np.concatenate([stored[:128], miss])
+    jf, jv, rf, rv, tf, tv = _probe_both(probe, bk, bv)
+    for f, v in ((jf, jv), (rf, rv)):
+        np.testing.assert_array_equal(tf, f)
+        np.testing.assert_array_equal(tv, v)
+    n_stored = min(128, len(stored))
+    assert tf[:n_stored].all() and not tf[n_stored:].any()
+    np.testing.assert_array_equal(tv[:n_stored], stored[:128] % 9973)
+    # on CPU tensors the wrapper is the plain version and counts nothing
+    K.reset_launch_counts()
+    wf, wv = K.cuckoo_probe(*(torch.from_numpy(x) for x in (probe, bk, bv)))
+    np.testing.assert_array_equal(wf.numpy(), tf)
+    np.testing.assert_array_equal(wv.numpy(), tv)
+    assert K.launch_counts()["cuckoo_probe"] == 0
+
+
+def _hand_table():
+    """A duplicate key in one bucket, a key in both of its buckets, and
+    empty slots that key 0 matches."""
+    nb, slots = 16, 4
+    bk = np.zeros((nb, slots), np.int32)
+    bv = np.zeros((nb, slots), np.int32)
+    b1, b2 = (np.asarray(h) for h in j_hash_pair(
+        jnp.asarray(np.arange(1, 200, dtype=np.int32)), nb))
+    both = next(k for k in range(1, 200) if b1[k - 1] != b2[k - 1])
+    dup = next(k for k in range(1, 200) if k != both
+               and b1[k - 1] not in (b1[both - 1], b2[both - 1]))
+    bk[b1[both - 1], 0], bv[b1[both - 1], 0] = both, 11      # bucket 1
+    bk[b2[both - 1], 1], bv[b2[both - 1], 1] = both, 22      # bucket 2
+    bk[b1[dup - 1], 2:4] = dup                               # twice
+    bv[b1[dup - 1], 2:4] = (5, 7)
+    return bk, bv, both, dup
+
+
+def test_cuckoo_probe_hand_made_table():
+    bk, bv, both, dup = _hand_table()
+    probe = np.array([both, dup, 0, 12345], np.int32)
+    jf, jv, rf, rv, tf, tv = _probe_both(probe, bk, bv)
+    for f, v in ((jf, jv), (rf, rv)):
+        np.testing.assert_array_equal(tf, f)
+        np.testing.assert_array_equal(tv, v)
+    # bucket 1 wins; duplicates sum; key 0 finds an empty slot (value 0)
+    np.testing.assert_array_equal(tf, [1, 1, 1, 0])
+    np.testing.assert_array_equal(tv, [11, 12, 0, 0])
+
+
+def test_cuckoo_probe_duplicate_sum_wraps_in_int32():
+    """Duplicate hits sum with int32 wrap-around, as the Pallas kernel
+    pins its accumulator to int32."""
+    bk, bv, _, dup = _hand_table()
+    row = np.nonzero((bk == dup).any(axis=1))[0][0]
+    bv[row, 2:4] = (2**31 - 1, 2**31 - 2)
+    probe = np.array([dup], np.int32)
+    jf, jv, _, _, tf, tv = _probe_both(probe, bk, bv)
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tv, jv)
+    assert tv[0] == np.int32(-3)
+
+
+def test_new_wrappers_refuse_other_devices():
+    t = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="all on one CUDA device"):
+        K.cuckoo_probe(t, torch.zeros(2, 4, dtype=torch.int32),
+                       torch.zeros(2, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="all on one CUDA device"):
+        K.ann_topk(torch.empty(2, 8, device="meta"), torch.empty(16, 8))
+
+
+# ---------------------------------------------------------------------------
+# BlockedCuckooStore: same seed, same operations -> same table and counters
+# ---------------------------------------------------------------------------
+
+def _fill(nb, slots, load, seed, wal_limit=64, cache=0):
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(np.arange(1, 10**7), size=int(nb * slots * load),
+                      replace=False)
+    stores = (JStore(nb, slots=slots, wal_limit=wal_limit, seed=seed,
+                     dram_cache_items=cache),
+              TStore(nb, slots=slots, wal_limit=wal_limit, seed=seed,
+                     dram_cache_items=cache, device=CPU))
+    for s in stores:
+        for k in keys:
+            s.put(int(k), int(k) % 7919)
+        s.flush()
+    return stores, keys, rng
+
+
+def _assert_same_store(js, ts):
+    np.testing.assert_array_equal(ts.keys, js.keys)
+    np.testing.assert_array_equal(ts.vals, js.vals)
+    assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
+    assert ts.cache == js.cache and ts.wal == js.wal
+
+
+@pytest.mark.parametrize("nb,slots,load,seed,cache", [
+    (512, 8, 0.5, 0, 0), (256, 8, 0.9, 3, 0), (512, 4, 0.85, 7, 32),
+    (300, 8, 0.7, 11, 64)])
+def test_store_fill_and_gets_identical(nb, slots, load, seed, cache):
+    (js, ts), keys, rng = _fill(nb, slots, load, seed, cache=cache)
+    _assert_same_store(js, ts)
+    if load >= 0.85:
+        assert ts.stats.relocations > 0          # displacement chains ran
+    probe = np.concatenate([keys[rng.integers(0, len(keys), 200)],
+                            rng.integers(10**7, 2 * 10**7, 50)])
+    for k in probe:
+        assert ts.get(int(k)) == js.get(int(k))
+    _assert_same_store(js, ts)
+    # updates and WAL visibility after the gets
+    for k in keys[:40]:
+        js.put(int(k), -int(k))
+        ts.put(int(k), -int(k))
+    assert [ts.get(int(k)) for k in keys[:40]] == \
+        [js.get(int(k)) for k in keys[:40]]
+    js.flush()
+    ts.flush()
+    _assert_same_store(js, ts)
+
+
+def test_store_small_scenarios_identical():
+    """tests/test_case_studies.py's roundtrip, WAL and update scenarios."""
+    pairs = [(JStore(1024, slots=8, wal_limit=32),
+              TStore(1024, slots=8, wal_limit=32, device=CPU)),
+             (JStore(256, slots=8, wal_limit=1000),
+              TStore(256, slots=8, wal_limit=1000, device=CPU)),
+             (JStore(256, slots=8, wal_limit=1),
+              TStore(256, slots=8, wal_limit=1, device=CPU))]
+    for s in pairs[0]:
+        for k in range(1, 2000):
+            s.put(k, k * 3)
+        s.flush()
+    for s in pairs[1]:
+        s.put(42, 1)
+        s.put(42, 2)
+        s.put(42, 3)
+    for s in pairs[2]:
+        s.put(7, 10)
+        s.put(7, 20)
+    for js, ts in pairs:
+        for k in (1, 7, 42, 500, 1999, 123456):
+            assert ts.get(k) == js.get(k)
+        js.flush()
+        ts.flush()
+        _assert_same_store(js, ts)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_get_batch_equals_reference(use_kernel):
+    (js, ts), keys, rng = _fill(256, 8, 0.8, 5)
+    probe = np.concatenate([keys[rng.integers(0, len(keys), 160)],
+                            rng.integers(10**7, 2 * 10**7, 32),
+                            [0]]).astype(np.int32)
+    jf, jv = js.get_batch(probe, use_kernel=use_kernel)
+    tf, tv = ts.get_batch(probe, use_kernel=use_kernel)
+    assert isinstance(tf, np.ndarray)
+    np.testing.assert_array_equal(tf, np.asarray(jf))
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    assert tf[:160].all() and not tf[160:192].any()
+    np.testing.assert_array_equal(tv[:160], probe[:160] % 7919)
+    assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
+    # a tensor in gives tensors back, with the same answers
+    f2, v2 = ts.get_batch(torch.from_numpy(probe), use_kernel=use_kernel)
+    np.testing.assert_array_equal(f2.numpy(), tf)
+    np.testing.assert_array_equal(v2.numpy(), tv)
+
+
+def test_from_table_probes_the_reference_table():
+    (js, _), keys, _ = _fill(512, 8, 0.7, 2)
+    ts = TStore.from_table(js.keys, js.vals, stats=js.stats, device=CPU)
+    assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
+    assert ts.stats is not js.stats
+    probe = keys[:300].astype(np.int32)
+    jf, jv = js.get_batch(probe, use_kernel=False)
+    tf, tv = ts.get_batch(probe)
+    np.testing.assert_array_equal(tf, np.asarray(jf))
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    assert tf.all()
+    with pytest.raises(ValueError, match="n_buckets, slots"):
+        TStore.from_table(js.keys, js.vals[:, :4], device=CPU)
+
+
+def test_device_table_uploads_only_after_a_write():
+    ts = TStore(64, slots=8, wal_limit=4, device=CPU)
+    for k in range(1, 5):
+        ts.put(k, k)                         # the 4th put flushes
+    t1 = ts.device_table()
+    assert ts.device_table()[0] is t1[0]     # no write: same copy
+    ts.get_batch(np.arange(1, 5, dtype=np.int32))
+    assert ts.device_table()[0] is t1[0]
+    ts.put(9, 9)                             # in the WAL only
+    assert ts.device_table()[0] is t1[0]
+    ts.flush()
+    t2 = ts.device_table()
+    assert t2[0] is not t1[0]
+    f, v = ts.get_batch(np.array([9], np.int32))
+    assert f[0] == 1 and v[0] == 9
+
+
+# ---------------------------------------------------------------------------
+# TimedCuckooStore: identical virtual-clock times, stats and report
+# ---------------------------------------------------------------------------
+
+def _timed_put_get(Timed, **kw):
+    s = Timed(128, slots=8, dram_cache_items=16, wal_limit=4, **kw)
+    for k in range(1, 9):
+        s.put(k, k * 2)
+    s.flush()
+    out = [s.get(3), s.clock.now(), s.get(3), s.clock.now(), s.get(9999),
+           s.clock.now()]
+    return s, out
+
+
+def _timed_batched(Timed, **kw):
+    def build():
+        s = Timed(256, slots=8, wal_limit=1 << 30, seed=0, **kw)
+        for k in range(1, 201):
+            s.inner.put(k, k * 3)
+        s.inner.flush()
+        return s
+    serial = build()
+    t0 = serial.clock.now()
+    for k in range(1, 101):
+        serial.get(k)
+    batched = build()
+    t1 = batched.clock.now()
+    vals = batched.get_many(range(1, 101))
+    return batched, [serial.clock.now() - t0, batched.clock.now() - t1,
+                     vals, serial.modeled_report(),
+                     dataclasses.asdict(serial.stats)]
+
+
+@pytest.mark.parametrize("scenario", [_timed_put_get, _timed_batched])
+def test_timed_store_identical(scenario):
+    js, jout = scenario(JTimed)
+    ts, tout = scenario(TTimed, device=CPU)
+    assert tout == jout
+    assert ts.modeled_report() == js.modeled_report()
+    assert dataclasses.asdict(ts.stats) == dataclasses.asdict(js.stats)
+    assert {t.name: dataclasses.asdict(q)
+            for t, q in ts.runtime.qstats.items()} == \
+        {t.name: dataclasses.asdict(q) for t, q in js.runtime.qstats.items()}
+    assert ts.runtime.qstats[TTier.FLASH].submitted > 0
+
+
+# ---------------------------------------------------------------------------
+# Fig. 8 and Fig. 10 analytic models: rtol 1e-12
+# ---------------------------------------------------------------------------
+
+def _assert_same_record(t, j):
+    assert t.keys() == j.keys()
+    for key, want in j.items():
+        if isinstance(want, str):
+            assert t[key] == want, key
+        else:
+            np.testing.assert_allclose(t[key], want, rtol=1e-12,
+                                       err_msg=key)
+
+
+@pytest.mark.parametrize("plat", ["gpu_sn_platform", "cpu_sn_platform",
+                                  "gpu_nr_platform", "cpu_nr_platform"])
+@pytest.mark.parametrize("get_frac,sigma", [(0.9, 1.2), (0.9, 0.4),
+                                            (0.5, 1.2)])
+@pytest.mark.parametrize("dram", [64e9, 256e9])
+def test_kv_model_matches_reference(plat, get_frac, sigma, dram):
+    j = j_kv_model.achievable_throughput(
+        getattr(j_kv_model, plat)(),
+        j_kv_model.KvWorkload(get_frac=get_frac, sigma=sigma), dram)
+    t = t_kv_model.achievable_throughput(
+        getattr(t_kv_model, plat)(),
+        t_kv_model.KvWorkload(get_frac=get_frac, sigma=sigma), dram)
+    _assert_same_record(t, j)
+
+
+@pytest.mark.parametrize("plat", ["gpu_sn", "cpu_sn", "gpu_nr"])
+@pytest.mark.parametrize("dram", [64e9, 256e9, 512e9])
+def test_ann_model_matches_reference(plat, dram):
+    j = j_ann_model.throughput_kqps(getattr(j_ann_model, plat)(),
+                                    j_ann_model.AnnWorkload(), dram)
+    t = t_ann_model.throughput_kqps(getattr(t_ann_model, plat)(),
+                                    t_ann_model.AnnWorkload(), dram)
+    _assert_same_record(t, j)
+
+
+# ---------------------------------------------------------------------------
+# ANN: corpus, ann_topk's plain version, two-stage search
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d_full,d_red,seed", [(500, 64, 16, 0),
+                                                 (2000, 1024, 128, 3)])
+def test_corpus_identical(n, d_full, d_red, seed):
+    jf, jr, ja = j_make_corpus(n, d_full, d_red, seed=seed)
+    tf, tr, ta = make_corpus(n, d_full, d_red, seed=seed)
+    for t, j in ((tf, jf), (tr, jr), (ta, ja)):
+        assert t.dtype == j.dtype
+        np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(make_queries(tf, 50, seed=seed + 1),
+                                  j_make_queries(jf, 50, seed=seed + 1))
+
+
+@pytest.mark.parametrize("Q,N,D,k,tile", [
+    (64, 1000, 64, 8, 256),
+    (100, 2000, 128, 16, 512),
+    (16, 300, 32, 4, 128),    # ragged corpus tail
+])
+def test_ann_topk_plain_matches_reference(Q, N, D, k, tile):
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((Q, D)).astype(np.float32)
+    c = rng.standard_normal((N, D)).astype(np.float32)
+    td, ti = reference_ann_topk(torch.from_numpy(q), torch.from_numpy(c), k)
+    assert td.dtype == torch.float32 and ti.dtype == torch.int32
+    assert td.shape == ti.shape == (Q, k)
+    td, ti = td.numpy(), ti.numpy()
+    for jd, ji in (j_ann_topk(jnp.asarray(q), jnp.asarray(c), k=k,
+                              tile=tile),
+                   j_ann_ref(jnp.asarray(q), jnp.asarray(c), k)):
+        np.testing.assert_allclose(np.sort(td, axis=1),
+                                   np.sort(np.asarray(jd), axis=1),
+                                   atol=1e-3)
+        assert (np.sort(ti, axis=1)
+                == np.sort(np.asarray(ji), axis=1)).mean() > 0.99
+    # sorted ascending, and the wrapper on CPU tensors is the plain version
+    assert (np.diff(td, axis=1) >= 0).all()
+    K.reset_launch_counts()
+    wd, wi = K.ann_topk(torch.from_numpy(q), torch.from_numpy(c), k=k)
+    np.testing.assert_array_equal(wd.numpy(), td)
+    np.testing.assert_array_equal(wi.numpy(), ti)
+    assert K.launch_counts()["ann_topk"] == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 1234, 65535])
+def test_ann_topk_self_retrieval(seed):
+    """A corpus vector queries itself as its own top-1."""
+    corpus = np.random.default_rng(seed).standard_normal(
+        (257, 32)).astype(np.float32)
+    c = torch.from_numpy(corpus)
+    _, ids = K.ann_topk(c[:32], c, k=1)
+    np.testing.assert_array_equal(ids[:, 0].numpy(), np.arange(32))
+
+
+def test_ann_topk_ties_go_to_the_lower_id_and_k_is_bounded():
+    c = torch.tensor([[1.0, 0.0], [0.0, 0.0], [1.0, 0.0], [0.0, 0.0],
+                      [1.0, 0.0], [-0.5, 0.0]])
+    d, ids = K.ann_topk(torch.tensor([[1.0, 0.0]]), c, k=5)
+    np.testing.assert_array_equal(ids.numpy(), [[0, 2, 4, 1, 3]])
+    np.testing.assert_array_equal(d.numpy(), [[-1, -1, -1, 0, 0]])
+    # smallest_k orders -0.0 and +0.0 as one zero
+    _, cols = smallest_k(torch.tensor([[0.0, -0.0, 0.0]]), 3)
+    np.testing.assert_array_equal(cols.numpy(), [[0, 1, 2]])
+    with pytest.raises(ValueError, match="must lie in"):
+        K.ann_topk(torch.zeros(1, 2), c, k=7)
+    with pytest.raises(ValueError, match="must lie in"):
+        K.ann_topk(torch.zeros(1, 2), c, k=0)
+
+
+@pytest.mark.parametrize("Q,N,n_sm", [(1024, 262144, 132), (100, 8000, 132),
+                                      (200, 20000, 132), (1, 1, 132),
+                                      (5000, 64, 132), (64, 10**6, 8)])
+def test_split_plan_covers_every_tile_once(Q, N, n_sm):
+    n_splits, per = split_plan(Q, N, n_sm)
+    n_tiles = -(-N // 64)
+    q_blocks = -(-Q // 64)
+    assert 1 <= n_splits <= 128
+    # every split has a tile; together they cover all tiles
+    assert (n_splits - 1) * per < n_tiles <= n_splits * per
+    # one wave of resident blocks, unless the query blocks alone exceed it
+    assert n_splits == 1 or q_blocks * n_splits <= BLOCKS_PER_SM * n_sm
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    full, red, _ = make_corpus(8000, 1024, 128)
+    qs = make_queries(full, 100)
+    truth = j_exact_topk(qs, full, 10)
+    return full, red, qs, truth
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_search_matches_reference(corpus, use_kernel):
+    full, red, qs, truth = corpus
+    jp, jst = j_search(qs, red, full, k=10, promote=64,
+                       use_kernel=use_kernel)
+    tp, tst = search(qs, red, full, k=10, promote=64,
+                     use_kernel=use_kernel, device=CPU)
+    assert tp.shape == (100, 10) and tp.device.type == "cpu"
+    assert (tp.numpy() == np.asarray(jp)).mean() >= 0.99
+    t_truth = exact_topk(qs, full, 10, device=CPU)
+    assert (t_truth.numpy() == truth).mean() >= 0.99
+    t_rec = recall_at_k(tp, t_truth)
+    j_rec = j_recall(np.asarray(jp), truth)
+    assert abs(t_rec - j_rec) <= 0.005
+    assert t_rec > 0.98                      # the paper's claim
+    assert recall_at_k(tp.numpy(), truth) == j_recall(tp.numpy(), truth)
+    assert dataclasses.asdict(tst) == dataclasses.asdict(jst)
+
+
+# ---------------------------------------------------------------------------
+# entry points need a device without CUDA
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_case_study_entry_points_need_a_device_without_cuda(no_cuda):
+    q = np.zeros((2, 8), np.float32)
+    c = np.ones((16, 8), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TStore(64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TTimed(64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search(q, c[:, :4], c, k=2, promote=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        exact_topk(q, c, 2)
+    # the explicit choice runs
+    assert TStore(64, device=CPU).device_table()[0].device.type == "cpu"
+    ids, _ = search(q, c[:, :4], c, k=2, promote=4, device=CPU)
+    assert ids.shape == (2, 2)
+
+
+# ---------------------------------------------------------------------------
+# prefetch counters at a gap the virtual clock cannot represent
+# ---------------------------------------------------------------------------
+
+def _prefetch_counters(Store, Policy, Tier, Clock, gaps):
+    """The body of tests/test_service_properties.py's prefetch-counter
+    property, returning what it would compare."""
+    clock = Clock()
+    store = Store(Policy(tau_hot=1e-12, tau_be=1e-9, ema_alpha=1.0),
+                  clock=clock)
+    for i in range(4):
+        store.put(("k", i), np.ones(1 << 14, np.float32), tier=Tier.FLASH)
+    store.runtime.drain()
+    waited_with_gap = 0
+    for i, gap in enumerate(gaps):
+        pf = store.get_async(("k", i % 4))
+        if gap > 0:
+            store.runtime.advance(gap)
+            waited_with_gap += 1
+        pf.wait()
+    st_ = store.stats[Tier.FLASH]
+    return st_.prefetch_hits, st_.prefetch_late, waited_with_gap, \
+        clock.now()
+
+
+@pytest.mark.parametrize("gaps", [[1.1125369292536007e-308],
+                                  [0.0, 0.01, 1e-3], [2e-2] * 6])
+def test_prefetch_counters_follow_the_reference(gaps):
+    """The port follows the reference: a wait counts as a prefetch only if
+    the clock moved past the fetch's issue time. At the subnormal gap
+    1.1125369292536007e-308 (the example hypothesis recorded against
+    tests/test_service_properties.py) the clock stands at the drained
+    flash writes, well above 1e-6 s, where adding 1e-308 leaves a float64
+    unchanged: no time passed, so neither package counts the wait, while
+    the reference's property counts every positive gap as waited — that
+    is why its own assertion fails there. Both packages' counters are
+    equal at that gap and at ordinary ones."""
+    ref = _prefetch_counters(JTiered, JPolicy, JTier, JClock, gaps)
+    port = _prefetch_counters(TTiered, TPolicy, TTier, TClock, gaps)
+    assert port == ref
+    hits, late, waited, now = port
+    if gaps[0] == 1.1125369292536007e-308:
+        assert now > 0 and now + gaps[0] == now
+        assert (hits, late, waited) == (0, 0, 1)
+    else:
+        assert hits + late == waited

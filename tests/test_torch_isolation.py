@@ -105,4 +105,5 @@ def test_kernel_wrappers_refuse_other_devices():
                            torch.ones(1, dtype=torch.int32))
     np.testing.assert_equal(K.launch_counts(),
                             {"rmsnorm": 0, "decode_attention": 0,
-                             "flash_attention": 0})
+                             "flash_attention": 0, "cuckoo_probe": 0,
+                             "ann_topk": 0})
