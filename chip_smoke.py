@@ -25,7 +25,15 @@ Drives the port's serving path on the card and checks it, in phases:
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
      search on the card, ann_topk against its plain version, and
-     recall@10 > 0.98 at the reference tests' size (8000 vectors).
+     recall@10 > 0.98 at the reference tests' size (8000 vectors);
+  8. the autopilot: the reuse-sketch kernel bit for bit against its plain
+     version (on the card and on the host) at the bench's shape, the
+     scale replay's (50,000 and 2^20 intervals), an empty batch, every
+     bucket edge +-64 ulps and special values; the admission benchmark
+     (4 scenarios x 240 steps) on the card, byte-identical to the same
+     suite on the CPU, with one kernel launch per observed key; and a
+     control plane of 20 steps x 50,000 Zipf keys over 1,000,000 ids
+     whose sketch is bit-identical on the card and the host every step.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -68,6 +76,8 @@ KERNELS = {
                      "src/repro/kernels/cuckoo_probe/kernel.py:70"),
     "ann_topk": ("src/repro_torch/csrc/ann_topk.cu",
                  "src/repro/kernels/ann_topk/kernel.py:80"),
+    "reuse_sketch": ("src/repro_torch/csrc/reuse_sketch.cu",
+                     "src/repro/kernels/reuse_sketch/kernel.py:54"),
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 # phase 6: examples/kvstore_demo.py's store, and one at deployment size
@@ -84,6 +94,10 @@ ANN_SMALL = (8000, 100)
 # order differ by ~1e-6 at these magnitudes (|d| <= 3); ids are compared
 # wherever the plain version's neighbouring distances differ by > 1e-5
 ANN_ATOL, ANN_TIE = 1e-4, 1e-5
+# phase 8: the scale replay's step (src/repro/serving/scale.py) and the
+# control plane fed with it: Zipf ids, the first PLANE_KV of class "kv"
+SKETCH_N_STEP = 50_000
+PLANE_STEPS, PLANE_KEYS, PLANE_KV = 20, 1_000_000, 100_000
 
 
 def _prompts(vocab: int, n: int, rng):
@@ -715,6 +729,230 @@ def phase_ann():
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 8
+def _sketch_edges(tau0: float, n_buckets: int):
+    """float32 intervals at tau0 * 2^b for b in -2 .. B+1, and 1 .. 64
+    ulps either side of each: where a floor of log2 can go either way."""
+    import numpy as np
+    base = np.float32(tau0) * np.exp2(np.arange(-2, n_buckets + 2)).astype(
+        np.float32)
+    steps = np.arange(-64, 65, dtype=np.int64)
+    bits = base.view(np.int32).astype(np.int64)[:, None] + steps[None, :]
+    return bits.astype(np.int32).view(np.float32).ravel()
+
+
+def _sketch_specials(n_classes: int):
+    """Special intervals crossed with in- and out-of-range class ids."""
+    import numpy as np
+    f32 = np.finfo(np.float32)
+    iv = np.array([0.0, -0.0, -1.0, -1e-9, np.nan, np.inf, -np.inf,
+                   1e-45, 1e-40, float(f32.tiny), 1e-30, 1e-9, 1e38,
+                   float(f32.max)], np.float32)
+    cls = np.array([-1, 0, 1, n_classes - 1, n_classes], np.int32)
+    return np.repeat(iv, len(cls)), np.tile(cls, len(iv))
+
+
+def phase_autopilot():
+    """The reuse-sketch kernel bit for bit against its plain version, the
+    admission benchmark on the card (byte-identical to the CPU run), and
+    a control plane at the scale replay's size. Returns (launches,
+    record)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.autopilot import ReuseTracker
+    from repro_torch.autopilot.bench import run_suite
+    from repro_torch.kernels.reuse_sketch import (reference_reuse_sketch,
+                                                  reuse_sketch_update)
+    from repro_torch.obs import bench_json
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def case(C, B, iv, cls, tau0, decay):
+        hist = (rng.random((C, B)) * 7).astype(np.float32)
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                (hist, iv.astype(np.float32), cls.astype(np.int32))] + [
+            dict(tau0=tau0, decay=decay)]
+
+    def log_uniform(n, C):
+        iv = np.power(10.0, rng.uniform(-9.0, 5.0, n)).astype(np.float32)
+        return iv, rng.integers(-1, C + 1, n)
+
+    C_BENCH, C_PLANE, B = 8, 4, 32
+    cases = {
+        "hist [8,32] N=1 (bench)": case(
+            C_BENCH, B, np.array([0.75]), np.array([0]), 1e-3, 0.995),
+        f"hist [4,32] N={SKETCH_N_STEP} log-uniform": case(
+            C_PLANE, B, *log_uniform(SKETCH_N_STEP, C_PLANE), 1e-3, 0.995),
+        "hist [4,32] N=2^20 log-uniform": case(
+            C_PLANE, B, *log_uniform(1 << 20, C_PLANE), 1e-3, 0.995),
+        "hist [4,32] N=0": case(
+            C_PLANE, B, np.zeros(0), np.zeros(0), 1e-3, 0.995),
+    }
+    # 7e-3: a multiply by tau0's float32 reciprocal would move some edges
+    for tau0 in (1e-3, 7e-3):
+        edges = _sketch_edges(tau0, B)
+        cases[f"hist [4,32] {edges.size} edges {tau0}*2^b +-64 ulps"] = \
+            case(C_PLANE, B, edges, rng.integers(0, C_PLANE, edges.size),
+                 tau0, 0.995)
+    sp_iv, sp_cls = _sketch_specials(C_PLANE)
+    cases[f"hist [4,32] {sp_iv.size} special values"] = case(
+        C_PLANE, B, sp_iv, sp_cls, 1e-3, 0.995)
+    for label, (h, iv, cls, kw) in cases.items():
+        got = reuse_sketch_update(h.to(dev), iv.to(dev), cls.to(dev), **kw)
+        want = reference_reuse_sketch(h.to(dev), iv.to(dev), cls.to(dev),
+                                      **kw)
+        host = reference_reuse_sketch(h, iv, cls, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        same_host = torch.equal(got.cpu().view(torch.int32),
+                                host.view(torch.int32))
+        assert same and same_host, f"reuse_sketch {label}: not bit-exact " \
+            f"(card plain {same}, host plain {same_host})"
+        counted = float((got - torch.full((), kw["decay"], device=dev)
+                         * h.to(dev)).sum())
+        print(f"  check reuse_sketch      {label:42s} bit-exact vs plain "
+              f"(card and host) ok; {counted:.0f} counted")
+
+    # times at the bench's shape and at the control plane's
+    def timed(C, n):
+        sets = [case(C, B, *log_uniform(n, C), 1e-3, 0.995)
+                for _ in range(4)]
+        sets = [(h.to(dev), iv.to(dev), cls.to(dev), kw)
+                for h, iv, cls, kw in sets]
+        nbytes = 8 * n + 8 * C * B
+        b_ms, b_by = _bound_ms(nbytes, 0, torch.float32)
+        return dict(
+            shape=f"hist [{C},{B}] f32, intervals [{n}] f32, class_ids "
+                  f"[{n}] i32",
+            max_abs_err=0.0,
+            ms=_time_ms([lambda s=s: reuse_sketch_update(
+                s[0], s[1], s[2], **s[3]) for s in sets]),
+            launch_ms=_time_ms([lambda s=s: reuse_sketch_update(
+                s[0], s[1], s[2], **s[3]) for s in sets], queued=False),
+            plain_ms=_time_ms([lambda s=s: reference_reuse_sketch(
+                s[0], s[1], s[2], **s[3]) for s in sets], iters=20),
+            library_ms=None, library="none: no PyTorch call computes a "
+            "decayed per-class log-bucket histogram",
+            bound_ms=b_ms, bound_by=b_by)
+    rec = timed(C_BENCH, 1)
+    for r in (rec, timed(C_PLANE, SKETCH_N_STEP), timed(C_PLANE, 1 << 20)):
+        print(f"  time  reuse_sketch      {r['shape']}: kernel_ms="
+              f"{r['ms']:.6f} (with host launch {r['launch_ms']:.6f}) "
+              f"plain_ms={r['plain_ms']:.6f} library_ms=none "
+              f"bound_ms={r['bound_ms']:.8f} ({r['bound_by']})")
+
+    # (b) the admission benchmark on the card, then on the host
+    trackers = []
+    init = ReuseTracker.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        trackers.append(self)
+
+    suite_kw = dict(n_steps=240, step_time=0.25, l_blk=128 << 10,
+                    dram_frac=0.35, alpha_accel=4.0, seed=SEED)
+    params = {"scenarios": ["zipf", "scan_flood", "diurnal",
+                            "multi_tenant"], "n_steps": 240,
+              "step_time_ms": 250.0, "l_blk_kib": 128.0, "dram_frac": 0.35,
+              "alpha_accel": 4.0, "seed": SEED}
+    ReuseTracker.__init__ = spy
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        on_card = run_suite(device="cuda", **suite_kw)
+        torch.cuda.synchronize()
+        wall_card = time.perf_counter() - t1
+        launches = kernels.launch_counts()["reuse_sketch"]
+    finally:
+        ReuseTracker.__init__ = init
+    observed = sum(t.observed for t in trackers)
+    assert all(t.hist.is_cuda for t in trackers) and len(trackers) == 4
+    t1 = time.perf_counter()
+    on_host = run_suite(device="cpu", **suite_kw)
+    wall_host = time.perf_counter() - t1
+    js_card = bench_json(dict(on_card, params=params))
+    js_host = bench_json(dict(on_host, params=params))
+    assert js_card == js_host, "admission benchmark differs between devices"
+    assert launches > 0 and launches == observed, (launches, observed)
+    print(f"  admission benchmark, 4 scenarios x 240 steps: gate wins "
+          f"{on_card['wins']}/{on_card['cells']}; bench_json identical on "
+          f"cuda and cpu (sha256 "
+          f"{hashlib.sha256(js_card.encode()).hexdigest()[:16]}); "
+          f"reuse_sketch launches {launches} == tracker.observed "
+          f"{observed}; wall {wall_card:.3f} s on cuda, {wall_host:.3f} s "
+          f"on cpu ({wall_card / observed * 1e6:.1f} us per observe on "
+          f"cuda)")
+    for cell in on_card["scenarios"]:
+        g = cell["runs"]["economic"]
+        print(f"    {cell['scenario']:12s} gate_wins={cell['gate_wins']} "
+              f"cost_per_token={g['cost_per_token']!r} per_token_stall="
+              f"{g['per_token_stall']!r} best static {cell['best_static']}"
+              f" (cost x{cell['cost_ratio_vs_best_static']:.4f})")
+    assert on_card["wins"] >= 3, on_card["wins"]
+
+    # (c) a control plane at the scale replay's size, on both devices
+    trs = {d: ReuseTracker(ghost_capacity=1_000_000, n_buckets=B,
+                           max_classes=C_PLANE, device=d)
+           for d in ("cuda", "cpu")}
+    ghost_s = []
+    ghost = trs["cuda"]._last_seen
+    touch = ghost.touch_batch
+
+    def timed_touch(keys, now):
+        t = time.perf_counter()
+        out = touch(keys, now)
+        ghost_s.append(time.perf_counter() - t)
+        return out
+
+    ghost.touch_batch = timed_touch
+    kv, obj = (trs["cuda"].class_id(c) for c in ("kv", "obj"))
+    for tr in trs.values():
+        assert (tr.class_id("kv"), tr.class_id("obj")) == (kv, obj)
+    walls, dev_ms = [], []
+    for step in range(PLANE_STEPS):
+        ids = (rng.zipf(1.1, SKETCH_N_STEP) - 1) % PLANE_KEYS
+        keys = ids.tolist()
+        cids = np.where(ids < PLANE_KV, kv, obj).astype(np.int32)
+        now = 0.25 * step
+        hist_before = trs["cuda"].hist
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        iv_card = trs["cuda"].observe_batch(keys, cids, now)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        iv_host = trs["cpu"].observe_batch(keys, cids, now)
+        assert np.array_equal(iv_card.view(np.int32), iv_host.view(np.int32))
+        assert torch.equal(trs["cuda"].hist.cpu().view(torch.int32),
+                           trs["cpu"].hist.view(torch.int32)), step
+        for c in ("kv", "obj"):
+            assert trs["cuda"].class_quantile(c) == \
+                trs["cpu"].class_quantile(c), (step, c)
+        iv_d = torch.from_numpy(iv_card).to(dev)
+        c_d = torch.from_numpy(cids).to(dev)
+        dev_ms.append(_time_ms([lambda: reuse_sketch_update(
+            hist_before, iv_d, c_d, tau0=1e-3, decay=0.995)], iters=10))
+    tr = trs["cuda"]
+    print(f"  control plane: {PLANE_STEPS} steps x {SKETCH_N_STEP} keys "
+          f"(Zipf 1.1 over {PLANE_KEYS} ids), ghost {len(tr._last_seen)} "
+          f"keys, {tr.measured} of {tr.observed} measured; intervals, "
+          f"hist (bit for bit) and class_quantile equal on cuda and cpu at "
+          f"every step; median kv {tr.class_quantile('kv')!r} s, obj "
+          f"{tr.class_quantile('obj')!r} s")
+    print(f"  per step: ghost (host) {np.median(ghost_s) * 1e3:.3f} ms "
+          f"median [{min(ghost_s) * 1e3:.3f}, {max(ghost_s) * 1e3:.3f}]; "
+          f"observe_batch on cuda {np.median(walls) * 1e3:.3f} ms median; "
+          f"sketch kernel (device) {np.median(dev_ms):.6f} ms median "
+          f"[{min(dev_ms):.6f}, {max(dev_ms):.6f}]")
+    print(f"  phase 8 wall {time.perf_counter() - t0:.1f} s")
+    return launches, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -762,13 +1000,15 @@ def main() -> int:
     counts["cuckoo_probe"], rec["cuckoo_probe"] = phase_kvstore()
     print("[7] two-stage ANN search over 262,144 vectors")
     counts["ann_topk"], rec["ann_topk"] = phase_ann()
-    for name in ("cuckoo_probe", "ann_topk"):
+    print("[8] autopilot: reuse sketch, admission benchmark, control plane")
+    counts["reuse_sketch"], rec["reuse_sketch"] = phase_autopilot()
+    for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"(with host launch {r['launch_ms']:.4f}) plain_ms="
               f"{r['plain_ms']:.4f} library_ms={lib} ({r['library']}) "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}); "
+              f"bound_ms={r['bound_ms']:.6g} ({r['bound_by']}); "
               f"launches {counts[name]}")
         assert counts[name] > 0, f"{name} kernel never launched on its path"
 

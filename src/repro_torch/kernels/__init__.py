@@ -13,11 +13,13 @@ from .ann_topk.ops import ann_topk
 from .cuckoo_probe.ops import cuckoo_probe
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
+from .reuse_sketch.ops import reuse_sketch_update
 from .rmsnorm.ops import rmsnorm
 
 WRAPPERS = {"rmsnorm": rmsnorm, "decode_attention": decode_attention,
             "flash_attention": flash_attention,
-            "cuckoo_probe": cuckoo_probe, "ann_topk": ann_topk}
+            "cuckoo_probe": cuckoo_probe, "ann_topk": ann_topk,
+            "reuse_sketch": reuse_sketch_update}
 
 
 def launch_counts() -> Dict[str, int]:

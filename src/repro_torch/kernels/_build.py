@@ -29,7 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("rmsnorm", "decode_attention", "flash_attention", "cuckoo_probe",
-           "ann_topk")
+           "ann_topk", "reuse_sketch")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +47,7 @@ SIGNATURES = {
         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),
     "cuckoo_probe": ("cuckoo_probe_fwd", [_P] * 5 + [_LL, _I, _I, _P]),
     "ann_topk": ("ann_topk_fwd", [_P] * 6 + [_I, _LL] + [_I] * 4 + [_P]),
+    "reuse_sketch": ("reuse_sketch_fwd", [_P] * 5 + [_LL, _I, _I, _F, _F, _P]),
 }
 
 

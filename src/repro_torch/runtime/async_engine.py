@@ -46,6 +46,7 @@ class Transfer:
     done_t: float
     depth_at_issue: int
     seq: int
+    gate_miss: bool = False      # flash restore of a priced-out key
 
     def is_done(self, now: float) -> bool:
         return now >= self.done_t - 1e-12
@@ -160,12 +161,19 @@ class AsyncTierRuntime:
     def _attribute_stall(self, tr: Transfer, now: float) -> None:
         """Split the residual wait [now, done_t] into its queue window
         (waiting for the lane to go free) and its service window, both
-        charged to the lane's Eq. 1 component. The cut point is clamped,
-        so the two pieces telescope to exactly the stall."""
+        charged to the lane's Eq. 1 component: a flash restore of a key
+        the economic gate priced out of DRAM is billed to the decision
+        (gate_miss_restore), any other flash second to the media. The cut
+        point is clamped, so the two pieces telescope to exactly the
+        stall."""
         cut = min(max(tr.start_t, now), tr.done_t)
         queue_piece = cut - now
         service_piece = tr.done_t - cut
-        lane_comp = "flash_service" if tr.tier == Tier.FLASH else "other"
+        if tr.tier == Tier.FLASH:
+            lane_comp = ("gate_miss_restore" if tr.gate_miss
+                         else "flash_service")
+        else:
+            lane_comp = "other"
         tenant = tenant_of_key(tr.key)
         if queue_piece:
             self.ledger.add(lane_comp, queue_piece, tenant)

@@ -208,3 +208,44 @@ class SsdQueueModel:
         lat = float(np.interp(x, self._xs, self._lat))
         pages = max(1, math.ceil(nbytes / self.PAGE))
         return Service(occupancy=pages / iops, latency=lat)
+
+
+class GpuDirectQueueModel:
+    """BaM-style GPU-direct flash path over the calibrated flash ladder.
+
+    Same NAND as `SsdQueueModel` — the calibration is reused, not
+    re-run — but a different *path*: the accelerator's submission
+    engine enqueues straight into the device SQ from thousands of
+    threads, so the device sees a deep queue even when the logical
+    in-flight count is small. That is BaM's core performance claim and
+    it is what `boost_depth` models: the IOPS/latency ladder is read at
+    `max(queue_depth, boost_depth)`, i.e. the device always operates at
+    or past the depth where its internal parallelism saturates. On top
+    of the device service the path pays only a fixed submission latency
+    (`submit_latency`, a doorbell write + completion poll — no host
+    DRAM bounce, no host CPU in the loop).
+
+    The economics mirror: `break_even_components_gpu_direct` drops the
+    host-CPU and host-DRAM-wire terms from Eq. 1 for the same reason
+    this model never touches a host lane. The provisioning advisor
+    prices this path; the runtime's GPU-direct lane is not ported yet.
+    """
+
+    def __init__(self, ssd: SsdQueueModel, *, boost_depth: int = 32,
+                 submit_latency: float = 3e-6):
+        if boost_depth < 1 or submit_latency < 0:
+            raise ValueError("invalid GPU-direct parameters")
+        self.ssd = ssd
+        self.boost_depth = boost_depth
+        self.submit_latency = submit_latency
+
+    def _depth(self, queue_depth: int) -> int:
+        return max(int(queue_depth), self.boost_depth)
+
+    def service(self, nbytes: int, queue_depth: int) -> Service:
+        base = self.ssd.service(nbytes, self._depth(queue_depth))
+        return Service(occupancy=base.occupancy,
+                       latency=base.latency + self.submit_latency)
+
+    def p99(self, queue_depth: int) -> float:
+        return self.ssd.p99(self._depth(queue_depth)) + self.submit_latency

@@ -30,10 +30,15 @@ Capacity contract: an object larger than its target tier's capacity is
 demoted straight to the first tier that can hold it (ultimately FLASH,
 the capacity tier); an object larger than every tier raises ValueError.
 
+Economic admission (autopilot): when the policy exposes `admit_tier`
+(see `autopilot.gate.EconomicGate`), every `put` asks it where the
+object should land, and a flash fetch of a key the policy reports
+`priced_out` is billed to the gate's decision in the stall ledger. A
+plain `TieringPolicy` has neither hook and keeps the seed behavior.
+
 This is the single-host store of the three classic tiers. The fabric's
-rebalance ingest and readability gating, the economic admission gate,
-the GPU-direct flash path and the far-memory pool wait for a later slice
-of the port.
+rebalance ingest and readability gating, the GPU-direct flash tier and
+the far-memory pool wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -204,6 +209,12 @@ class TieredStore:
         cur = self.tier_of(key)
         if cur is not None:
             self._remove(key, cur)
+        admit = getattr(self.policy, "admit_tier", None)
+        if admit is not None:
+            # economic admission: the gate prices the object's tracked
+            # reuse estimate against break-even and may demote the
+            # requested landing tier (it never promotes past the ask)
+            tier = admit(key, tier, now=self.clock.now())
         tier = self._fit_tier(tier, value.nbytes)
         self._ensure_room(tier, value.nbytes)
         self._data[tier][key] = value
@@ -225,6 +236,12 @@ class TieredStore:
                 self.stats[t].misses += 1
         value = self._data[cur][key]
         tr = self.runtime.submit(cur, key, value.nbytes, kind="fetch")
+        if cur == Tier.FLASH:
+            # a flash restore of a key the gate priced out of DRAM is a
+            # *policy* cost, not a media cost
+            priced_out = getattr(self.policy, "priced_out", None)
+            if priced_out is not None and priced_out(key):
+                tr.gate_miss = True
         self.stats[cur].bytes_read += value.nbytes
         return PendingFetch(store=self, key=key, tier=cur, transfer=tr,
                             value=value)
@@ -347,12 +364,17 @@ class TieredStore:
     # ------------------------------------------------------------- capacity
     def _fit_tier(self, tier: Tier, nbytes: int) -> Tier:
         """First tier at or below `tier` whose capacity can hold the
-        object; raises if even the capacity tier cannot."""
+        object; raises if even the capacity tier cannot. A GPU_FLASH ask
+        (a gate with `gpu_direct`) lands on FLASH, the same NAND: this
+        store has no accelerator-direct tier."""
         for t in self.tiers:
             if t < tier:
                 continue
             if nbytes <= self.specs[t].capacity_bytes:
                 return t
+        if (tier == Tier.GPU_FLASH and Tier.FLASH in self.specs
+                and nbytes <= self.specs[Tier.FLASH].capacity_bytes):
+            return Tier.FLASH
         raise ValueError(
             f"object of {nbytes} bytes exceeds every tier's capacity")
 

@@ -106,4 +106,4 @@ def test_kernel_wrappers_refuse_other_devices():
     np.testing.assert_equal(K.launch_counts(),
                             {"rmsnorm": 0, "decode_attention": 0,
                              "flash_attention": 0, "cuckoo_probe": 0,
-                             "ann_topk": 0})
+                             "ann_topk": 0, "reuse_sketch": 0})

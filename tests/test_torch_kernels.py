@@ -135,4 +135,4 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
         reference_attention(qf, k[:1], k[:1], scale=32 ** -0.5))
     assert K.launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
                                  "flash_attention": 0, "cuckoo_probe": 0,
-                                 "ann_topk": 0}
+                                 "ann_topk": 0, "reuse_sketch": 0}
