@@ -7,13 +7,18 @@ Drives the port's serving path on the card and checks it, in phases:
   2. builds the hand-written CUDA kernels from `src/repro_torch/csrc`;
   3. holds each kernel against its plain PyTorch version on the card at
      the serving path's shapes (float32 and bfloat16, ragged lengths, a
-     GQA case beside gemma's MQA) and times kernel, plain version, one
-     PyTorch library call and the roofline bound;
+     GQA case beside gemma's MQA, flash attention at head dims 16, 32 and
+     112 that its wrapper pads) and times kernel, plain version, one
+     PyTorch library call and the roofline bound; flash attention checked
+     and timed at every prefill bucket phase 4 hits, in the prefill's own
+     strided layout too;
   4. full-width gemma-2b (random bf16 weights from a seed, full depth)
      serves 6 requests through `DecodeEngine`, then parks two sessions
      through a `TieredStore` whose DRAM holds 1.5 KV blobs, so the colder
      one is demoted to flash and comes back through a prefetch on the
-     virtual clock; every serving kernel's launch counter must move;
+     virtual clock; every serving kernel's launch counter must move; then
+     one prefill and one decode step under torch.profiler: device
+     operations by time and the device-idle share;
   5. reduced gemma-2b in float32: the engine's greedy tokens (kernels)
      equal a greedy loop over the plain PyTorch path;
   6. the SSD-resident cuckoo KV store (paper §VII-A): examples/
@@ -24,8 +29,10 @@ Drives the port's serving path on the card and checks it, in phases:
      kernel is held against its plain version and timed;
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
-     search on the card, ann_topk against its plain version, and
-     recall@10 > 0.98 at the reference tests' size (8000 vectors);
+     search on the card, ann_topk against its plain version (k = 64, 128
+     and 256, with the resident blocks an SM the card reports),
+     recall@10 > 0.98 at the reference tests' size (8000 vectors), and
+     recall@10 at promote 128 and 256;
   8. the autopilot: the reuse-sketch kernel bit for bit against its plain
      version (on the card and on the host) at the bench's shape, the
      scale replay's (50,000 and 2^20 intervals), an empty batch, every
@@ -89,6 +96,7 @@ KV_PROBES = 1 << 20
 # phase 7: the corpus and queries; the reference tests' size
 ANN_N, ANN_D_FULL, ANN_D_RED, ANN_Q = 262_144, 1024, 128, 1024
 ANN_PROMOTE, ANN_K = 64, 10
+ANN_DEEP = (128, 256)          # deeper promotes, up to ann_topk's cap
 ANN_SMALL = (8000, 100)
 # ann_topk vs its plain version: float32 products in another summation
 # order differ by ~1e-6 at these magnitudes (|d| <= 3); ids are compared
@@ -152,8 +160,9 @@ def _check(name, got, want, dtype_name, label):
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_kernels(cfg, lengths_main, prompt_main):
-    """Kernel vs plain version on the card; returns {name: record}."""
+def phase_kernels(cfg, lengths_main, buckets):
+    """Kernel vs plain version on the card; returns {name: record}.
+    `buckets` are phase 4's prefill lengths, the largest the main shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, flash_attention,
@@ -169,7 +178,7 @@ def phase_kernels(cfg, lengths_main, prompt_main):
     D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
     eps = cfg.norm_eps
     scale = 1.0 / math.sqrt(hd)
-    S_main = min(1 << (len(prompt_main) - 1).bit_length(), MAX_LEN - 1)
+    S_main = max(buckets)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -252,46 +261,68 @@ def phase_kernels(cfg, lengths_main, prompt_main):
             enable_gqa=True) for k, v in caches]),
         bound_ms=b_ms, bound_by=b_by)
 
-    # ---- flash attention: causal prefill, MQA and GQA, ragged S, S < T ---
+    # ---- flash attention: causal prefill, MQA and GQA, ragged S, S < T,
+    # and head dims the wrapper pads (16, 32 -> 64 and 112 -> 128 in bf16;
+    # 16 -> 32 in f32), the scale from the true head dim ---------------------
     for dt in (torch.float32, torch.bfloat16):
-        for h_, kv_, S, T in ((H, KV, S_main, S_main), (8, 2, 700, 700),
-                              (H, KV, 300, 1023)):
-            q = randn(1, h_, S, hd, dtype=dt)
-            k = randn(1, kv_, T, hd, dtype=dt)
-            v = randn(1, kv_, T, hd, dtype=dt)
-            errs[(dt, h_, kv_, S, T)] = _check(
-                "flash_attention",
-                flash_attention(q, k, v, scale=scale),
-                reference_attention(q, k, v, scale=scale),
-                str(dt).split(".")[1], f"H={h_} KV={kv_} S={S} T={T} {dt}")
-        # the prefill's own layout: q a transposed [B,S,H,hd] projection,
-        # k and v the first S rows of a max_len cache
-        q = randn(1, S_main, H, hd, dtype=dt).transpose(1, 2)
-        kc = randn(1, KV, MAX_LEN, hd, dtype=dt)[:, :, :S_main]
-        vc = randn(1, KV, MAX_LEN, hd, dtype=dt)[:, :, :S_main]
-        _check("flash_attention", flash_attention(q, kc, vc, scale=scale),
-               reference_attention(q, kc, vc, scale=scale),
-               str(dt).split(".")[1], f"strided views S={S_main} {dt}")
-    ins = [(randn(1, H, S_main, hd, dtype=torch.bfloat16),
-            randn(1, KV, S_main, hd, dtype=torch.bfloat16),
-            randn(1, KV, S_main, hd, dtype=torch.bfloat16))
-           for _ in range(4)]
-    pairs = S_main * (S_main + 1) // 2
-    nbytes = (2 * S_main * H * hd + 2 * S_main * KV * hd) * 2
-    b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, torch.bfloat16)
-    rec["flash_attention"] = dict(
-        shape=f"q [1,{H},{S_main},{hd}] k,v [1,{KV},{S_main},{hd}] bf16",
-        max_abs_err=errs[(torch.bfloat16, H, KV, S_main, S_main)],
-        ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
-                     for t in ins], iters=10),
-        launch_ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
-                            for t in ins], iters=10, queued=False),
-        plain_ms=_time_ms([lambda t=t: reference_attention(
-            *t, scale=scale) for t in ins], iters=10),
-        library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
-            *t, is_causal=True, scale=scale, enable_gqa=True)
-            for t in ins], iters=10),
-        bound_ms=b_ms, bound_by=b_by)
+        for h_, kv_, S, T, d_ in ((H, KV, S_main, S_main, hd),
+                                  (8, 2, 700, 700, hd), (H, KV, 300, 1023, hd),
+                                  (H, KV, 200, 200, 16), (H, KV, 200, 200, 32),
+                                  (8, 2, 300, 300, 112)):
+            q = randn(1, h_, S, d_, dtype=dt)
+            k = randn(1, kv_, T, d_, dtype=dt)
+            v = randn(1, kv_, T, d_, dtype=dt)
+            sc = 1.0 / math.sqrt(d_)
+            errs[(dt, h_, kv_, S, T, d_)] = _check(
+                "flash_attention", flash_attention(q, k, v, scale=sc),
+                reference_attention(q, k, v, scale=sc),
+                str(dt).split(".")[1],
+                f"H={h_} KV={kv_} S={S} T={T} hd={d_} {dt}")
+        # the prefill's own layout at each of its buckets: q a transposed
+        # [B,S,H,hd] projection, k and v the first S rows of a max_len cache
+        kc = randn(1, KV, MAX_LEN, hd, dtype=dt)
+        vc = randn(1, KV, MAX_LEN, hd, dtype=dt)
+        for S in buckets:
+            q = randn(1, S, H, hd, dtype=dt).transpose(1, 2)
+            _check("flash_attention",
+                   flash_attention(q, kc[:, :, :S], vc[:, :, :S],
+                                   scale=scale),
+                   reference_attention(q, kc[:, :, :S], vc[:, :, :S],
+                                       scale=scale),
+                   str(dt).split(".")[1], f"strided views S={S} {dt}")
+    # checks and times at every prefill bucket of phase 4's prompts
+    for S in buckets:
+        ins = [(randn(1, H, S, hd, dtype=torch.bfloat16),
+                randn(1, KV, S, hd, dtype=torch.bfloat16),
+                randn(1, KV, S, hd, dtype=torch.bfloat16))
+               for _ in range(4)]
+        err = _check("flash_attention", flash_attention(*ins[0], scale=scale),
+                     reference_attention(*ins[0], scale=scale), "bfloat16",
+                     f"bucket S={S} H={H} KV={KV} hd={hd} bf16")
+        pairs = S * (S + 1) // 2
+        nbytes = (2 * S * H * hd + 2 * S * KV * hd) * 2
+        b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, torch.bfloat16)
+        r = dict(
+            shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{S},{hd}] bf16",
+            max_abs_err=err,
+            ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
+                         for t in ins], iters=20),
+            launch_ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
+                                for t in ins], iters=20, queued=False),
+            plain_ms=_time_ms([lambda t=t: reference_attention(
+                *t, scale=scale) for t in ins], iters=10),
+            library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
+                *t, is_causal=True, scale=scale, enable_gqa=True)
+                for t in ins], iters=20),
+            bound_ms=b_ms, bound_by=b_by)
+        if S == S_main:
+            rec["flash_attention"] = r
+        else:
+            print(f"  time  flash_attention   {r['shape']}: kernel_ms="
+                  f"{r['ms']:.4f} (with host launch {r['launch_ms']:.4f}) "
+                  f"plain_ms={r['plain_ms']:.4f} library_ms="
+                  f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
     for name, r in rec.items():
         print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
               f"(with host launch {r['launch_ms']:.4f}) plain_ms="
@@ -427,7 +458,62 @@ def phase_serving(cfg, prompts):
     counts = {name: counts[name] for name in SERVING_KERNELS}
     for name, n in counts.items():
         assert n > 0, f"{name} kernel never launched on the main path"
+    _profile_split(eng, prompts)
     return counts
+
+
+def _profile_split(eng, prompts):
+    """Where a prefill and a decode step spend the card's time: each under
+    torch.profiler after a warm-up, with the device operations by time and
+    the device-idle share, 1 - kernel time / wall. The profiler slows the
+    host, so the share is given against the profiled wall and against the
+    same work's wall without the profiler (host clock, synchronised)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # prompts 0, 2 and 5 fall in bucket 1023, prompt 1 in 256
+    reqs = [Request(rid=f"prof{i}", prompt=prompts[i], max_new=MAX_NEW)
+            for i in (0, 1, 2, 5)]
+    eng.admit(reqs[0])                     # warm-up
+    eng.admit(reqs[1])
+    eng.step()
+    plain_pre = wall(lambda: eng.admit(reqs[2]))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof_pre:
+        wall_pre = wall(lambda: eng.admit(reqs[3]))
+    plain_step = sorted(wall(eng.step) for _ in range(5))[2]
+    with profile(activities=acts) as prof_step:
+        wall_step = wall(eng.step)
+    for label, prof, w, w0 in (
+            ("prefill, bucket 1023", prof_pre, wall_pre, plain_pre),
+            (f"decode step, {MAX_SLOTS} live slots", prof_step, wall_step,
+             plain_step)):
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3   # ms
+        if busy == 0:
+            print(f"  profile {label}: the profiler saw no device time; "
+                  f"device split not measured")
+            continue
+        print(f"  profile {label}: device kernels {busy:.3f} ms; wall "
+              f"{w * 1e3:.3f} ms profiled, {w0 * 1e3:.3f} ms without the "
+              f"profiler; device-idle share {1 - busy / (w * 1e3):.3f} "
+              f"profiled, {1 - busy / (w0 * 1e3):.3f} without")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            t = e.self_device_time_total / 1e3
+            print(f"    {t:9.4f} ms {100 * t / busy:5.1f}% x{e.count:<4d} "
+                  f"{e.key[:90]}")
+    while eng.live.any():
+        eng.step()
 
 
 def _tensors(tree):
@@ -638,6 +724,7 @@ def phase_ann():
     from repro_torch.ann.corpus import make_corpus, make_queries
     from repro_torch.ann.progressive import exact_topk, recall_at_k, search
     from repro_torch.kernels.ann_topk import ann_topk, reference_ann_topk
+    from repro_torch.kernels.ann_topk.ops import blocks_per_sm
 
     t0 = time.perf_counter()
     full_np, red_np, _ = make_corpus(ANN_N, ANN_D_FULL, ANN_D_RED,
@@ -678,24 +765,34 @@ def phase_ann():
     assert int(pred.min()) >= 0 and int(pred.max()) < ANN_N
     assert bool((pred.sort(dim=1).values.diff(dim=1) > 0).all())
 
-    # ann_topk against its plain version at the path's shapes
+    # ann_topk against its plain version at the path's shapes, and at the
+    # deeper promotes of (c)
     q_red = qs[:, :ANN_D_RED].contiguous()
-    errs = []
-    for q_, c_, lab in ((q_red, red, f"[{ANN_Q},{ANN_D_RED}] x "
-                         f"[{ANN_N},{ANN_D_RED}]"),
-                        (torch.from_numpy(small_q[:, :ANN_D_RED]).cuda(),
-                         torch.from_numpy(small_red).cuda(),
-                         f"[{ANN_SMALL[1]},{ANN_D_RED}] x "
-                         f"[{ANN_SMALL[0]},{ANN_D_RED}]")):
-        d, ids = ann_topk(q_, c_, k=ANN_PROMOTE)
-        rd, rids = reference_ann_topk(q_, c_, ANN_PROMOTE + 1)
+    small = (torch.from_numpy(small_q[:, :ANN_D_RED]).cuda(),
+             torch.from_numpy(small_red).cuda())
+    errs = {}
+    for q_, c_, k_, lab in (
+            (q_red, red, ANN_PROMOTE, f"[{ANN_Q},{ANN_D_RED}] x [{ANN_N},"
+             f"{ANN_D_RED}]"),
+            (*small, ANN_PROMOTE, f"[{ANN_SMALL[1]},{ANN_D_RED}] x "
+             f"[{ANN_SMALL[0]},{ANN_D_RED}]"),
+            *((q_red, red, k_, f"[{ANN_Q},{ANN_D_RED}] x [{ANN_N},"
+               f"{ANN_D_RED}]") for k_ in ANN_DEEP)):
+        d, ids = ann_topk(q_, c_, k=k_)
+        rd, rids = reference_ann_topk(q_, c_, k_ + 1)
         err = float((d - rd[:, :-1]).abs().max())
         bad, n_sep = _separated_id_mismatches(rd, ids, rids[:, :-1])
-        assert err <= ANN_ATOL and bad == 0, (lab, err, bad)
-        errs.append(err)
-        print(f"  check ann_topk          {lab} k={ANN_PROMOTE} "
+        assert err <= ANN_ATOL and bad == 0, (lab, k_, err, bad)
+        errs.setdefault(k_, err)
+        # the resident first-pass blocks the card reports at k, the ones
+        # the CPU test of split_plan takes for an H100
+        per_sm = blocks_per_sm(k_, q_.device)
+        assert per_sm == (2 if k_ <= 88 else 1), (k_, per_sm)
+        print(f"  check ann_topk          {lab} k={k_} "
               f"max_abs_err={err:.3e}; ids equal at all {n_sep} separated "
-              f"places ({int((ids != rids[:, :-1]).sum())} near-tie swaps) ok")
+              f"places ({int((ids != rids[:, :-1]).sum())} near-tie swaps); "
+              f"resident blocks an SM: {per_sm}; ok")
+        del rd, rids
 
     cn = torch.sum(red * red, dim=1)
     nbytes = (q_red.numel() + red.numel()) * 4 + ANN_Q * ANN_PROMOTE * 8
@@ -704,7 +801,7 @@ def phase_ann():
     out = dict(
         shape=(f"queries [{ANN_Q},{ANN_D_RED}] corpus [{ANN_N},{ANN_D_RED}]"
                f" f32, k={ANN_PROMOTE}"),
-        max_abs_err=errs[0],
+        max_abs_err=errs[ANN_PROMOTE],
         ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
                     iters=10),
         launch_ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
@@ -725,6 +822,31 @@ def phase_ann():
                                             alpha=-2.0)], iters=10)
     print(f"  time  ann_topk at k=1 {k1_ms:.4f} ms; torch.addmm alone "
           f"{gemm_ms:.4f} ms (same shape, float32)")
+
+    # (c) deeper promotes: k up to 256 (one first-pass block an SM above
+    # k = 88), and the recall they buy at 262,144 vectors
+    for k_ in ANN_DEEP:
+        b_ms = _bound_ms((q_red.numel() + red.numel()) * 4 + ANN_Q * k_ * 8,
+                         2 * ANN_Q * ANN_N * ANN_D_RED, torch.float32)[0]
+        k_ms = _time_ms([lambda: ann_topk(q_red, red, k=k_)], iters=5)
+        p_ms = _time_ms([lambda: reference_ann_topk(q_red, red, k_)],
+                        iters=3)
+        l_ms = _time_ms([lambda: torch.topk(torch.addmm(
+            cn[None, :], q_red, red.T, alpha=-2.0), k_, largest=False)],
+            iters=5)
+        print(f"  time  ann_topk          queries [{ANN_Q},{ANN_D_RED}] "
+              f"corpus [{ANN_N},{ANN_D_RED}] f32, k={k_}: kernel_ms="
+              f"{k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={b_ms:.5f} (operations)")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred_k, _ = search(qs, red, full, k=ANN_K, promote=k_, device="cuda")
+        torch.cuda.synchronize()
+        rec_k = recall_at_k(pred_k, truth)
+        print(f"  search promote {k_}: recall@{ANN_K} = {rec_k!r} over "
+              f"{ANN_N} vectors; {(time.perf_counter() - t1) * 1e3:.1f} ms "
+              f"wall")
+        assert rec_k >= rec, (k_, rec_k, rec)
     print(f"  phase 7 wall {time.perf_counter() - t0:.1f} s")
     return launches, out
 
@@ -990,8 +1112,11 @@ def main() -> int:
     lengths_main = torch.tensor([len(p) + 8 for p in prompts[:MAX_SLOTS]],
                                 dtype=torch.int32, device="cuda")
 
+    # the engine's prefill lengths: prompts padded to powers of two
+    buckets = sorted({min(1 << (len(p) - 1).bit_length(), MAX_LEN - 1)
+                      for p in prompts})
     print("[3] kernels vs plain versions on the card")
-    rec = phase_kernels(cfg, lengths_main, prompts[0])
+    rec = phase_kernels(cfg, lengths_main, buckets)
     print("[4] full-width gemma-2b serving through the kernels and tiers")
     counts = phase_serving(cfg, prompts)
     print("[5] reduced gemma-2b, float32, kernels vs plain path")

@@ -34,9 +34,10 @@
 // chain of dependent shared-memory loads; one lane per query left 3/4 of
 // the block idle while it folded.) Once the lists fill, few candidates pass
 // the mark. At the end each entry's rank gives its place in the split's
-// sorted list. Two blocks fit an SM; ops.split_plan sizes the splits so
-// that all blocks run in one wave, since a partial second wave of equal
-// blocks would leave most SMs idle.
+// sorted list. Two blocks fit an SM up to k = 88, one above; the wrapper
+// asks the card how many are resident at k (ann_topk_blocks_per_sm) and
+// ops.split_plan sizes the splits so that all blocks run in one wave,
+// since a partial second wave of equal blocks would leave most SMs idle.
 // Pass 2: one warp per query takes the k smallest of its per-split sorted
 // lists by k rounds of a warp-wide (distance, id) argmin over list heads.
 #include <cstdint>
@@ -50,8 +51,8 @@ constexpr int kAnnBC = 64;        // corpus rows per tile
 constexpr int kAnnDK = 128;       // features per staged chunk
 constexpr int kAnnLd = 68;        // staged row stride (floats): 16-B aligned
 constexpr int kAnnThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kAnnBlocksPerSM = 2;  // resident at k = 64 (ops.BLOCKS_PER_SM)
-constexpr int kAnnMaxK = 64;
+constexpr int kAnnMaxK = 256;
+constexpr int kAnnSmemPerBlock = 232448;  // a block's most (227 KB)
 constexpr int kAnnMergeWarps = 8;
 constexpr int kAnnMaxHeads = 4;   // per lane: up to 128 splits a query
 constexpr float kAnnBig = 1e30f;  // the reference's BIG
@@ -62,9 +63,13 @@ __host__ __device__ constexpr int ann_smem_bytes(int k) {
          + kAnnBQ * 2 * 4                   // candidate bit masks
          + 2 * k * kAnnBQ * 4;              // sorted lists (d, id)
 }
-// with the 1 KB CUDA reserves per block, in the SM's 228 KB
-static_assert(kAnnBlocksPerSM * (ann_smem_bytes(kAnnMaxK) + 1024) <= 233472,
-              "shared memory for kAnnBlocksPerSM blocks");
+constexpr bool ann_smem_fits_every_k() {
+  for (int k = 1; k <= kAnnMaxK; ++k)
+    if (ann_smem_bytes(k) > kAnnSmemPerBlock) return false;
+  return true;
+}
+static_assert(ann_smem_fits_every_k(),
+              "shared memory for every k up to kAnnMaxK");
 
 // (d, id) strictly before (d2, id2); ids compare unsigned, so the -1 of an
 // unfilled slot sorts last among equal distances
@@ -105,7 +110,8 @@ __device__ __forceinline__ AnnWorst ann_reduce4(AnnWorst w, unsigned group) {
   return w;
 }
 
-__global__ void __launch_bounds__(kAnnThreads, kAnnBlocksPerSM)
+// registers for two resident blocks; above k = 88 shared memory holds one
+__global__ void __launch_bounds__(kAnnThreads, 2)
 ann_partial_kernel(const float* __restrict__ q, const float* __restrict__ c,
                    float* __restrict__ part_d, int* __restrict__ part_i,
                    int n_q, long long n_c, int dim, int k, int n_splits,
@@ -373,4 +379,21 @@ extern "C" int ann_topk_fwd(const void* queries, const void* corpus,
       static_cast<const float*>(part_d), static_cast<const int*>(part_i),
       static_cast<float*>(out_d), static_cast<int*>(out_i), n_q, k, n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// First-pass blocks resident on one SM of the current device at this k,
+// as the card reports them for the launch's shared memory and registers
+// (ops.split_plan sizes one wave with it); minus the cudaError_t on
+// failure.
+extern "C" int ann_topk_blocks_per_sm(int k) {
+  using namespace repro_torch;
+  if (k < 1 || k > kAnnMaxK) return -static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ann_smem_bytes(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      ann_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, ann_partial_kernel, kAnnThreads, smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }

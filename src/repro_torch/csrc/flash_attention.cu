@@ -10,25 +10,52 @@
 // the diagonal.
 //
 // Bound on the H100: operations. A prefill of S tokens with H heads of
-// head_dim hd does about 2 * S^2 * hd * H flops over 2 * S * hd * H values
-// of q and output: at gemma-2b's S = 1023, H = 8, hd = 256 that is 4.3
-// GFLOP per layer over a few MB, hundreds of flops per byte, so the
-// tensor cores (NVIDIA's published 989 TFLOP/s in bf16) bound it.
+// head_dim hd does 4 * S(S+1)/2 * hd * H flops (two products over the
+// causal half) against 2 * S * hd * (H + KV) bf16 values read and written:
+// at gemma-2b's S = 1023, H = 8, KV = 1, hd = 256 that is 4.3 GFLOP over
+// 9.4 MB, ~460 flops a byte, above the card's ~295, so the tensor cores
+// (NVIDIA's published 989 TFLOP/s dense bf16) bound it: 4.3 us.
 //
 // Two kernels, chosen by the input type:
 //
-// bfloat16 (the serving path): flash_mma_kernel puts both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, float32 accumulate). A
-// block of 4 warps owns a 64-row q tile of one (batch, head); warp w owns
-// rows 16w..16w+15 for the whole kernel, so its softmax statistics and its
-// 16 x hd output accumulator never leave registers. The q tile and one
-// 64-key k tile and v tile sit in shared memory (rows padded by 16 bytes
-// so ldmatrix's 8 row addresses hit distinct banks): 101,376 bytes at
-// hd = 256, two blocks an SM. k and v arrive by cp.async in separate
-// groups, so the next k tile loads during the softmax and p @ v of this
-// one, and the next v tile during the next q @ k^T. The probabilities are
-// rounded to bf16 for p @ v, as the tensor cores take them; the row sums
-// stay float32. Heaviest (latest) q tiles launch first.
+// bfloat16 (the serving path): flash_wgmma_kernel, on Hopper's own path to
+// the tensor cores' full rate, wgmma with TMA loads (helpers in
+// hopper.cuh). A block owns a 64-row q tile of one (batch, head) and runs
+// two warpgroups of 128 threads: warpgroup 0 takes the first half of the
+// tile's kv tiles (64 keys each), warpgroup 1 the second, each with its
+// own online softmax, and at the end warpgroup 1 hands its row maxima,
+// sums and output to warpgroup 0 through shared memory for the merge.
+// Warp w of a warpgroup owns rows 16w..16w+15, so its softmax statistics
+// and its 64 x hd float32 accumulator (hd / 2 registers a thread) never
+// leave registers.
+//   - Why two: with one warpgroup an SM runs one warp per scheduler, so
+//     nothing hides the softmax's dependent chains or the loads; two
+//     warpgroups on disjoint kv ranges keep 128 blocks (one wave at
+//     S = 1023) and interleave.
+//   - Loads: the TMA unit copies q once and each warpgroup's k and v
+//     tiles into its own buffers, each completing on an mbarrier; a
+//     warpgroup's next k tile loads under its softmax and p v, its next v
+//     tile under its next q k^T. Tiles are 64-column slabs with the
+//     128-byte swizzle; at hd = 256 q plus two k/v pairs take 160 KB.
+//   - s = q k^T: 16 wgmma m64n64k16, both operands in shared memory
+//     (K-major), the descriptors stepping 32 bytes along a slab and 8 KB
+//     from slab to slab; every operand byte is read once by the
+//     warpgroup (mma.sync made each of 4 warps read the whole k tile).
+//   - o += p v: the score accumulators, rounded to bf16 pairs, are the
+//     register A operand of wgmma m64n{hd}k16 (an accumulator's layout is
+//     the A fragment's for 16-bit types); v is the shared-memory B operand
+//     read MN-major (the transpose bit), 2 KB a 16-key step.
+//   - wgmma_wait before the softmax reads s and before a buffer is handed
+//     back; wgmma_fence before a product whose registers ordinary code
+//     wrote (the rescaled o, the packed p). A softmax that overlaps the
+//     previous tile's p v in one warpgroup (FlashAttention-3's
+//     intra-warpgroup pipelining) was tried: ptxas serialised its wgmmas
+//     (C7513) and it ran slower than one warpgroup without it.
+// The probabilities are rounded to bf16 for p v, as the tensor cores take
+// them; row sums stay float32. Heaviest (latest) q tiles launch first.
+// What still bounds it at S = 1023: every block streams its own k and v
+// from L2, 71 MB for the 8 heads of gemma's one kv head; sharing a kv
+// tile among the heads of a cluster (TMA multicast) is the next step.
 //
 // float32: flash_fwd_kernel computes on the CUDA cores in float32, exact
 // to float32 as the tensor cores' bf16 inputs would not be. One block of
@@ -41,12 +68,15 @@
 // accumulators stay in registers.
 //
 // Both: masks are those of kernel.py:59-65, k_idx < T and q_idx >= k_idx;
-// kv tiles past the diagonal are not loaded; key and value rows past T
-// are zeroed in shared memory, so no garbage can reach the sums.
+// kv tiles past the diagonal are not loaded. Key and value rows past T are
+// zero in shared memory (the float32 kernel writes zeros, the TMA unit
+// fills them), and the k_idx < T mask stays explicit: a zero key scores 0,
+// not -inf.
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 
@@ -180,63 +210,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- bfloat16
-constexpr int kMmaThreads = 128;  // 4 warps, 16 q rows each
-constexpr int kMBQ = 64;          // q rows per block
-constexpr int kMBK = 64;          // keys per k / v tile
+constexpr int kWarpgroups = 2;    // consumer warpgroups a block
+constexpr int kWgThreads = 128;
+constexpr int kTQ = 64;           // q rows a block: wgmma's M
+constexpr int kTK = 64;           // keys a k / v tile
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kMBQ == kMBK, "load_tile moves kMBQ rows for q, k and v");
+static_assert(kTQ == kSlabRows && kTK == kSlabRows,
+              "a tile's rows are one TMA box");
 
+// shared memory of one block: the q tile; a k tile and a v tile for each
+// warpgroup (warpgroup 1's pair takes its float32 output for the merge
+// at the end: 64 x HD x 4 bytes, the pair's size); warpgroup 1's row
+// maxima and sums; 1 + 2 x 2 mbarriers (q, then k and v of each
+// warpgroup). The base is rounded up to 1024 bytes, as the 128-byte
+// swizzle needs.
 template <int HD>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 3 * kMBQ * (HD + 8);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with ok == false the 16 bytes are zeroed
-// and nothing is read
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d[16x8] += a[16x16] @ b[16x8], bf16 inputs, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct FlashSmem {
+  static constexpr int kTile = HD / kSlabCols * kSlabBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQ + kTile;            // + 2 kTile a warpgroup
+  static constexpr int kML = kKV + kWarpgroups * 2 * kTile;
+  static constexpr int kBar = kML + 4 * kWgThreads * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kWarpgroups) + 1024;
+  static_assert(kTQ * HD * 4 == 2 * kTile, "the merge's output fits");
+};
 
 // two floats as a bf16 pair, `lo` in the low half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -244,182 +241,224 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + kMBQ) of a [rows, HD] bf16 matrix (row stride
-// `stride` elements) into shared memory with row pitch HD + 8; rows at or
-// past n_rows are zeroed
+// s = q k^T over head_dim (16-column steps, 4 to a slab), one group
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = HD / 8;   // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kMBQ * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool ok = row0 + r < n_rows;
-    const __nv_bfloat16* p =
-        ok ? src + static_cast<long long>(row0 + r) * stride + c * 8 : src;
-    cp_async16(smem_addr(dst + r * (HD + 8) + c * 8), p, ok);
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_s,
+                                         uint32_t k_t) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kSlabBytes + (kk % 4) * 32;
+    const uint64_t da = smem_desc(q_s + off, 16, 1024);
+    const uint64_t db = smem_desc(k_t + off, 16, 1024);
+    if (kk == 0)
+      wgmma_ss_m64n64_first(s, da, db);
+    else
+      wgmma_ss_m64n64(s, da, db);
+  }
+  wgmma_commit();
+}
+
+// o += p v, one group: v's 16-key steps are two 8-row groups (1 KB apart)
+// of every slab (8 KB apart), read MN-major
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&p)[kTK / 16][4],
+                                         uint32_t v_t) {
+#pragma unroll
+  for (int kk = 0; kk < kTK / 16; ++kk)
+    wgmma_rs<HD>(o, p[kk], smem_desc(v_t + kk * 2048, kSlabBytes, 1024));
+  wgmma_commit();
+}
+
+// Online softmax of one score tile, in place: mask (only the block's last
+// tile can hold keys past T or above the diagonal), new row maxima m and
+// sums l, the output rows rescaled, and p packed as the A operand of p v
+// (16 keys a step, two 8-key accumulator groups). A thread holds rows
+// q_row and q_row + 8 of its warp's 16; the quad of lanes sharing them
+// holds the whole row.
+template <int HD>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&p)[kTK / 16][4], float (&o)[HD / 2],
+    float (&m)[2], float (&l)[2], int q_row, int k0, int T_, int tq,
+    bool edge, float sl2) {
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qi = q_row + 8 * ri;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kTK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + nt * 8 + 2 * tq + e;
+        float x = s[4 * nt + 2 * ri + e] * sl2;
+        if (edge && (kj >= T_ || kj > qi)) x = -INFINITY;
+        s[4 * nt + 2 * ri + e] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // every row has a valid key in each tile (key 0, or a key at or
+    // below the diagonal), so m_new is finite from the first tile on
+    const float m_new = fmaxf(m[ri], mx);
+    const float corr = exp2f(m[ri] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kTK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = exp2f(s[4 * nt + 2 * ri + e] - m_new);
+        s[4 * nt + 2 * ri + e] = x;
+        sum += x;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[ri] = l[ri] * corr + sum;
+    m[ri] = m_new;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      o[4 * i + 2 * ri] *= corr;
+      o[4 * i + 2 * ri + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int H, int KV, int S,
-                 int T_, long long q_sb, long long q_sh, long long q_ss,
-                 long long k_sb, long long k_sh, long long k_st,
-                 long long v_sb, long long v_sh, long long v_st,
-                 float scale) {
-  constexpr int LD = HD + 8;        // shared row pitch, elements
-  constexpr int kNS = kMBK / 8;     // score tiles of 8 keys
-  constexpr int kNO = HD / 8;       // output tiles of 8 columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kMBQ * LD;
-  __nv_bfloat16* v_s = k_s + kMBK * LD;
+__global__ void __launch_bounds__(kWarpgroups * kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ out, int H, int KV, int S,
+                   int T_, float sl2) {
+  using L = FlashSmem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* const smem_f = reinterpret_cast<float*>(
+      smem_raw + (base - smem_u32(smem_raw)));
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;   // accumulator row / column
+  const uint32_t q_s = base + L::kQ;
+  const uint32_t k_s = base + L::kKV + wg * 2 * L::kTile;   // this wg's
+  const uint32_t v_s = k_s + L::kTile;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_k = bar_q + 8 + 16 * wg;
+  const uint32_t bar_v = bar_k + 8;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
   const int g = h / (H / KV);
-  const int q0 = qt * kMBQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = warp * 16;          // the warp's first row in the tile
-  const int gr = lane >> 2, tq = lane & 3;   // mma fragment row / column
-  const float sl2 = scale * kLog2e;
+  const int q0 = qt * kTQ;
+  const int q_row = q0 + warp * 16 + gr;
+  // keys past the tile's last query row are above the diagonal; warpgroup
+  // 0 takes the first half of the kv tiles, warpgroup 1 the rest
+  const int n_tiles = (min(T_, q0 + kTQ) + kTK - 1) / kTK;
+  const int half = (n_tiles + 1) / 2;
+  const int j_begin = wg == 0 ? 0 : half;
+  const int j_end = wg == 0 ? half : n_tiles;
 
-  const __nv_bfloat16* kb = k + b * k_sb + g * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + g * v_sh;
-  load_tile<HD>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, S);
-  cp_async_commit();
-  // keys past the tile's last query row are above the diagonal
-  const int n_tiles = (min(T_, q0 + kMBQ) + kMBK - 1) / kMBK;
-  load_tile<HD>(k_s, kb, k_st, 0, T_);
-  cp_async_commit();
-  load_tile<HD>(v_s, vb, v_st, 0, T_);
-  cp_async_commit();
-
-  float o[kNO][4];
-#pragma unroll
-  for (int i = 0; i < kNO; ++i)
-    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kMBK;
-    const bool more = j + 1 < n_tiles;
-    cp_async_wait<1>();   // q and this k tile landed (v may be in flight)
-    __syncthreads();
-
-    // s = q @ k^T for the warp's 16 rows and the tile's 64 keys
-    float s[kNS][4];
-#pragma unroll
-    for (int i = 0; i < kNS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, smem_addr(q_s + (r0 + (lane & 15)) * LD + kk * 16
-                               + (lane >> 4) * 8));
-#pragma unroll
-      for (int nn = 0; nn < kMBK / 16; ++nn) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(
-            k_s + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
-            + kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * nn], a, bk[0], bk[1]);
-        mma_bf16(s[2 * nn + 1], a, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();      // every warp is done with this k tile
-    if (more) {
-      load_tile<HD>(k_s, kb, k_st, k0 + kMBK, T_);
-      cp_async_commit();
-    }
-
-    // online softmax; a thread holds rows gr and gr + 8, and the quad of
-    // lanes sharing gr holds the whole row
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      const int qi = q0 + r0 + gr + 8 * ri;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < kNS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kj = k0 + nt * 8 + 2 * tq + e;
-          const float x = kj < T_ && kj <= qi ? s[nt][2 * ri + e] * sl2
-                                              : -INFINITY;
-          s[nt][2 * ri + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // key 0 of the first tile is valid for every row, so m_new is
-      // finite from the first tile on
-      const float m_new = fmaxf(m[ri], mx);
-      const float corr = exp2f(m[ri] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kNS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(s[nt][2 * ri + e] - m_new);
-          s[nt][2 * ri + e] = p;
-          sum += p;
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[ri] = l[ri] * corr + sum;
-      m[ri] = m_new;
-#pragma unroll
-      for (int i = 0; i < kNO; ++i) {
-        o[i][2 * ri] *= corr;
-        o[i][2 * ri + 1] *= corr;
-      }
-    }
-
-    if (more) cp_async_wait<1>(); else cp_async_wait<0>();   // v landed
-    __syncthreads();
-    // o += p @ v; the score accumulators of two 8-key tiles form the A
-    // fragment of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kMBK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(
-            v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-            + dn * 16 + (lane >> 4) * 8));
-        mma_bf16(o[2 * dn], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dn + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();      // every warp is done with this v tile
-    if (more) {
-      load_tile<HD>(v_s, vb, v_st, k0 + kMBK, T_);
-      cp_async_commit();
-    }
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * kWarpgroups; ++i)
+      mbar_init(bar_q + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) tma_load_tile<HD>(q_s, &tm_q, bar_q, q0, h, b);
+  if (wtid == 0 && j_begin < j_end) {
+    tma_load_tile<HD>(k_s, &tm_k, bar_k, j_begin * kTK, g, b);
+    tma_load_tile<HD>(v_s, &tm_v, bar_v, j_begin * kTK, g, b);
   }
 
+  float o[HD / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t p[kTK / 16][4];
+  mbar_wait(bar_q, 0);
+
+  // one k and one v buffer a warpgroup: the next k tile loads under this
+  // tile's softmax and p v, the next v tile under the next q k^T and
+  // softmax, and the other warpgroup's work fills the SM meanwhile
+  for (int j = j_begin; j < j_end; ++j) {
+    const uint32_t parity = (j - j_begin) & 1;
+    const bool more = j + 1 < j_end;
+
+    mbar_wait(bar_k, parity);
+    wgmma_fence();
+    issue_qk<HD>(s, q_s, k_s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    named_barrier(1 + wg, kWgThreads);   // this warpgroup is done with k
+    if (wtid == 0 && more)
+      tma_load_tile<HD>(k_s, &tm_k, bar_k, (j + 1) * kTK, g, b);
+
+    softmax_tile<HD>(s, p, o, m, l, q_row, j * kTK, T_, tq,
+                     j == n_tiles - 1, sl2);
+
+    mbar_wait(bar_v, parity);
+    fence_regs(o);        // the rescale and p stay before the fence
+    fence_regs(p);
+    wgmma_fence();
+    issue_pv<HD>(o, p, v_s);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    named_barrier(1 + wg, kWgThreads);   // this warpgroup is done with v
+    if (wtid == 0 && more)
+      tma_load_tile<HD>(v_s, &tm_v, bar_v, (j + 1) * kTK, g, b);
+  }
+
+  // merge: warpgroup 1 hands its (m, l, o) to warpgroup 0 through shared
+  // memory, thread for thread (its k and v buffers are free now)
+  float* const o1 = smem_f + (L::kKV + 2 * L::kTile) / 4;
+  float* const ml1 = smem_f + L::kML / 4;
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o1[i * kWgThreads + wtid] = o[i];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      ml1[ri * kWgThreads + wtid] = m[ri];
+      ml1[(2 + ri) * kWgThreads + wtid] = l[ri];
+    }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  float a0[2], a1[2], inv[2];
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
-    const int qi = q0 + r0 + gr + 8 * ri;
+    // warpgroup 1 may have had no tile: m1 = -inf weighs it 0
+    const float m1 = ml1[ri * kWgThreads + wtid];
+    const float l1 = ml1[(2 + ri) * kWgThreads + wtid];
+    const float mm = fmaxf(m[ri], m1);
+    a0[ri] = exp2f(m[ri] - mm);
+    a1[ri] = exp2f(m1 - mm);
+    inv[ri] = 1.f / (l[ri] * a0[ri] + l1 * a1[ri]);
+  }
+  // rows past S are not written
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int qi = q_row + 8 * ri;
     if (qi >= S) continue;
-    const float inv = 1.f / l[ri];
     __nv_bfloat16* orow =
         out + ((static_cast<long long>(b) * H + h) * S + qi) * HD;
 #pragma unroll
-    for (int i = 0; i < kNO; ++i)
+    for (int i = 0; i < HD / 8; ++i) {
+      const int c = 4 * i + 2 * ri;
+      const float x0 = o[c] * a0[ri] + o1[c * kWgThreads + wtid] * a1[ri];
+      const float x1 =
+          o[c + 1] * a0[ri] + o1[(c + 1) * kWgThreads + wtid] * a1[ri];
       *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + 2 * tq) =
-          __floats2bfloat162_rn(o[i][2 * ri] * inv, o[i][2 * ri + 1] * inv);
+          __floats2bfloat162_rn(x0 * inv[ri], x1 * inv[ri]);
+    }
   }
 }
 
@@ -446,18 +485,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int H, int KV, int S, int T_, const long long* qs,
                 const long long* ks, const long long* vs, float scale,
                 cudaStream_t st) {
-  constexpr size_t smem = mma_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kMBQ - 1) / kMBQ, H, B);
-  flash_mma_kernel<HD><<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), H, KV, S, T_, qs[0], qs[1], qs[2],
-      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+  if (B > 65535 || (S + kTQ - 1) / kTQ > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = make_tile_map(&tm_q, q, HD, S, H, B, qs[0], qs[1], qs[2]);
+  if (err == 0) err = make_tile_map(&tm_k, k, HD, T_, KV, B, ks[0], ks[1],
+                                    ks[2]);
+  if (err == 0) err = make_tile_map(&tm_v, v, HD, T_, KV, B, vs[0], vs[1],
+                                    vs[2]);
+  if (err != 0) return err;
+  constexpr int smem = FlashSmem<HD>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(H, B, (S + kTQ - 1) / kTQ);
+  flash_wgmma_kernel<HD><<<grid, kWarpgroups * kWgThreads, smem, st>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), H, KV, S, T_,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,11 @@ SIGNATURES = {
     "ann_topk": ("ann_topk_fwd", [_P] * 6 + [_I, _LL] + [_I] * 4 + [_P]),
     "reuse_sketch": ("reuse_sketch_fwd", [_P] * 5 + [_LL, _I, _I, _F, _F, _P]),
 }
+# further C entry points, {name: (source, function, argtypes)}: queries a
+# wrapper makes of the card before it launches
+QUERIES = {
+    "ann_topk_blocks_per_sm": ("ann_topk", "ann_topk_blocks_per_sm", [_I]),
+}
 
 
 def _nvcc() -> str:
@@ -106,10 +111,12 @@ def build() -> Dict[str, object]:
 
 @functools.cache
 def library(name: str):
-    """The C entry point of kernel `name`, built on first use."""
+    """The C entry point of kernel `name` (or of a query in QUERIES),
+    built on first use."""
+    source, fn_name, argtypes = QUERIES.get(name) or (name,
+                                                      *SIGNATURES[name])
     build()
-    lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest()}.so"))
-    fn_name, argtypes = SIGNATURES[name]
+    lib = ctypes.CDLL(str(BUILD_DIR / f"{source}-{_digest()}.so"))
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

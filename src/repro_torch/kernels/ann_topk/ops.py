@@ -9,24 +9,33 @@ from .ref import reference_ann_topk
 
 BLOCK_Q = 64          # queries per block of the first pass
 TILE = 64             # corpus rows per tile
-MAX_K = 64
+MAX_K = 256
 MAX_SPLITS = 128      # per-split lists the merge pass takes per query
-# first-pass blocks resident on one SM: the kernel's __launch_bounds__ and
-# its shared memory at k = 64 (csrc/ann_topk.cu, kAnnBlocksPerSM)
-BLOCKS_PER_SM = 2
 
 
-def split_plan(n_q: int, n_c: int, n_sm: int):
+def split_plan(n_q: int, n_c: int, n_sm: int, per_sm: int):
     """(n_splits, tiles_per_split): the corpus's tiles cut into contiguous
     splits so that query blocks x splits fill the card's resident blocks
-    once. Blocks of one split plan do equal work, so a second, partial
-    wave would leave most SMs idle while it runs."""
+    (`per_sm` first-pass blocks on each of `n_sm` SMs) once. Blocks of one
+    split plan do equal work, so a second, partial wave would leave most
+    SMs idle while it runs."""
     q_blocks = -(-n_q // BLOCK_Q)
     n_tiles = -(-n_c // TILE)
-    want = min(MAX_SPLITS, n_tiles,
-               max(1, BLOCKS_PER_SM * n_sm // q_blocks))
+    want = min(MAX_SPLITS, n_tiles, max(1, per_sm * n_sm // q_blocks))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
+
+
+def blocks_per_sm(k: int, device: torch.device) -> int:
+    """First-pass blocks resident on one SM of `device` at this k, as the
+    card reports them for the kernel's shared memory and registers."""
+    with torch.cuda.device(device):
+        n = library("ann_topk_blocks_per_sm")(k)
+    check("ann_topk", max(0, -n))
+    if n < 1:
+        raise RuntimeError(f"ann_topk: no first-pass block fits an SM at "
+                           f"k = {k}")
+    return n
 
 
 def ann_topk(queries: torch.Tensor, corpus: torch.Tensor, *,
@@ -55,7 +64,8 @@ def ann_topk(queries: torch.Tensor, corpus: torch.Tensor, *,
         raise ValueError("ann_topk: Q and D must fit in int32")
     dev = queries.device
     n_splits, per = split_plan(
-        Q, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+        Q, N, torch.cuda.get_device_properties(dev).multi_processor_count,
+        blocks_per_sm(k, dev))
     part_d = torch.empty((Q, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, n_splits, k), dtype=torch.int32, device=dev)
     dists = torch.empty((Q, k), dtype=torch.float32, device=dev)

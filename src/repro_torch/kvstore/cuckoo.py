@@ -91,21 +91,26 @@ class BlockedCuckooStore:
 
     @classmethod
     def from_table(cls, keys: np.ndarray, vals: np.ndarray,
-                   stats: Optional[StoreStats] = None, **kw
+                   stats: Optional[StoreStats] = None,
+                   rng_state: Optional[dict] = None, **kw
                    ) -> "BlockedCuckooStore":
-        """A store over an existing table: `keys`/`vals` [n_buckets, slots]
-        int32 (0 = empty), e.g. the arrays of the reference package's store,
-        and its `StoreStats`. Other keywords go to the constructor."""
-        keys = np.asarray(keys)
-        vals = np.asarray(vals)
+        """A store over a copy of an existing table: `keys`/`vals`
+        [n_buckets, slots] int32 (0 = empty), e.g. the arrays of the
+        reference package's store, and its `StoreStats`. `rng_state`, a
+        `store.rng.bit_generator.state` dict, continues that store's
+        displacement generator, so later inserts relocate as the source
+        store's would. Other keywords go to the constructor."""
+        keys = np.array(keys, dtype=np.int32, copy=True)
+        vals = np.array(vals, dtype=np.int32, copy=True)
         if keys.shape != vals.shape or keys.ndim != 2:
             raise ValueError(f"keys and vals must both be [n_buckets, "
                              f"slots], got {keys.shape} and {vals.shape}")
         store = cls(keys.shape[0], slots=keys.shape[1], **kw)
-        store.keys = np.ascontiguousarray(keys, dtype=np.int32)
-        store.vals = np.ascontiguousarray(vals, dtype=np.int32)
+        store.keys, store.vals = keys, vals
         if stats is not None:
             store.stats = StoreStats(**dataclasses.asdict(stats))
+        if rng_state is not None:
+            store.rng.bit_generator.state = rng_state
         return store
 
     def device_table(self) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -44,7 +44,7 @@ from repro_torch.ann import model as t_ann_model
 from repro_torch.ann.corpus import make_corpus, make_queries
 from repro_torch.ann.progressive import exact_topk, recall_at_k, search
 from repro_torch.core.policy import Tier as TTier, TieringPolicy as TPolicy
-from repro_torch.kernels.ann_topk.ops import BLOCKS_PER_SM, split_plan
+from repro_torch.kernels.ann_topk.ops import split_plan
 from repro_torch.kernels.ann_topk.ref import reference_ann_topk, smallest_k
 from repro_torch.kernels.cuckoo_probe.ops import hash_pair
 from repro_torch.kernels.cuckoo_probe.ref import reference_cuckoo_probe
@@ -312,6 +312,33 @@ def test_from_table_probes_the_reference_table():
         TStore.from_table(js.keys, js.vals[:, :4], device=CPU)
 
 
+def test_from_table_copies_and_continues_the_reference_rng():
+    """A store made from the reference's table owns a copy of it, and with
+    the reference's generator state its later displacement chains are the
+    reference's: equal relocations, bit-identical tables."""
+    rng = np.random.default_rng(16)
+    keys = rng.choice(np.arange(1, 10**7), size=850, replace=False)
+    js = JStore(128, slots=8, wal_limit=64, seed=16)
+    for k in keys[:700]:
+        js.put(int(k), int(k) % 7919)
+    js.flush()
+    ref_keys, ref_vals = js.keys.copy(), js.vals.copy()
+    ts = TStore.from_table(js.keys, js.vals, stats=js.stats,
+                           rng_state=js.rng.bit_generator.state,
+                           wal_limit=64, device=CPU)
+    relocated = ts.stats.relocations
+    for k in keys[700:]:
+        ts.put(int(k), int(k) % 7919)
+    ts.flush()
+    np.testing.assert_array_equal(js.keys, ref_keys)
+    np.testing.assert_array_equal(js.vals, ref_vals)
+    for k in keys[700:]:
+        js.put(int(k), int(k) % 7919)
+    js.flush()
+    assert ts.stats.relocations > relocated      # the generator was used
+    _assert_same_store(js, ts)
+
+
 def test_device_table_uploads_only_after_a_write():
     ts = TStore(64, slots=8, wal_limit=4, device=CPU)
     for k in range(1, 5):
@@ -434,6 +461,8 @@ def test_corpus_identical(n, d_full, d_red, seed):
     (64, 1000, 64, 8, 256),
     (100, 2000, 128, 16, 512),
     (16, 300, 32, 4, 128),    # ragged corpus tail
+    (32, 700, 64, 128, 512),  # k above the kernel's old cap of 64
+    (16, 600, 32, 256, 512),  # the kernel's cap
 ])
 def test_ann_topk_plain_matches_reference(Q, N, D, k, tile):
     rng = np.random.default_rng(0)
@@ -485,18 +514,24 @@ def test_ann_topk_ties_go_to_the_lower_id_and_k_is_bounded():
         K.ann_topk(torch.zeros(1, 2), c, k=0)
 
 
-@pytest.mark.parametrize("Q,N,n_sm", [(1024, 262144, 132), (100, 8000, 132),
-                                      (200, 20000, 132), (1, 1, 132),
-                                      (5000, 64, 132), (64, 10**6, 8)])
-def test_split_plan_covers_every_tile_once(Q, N, n_sm):
-    n_splits, per = split_plan(Q, N, n_sm)
+@pytest.mark.parametrize("Q,N,n_sm,k", [
+    (1024, 262144, 132, 64), (100, 8000, 132, 64), (200, 20000, 132, 64),
+    (1, 1, 132, 1), (5000, 64, 132, 16), (64, 10**6, 8, 64),
+    (1024, 262144, 132, 88), (1024, 262144, 132, 89),
+    (1024, 262144, 132, 128), (1024, 262144, 132, 256),
+    (100, 8000, 132, 256), (64, 10**6, 8, 256)])
+def test_split_plan_covers_every_tile_once(Q, N, n_sm, k):
+    # the first pass's resident blocks an SM, as an H100 reports them: two
+    # while 2 x (ann_smem_bytes(k) + 1 KB) fits its 228 KB (k <= 88)
+    per_sm = 2 if k <= 88 else 1
+    n_splits, per = split_plan(Q, N, n_sm, per_sm)
     n_tiles = -(-N // 64)
     q_blocks = -(-Q // 64)
     assert 1 <= n_splits <= 128
     # every split has a tile; together they cover all tiles
     assert (n_splits - 1) * per < n_tiles <= n_splits * per
     # one wave of resident blocks, unless the query blocks alone exceed it
-    assert n_splits == 1 or q_blocks * n_splits <= BLOCKS_PER_SM * n_sm
+    assert n_splits == 1 or q_blocks * n_splits <= per_sm * n_sm
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,8 @@ from repro.kernels.rmsnorm.ref import reference_rmsnorm as j_rms_ref
 from repro_torch import kernels as K
 from repro_torch.kernels.decode_attention.ref import \
     reference_decode_attention
+from repro_torch.kernels.flash_attention.ops import kernel_head_dim, \
+    padded_attention
 from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
 
@@ -113,6 +115,32 @@ def test_flash_attention_plain_matches_jax(B, H, KV, S, T, D, dt):
     _assert_close(got, j_fref(jq, jk, jv, causal=True, scale=scale), dt)
     if S == T:     # the Pallas kernel's causal mask assumes S == T blocks
         _assert_close(got, j_flash(jq, jk, jv, True, None, True), dt)
+
+
+@pytest.mark.parametrize("D,want_bf16,want_f32", [
+    (16, 64, 32), (32, 64, 32), (112, 128, 128)])
+def test_flash_attention_padded_head_dim_matches_jax(D, want_bf16, want_f32):
+    """Pad, attend, slice: at the head_dim each kernel takes, zero-padded
+    q, k and v give attention at the true head_dim (the scale from it), to
+    float32 tolerance, against the reference's oracle and its Pallas
+    kernel."""
+    assert kernel_head_dim(D, torch.bfloat16) == want_bf16
+    assert kernel_head_dim(D, torch.float32) == want_f32
+    rng = np.random.default_rng(6)
+    jq, tq = _pair(rng, (1, 4, 80, D), "float32")
+    jk, tk = _pair(rng, (1, 1, 80, D), "float32")
+    jv, tv = _pair(rng, (1, 1, 80, D), "float32")
+    scale = 1.0 / np.sqrt(D)
+    want = j_fref(jq, jk, jv, causal=True, scale=scale)
+    for head_dim in (want_bf16, want_f32):
+        got = padded_attention(reference_attention, tq, tk, tv, scale=scale,
+                               head_dim=head_dim)
+        assert got.shape == (1, 4, 80, D) and got.is_contiguous()
+        _assert_close(got, want, "float32")
+        _assert_close(got, j_flash(jq, jk, jv, True, None, True), "float32")
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            kernel_head_dim(bad, torch.bfloat16)
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():

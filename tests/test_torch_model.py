@@ -92,6 +92,55 @@ def test_per_slot_decode_logits_match_reference(setup):
                                atol=ATOL)
 
 
+BF16_ATOL = 1e-2
+
+
+def test_bf16_logits_and_greedy_tokens_match_reference(setup):
+    """bf16 compute on both sides, the same weights and tokens: prefill,
+    then 8 greedy decode steps, both fed the reference's greedy tokens.
+
+    The reference runs gemma's residual stream in float64 (its x64 mode
+    promotes the NumPy `sqrt(d_model)` of `_embed_tokens`) and so returns
+    float32 logits; the port keeps the residual stream and the logits in
+    the compute dtype, bf16, as it does on the card. The test follows the
+    port's side: every product is bf16 on both, and BF16_ATOL (at a logit
+    scale of ~0.5, where one bf16 rounding is ~2e-3) covers the residual
+    stream's extra roundings (observed <= 5.5e-3). The port's greedy token
+    equals the reference's at every step whose top-2 margin exceeds twice
+    the tolerance; a closer pair is a tie at bf16's resolution."""
+    jcfg, cfg, jp, tp, rules = setup
+    B, S, steps = 2, 12, 8
+    toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
+    jc = JM.init_cache(jcfg, B, 32, dtype=jnp.bfloat16)
+    jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+                        compute_dtype=jnp.bfloat16)
+    tc = TM.init_cache(cfg, B, 32, dtype=torch.bfloat16, device="cpu")
+    tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
+                        compute_dtype=torch.bfloat16)
+    index = np.full(B, S, np.int32)
+    separated = 0
+    for step in range(steps):
+        assert tl.dtype == torch.bfloat16
+        j = np.asarray(jl, np.float32)
+        t = tl.float().numpy()
+        np.testing.assert_allclose(t, j, atol=BF16_ATOL,
+                                   err_msg=f"decode step {step}")
+        top2 = np.sort(j, axis=-1)[:, -2:]
+        sep = top2[:, 1] - top2[:, 0] > 2 * BF16_ATOL
+        np.testing.assert_array_equal(t.argmax(-1)[sep], j.argmax(-1)[sep],
+                                      err_msg=f"greedy token, step {step}")
+        separated += int(sep.sum())
+        tok = j.argmax(-1)[:, None].astype(np.int32)
+        jc, jl = JM.decode_step(jp, jcfg, rules, jnp.asarray(tok), jc,
+                                jnp.asarray(index),
+                                compute_dtype=jnp.bfloat16)
+        tc, tl = TM.decode_step(tp, cfg, torch.from_numpy(tok), tc,
+                                torch.from_numpy(index),
+                                compute_dtype=torch.bfloat16)
+        index = index + 1
+    assert separated >= B * steps * 3 // 4, separated
+
+
 def test_decode_matches_forward(setup):
     """As tests/test_decode_equivalence.py checks for the reference:
     prefill + token-by-token decode equal the parallel forward pass."""
