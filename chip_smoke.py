@@ -11,14 +11,18 @@ Drives the port's serving path on the card and checks it, in phases:
      112 that its wrapper pads) and times kernel, plain version, one
      PyTorch library call and the roofline bound; flash attention checked
      and timed at every prefill bucket phase 4 hits, in the prefill's own
-     strided layout too;
+     strided layout too; decode attention also at lengths 0 and past T,
+     behind NaN/inf unfilled rows, at head dims 16, 32, 100 and 112, two
+     calls bit-identical, right after a call with other lengths, and its
+     per-phase timeline;
   4. full-width gemma-2b (random bf16 weights from a seed, full depth)
      serves 6 requests through `DecodeEngine`, then parks two sessions
      through a `TieredStore` whose DRAM holds 1.5 KV blobs, so the colder
      one is demoted to flash and comes back through a prefetch on the
      virtual clock; every serving kernel's launch counter must move; then
      one prefill and one decode step under torch.profiler: device
-     operations by time and the device-idle share;
+     operations by time and the device-idle share, and one
+     decode-attention kernel with one launch a layer in the step;
   5. reduced gemma-2b in float32: the engine's greedy tokens (kernels)
      equal a greedy loop over the plain PyTorch path;
   6. the SSD-resident cuckoo KV store (paper §VII-A): examples/
@@ -167,6 +171,8 @@ def phase_kernels(cfg, lengths_main, buckets):
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      rmsnorm)
+    from repro_torch.kernels.decode_attention import \
+        timeline as decode_timeline
     from repro_torch.kernels.decode_attention.ref import \
         reference_decode_attention
     from repro_torch.kernels.flash_attention.ref import reference_attention
@@ -234,12 +240,65 @@ def phase_kernels(cfg, lengths_main, buckets):
                     reference_decode_attention(q, k, v, lens, scale=scale),
                     str(dt).split(".")[1],
                     f"H={h_} KV={kv_} T={MAX_LEN} {lab} {dt}")
+    # lengths 0 and past T; unfilled rows NaN in k and inf in v; phase 5's
+    # head_dim 32 in f32, 16 and 112 in bf16, and 100, whose rows are not
+    # 16-byte multiples (the kernel copies their unaligned ends itself)
+    edge = torch.tensor([0, 5, MAX_LEN + 100, 300], dtype=torch.int32,
+                        device=dev)
+    red = torch.tensor([5, 64, 17, 30], dtype=torch.int32, device=dev)
+    for dt, h_, kv_, T_, d_, lens, tail, lab in (
+            (torch.float32, H, KV, MAX_LEN, hd, edge, False, "0 and > T"),
+            (torch.bfloat16, H, KV, MAX_LEN, hd, edge, False, "0 and > T"),
+            (torch.float32, H, KV, MAX_LEN, hd, lengths_main, True,
+             "NaN/inf tail"),
+            (torch.bfloat16, 8, 2, MAX_LEN, hd, ragged, True, "NaN/inf tail"),
+            (torch.float32, 4, 1, 64, 32, red, False, "phase 5 shape"),
+            (torch.bfloat16, 8, 2, MAX_LEN, 16, ragged, False, "hd 16"),
+            (torch.bfloat16, 8, 2, MAX_LEN, 112, edge, False, "hd 112"),
+            (torch.bfloat16, H, KV, MAX_LEN - 1, 100, ragged, False,
+             "hd 100")):
+        q = randn(MAX_SLOTS, h_, d_, dtype=dt)
+        k = randn(MAX_SLOTS, kv_, T_, d_, dtype=dt)
+        v = randn(MAX_SLOTS, kv_, T_, d_, dtype=dt)
+        if tail:
+            unfilled = (torch.arange(T_, device=dev)[None, :]
+                        >= lens[:, None])[:, None, :, None]
+            k = k.masked_fill(unfilled, float("nan"))
+            v = v.masked_fill(unfilled, float("inf"))
+        sc = 1.0 / math.sqrt(d_)
+        got = decode_attention(q, k, v, lens, scale=sc)
+        assert bool(torch.isfinite(got).all()), lab
+        _check("decode_attention", got,
+               reference_decode_attention(q, k, v, lens, scale=sc),
+               str(dt).split(".")[1],
+               f"H={h_} KV={kv_} T={T_} hd={d_} {lab} {dt}")
     # the real path reads one layer's cache after another: 18 distinct
     # caches exceed the 50 MB L2
     caches = [(randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=torch.bfloat16),
                randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=torch.bfloat16))
               for _ in range(cfg.n_groups)]
     q = randn(MAX_SLOTS, H, hd, dtype=torch.bfloat16)
+    k, v = caches[0]
+    # the same inputs give the same bits; the tickets reset after a call
+    # with other lengths, so the next call is right again
+    first = decode_attention(q, k, v, lengths_main, scale=scale)
+    _check("decode_attention", first,
+           reference_decode_attention(q, k, v, lengths_main, scale=scale),
+           "bfloat16", "the timed inputs, main lengths bf16")
+    assert torch.equal(first, decode_attention(q, k, v, lengths_main,
+                                               scale=scale)), "not bitwise"
+    decode_attention(q, k, v, edge, scale=scale)
+    assert torch.equal(first, decode_attention(q, k, v, lengths_main,
+                                               scale=scale)), "tickets"
+    print("  check decode_attention  two calls bit-identical; right after a "
+          "call with other lengths ok")
+    # where a call spends its time, phase by phase (a -DDEC_TIMELINE build)
+    tl = decode_timeline.run(lengths_main.tolist())
+    print(f"  time  decode_attention  timeline (us at {tl['sm_clock_mhz']} "
+          f"MHz): first start to last exit "
+          f"{tl['first_start_to_last_exit_us']}; merging block "
+          f"{tl['critical_block_us']}; partial blocks (median) "
+          f"{tl['partial_blocks_median_us']}")
     valid = (torch.arange(MAX_LEN, device=dev)[None, :]
              < lengths_main[:, None])[:, None, None, :]
     filled = int(lengths_main.sum())
@@ -512,6 +571,15 @@ def _profile_split(eng, prompts):
             t = e.self_device_time_total / 1e3
             print(f"    {t:9.4f} ms {100 * t / busy:5.1f}% x{e.count:<4d} "
                   f"{e.key[:90]}")
+        if label.startswith("decode"):
+            dec = [e for e in kern if "decode_attention" in e.key]
+            assert len(dec) == 1 and dec[0].count == eng.cfg.n_groups, \
+                [(e.key, e.count) for e in dec]
+            assert not any("merge" in e.key for e in kern), "merge kernel"
+            t = dec[0].self_device_time_total / 1e3
+            print(f"  decode step: one decode_attention kernel, "
+                  f"{dec[0].count} launches, {t:.4f} ms = "
+                  f"{100 * t / busy:.1f}% of device time")
     while eng.live.any():
         eng.step()
 

@@ -41,7 +41,7 @@ SIGNATURES = {
     "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _LL, _I, _F, _I, _P]),
     "decode_attention": (
         "decode_attention_fwd",
-        [_P] * 8 + [_I] * 6 + [_LL] * 8 + [_F, _I, _P]),
+        [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _I, _P]),
     "flash_attention": (
         "flash_attention_fwd",
         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),

@@ -21,6 +21,8 @@ from repro.kernels.flash_attention.ref import reference_attention as j_fref
 from repro.kernels.rmsnorm.ops import rmsnorm as j_rms
 from repro.kernels.rmsnorm.ref import reference_rmsnorm as j_rms_ref
 from repro_torch import kernels as K
+from repro_torch.kernels.decode_attention.ops import check_inputs, \
+    heads_per_group, scratch_numel, smem_bytes
 from repro_torch.kernels.decode_attention.ref import \
     reference_decode_attention
 from repro_torch.kernels.flash_attention.ops import kernel_head_dim, \
@@ -61,9 +63,14 @@ def test_rmsnorm_plain_matches_jax(shape, dt):
     (4, 8, 1, 1024, 64, [1, 77, 700, 1024]),  # gemma MQA, ragged
     (2, 8, 2, 600, 128, [600, 333]),          # GQA, T not a block multiple
     (3, 4, 4, 96, 32, [96, 1, 50]),           # MHA, T < block
+    (3, 8, 1, 64, 32, [0, 5, 100]),           # lengths 0 and above T
 ])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_decode_attention_plain_matches_jax(B, H, KV, T, D, lengths, dt):
+    """Lengths above T count as T. A row of length 0 gives zeros, as the
+    Pallas kernel gives; the reference's jnp oracle softmaxes that
+    all-masked row into the mean of v, so it is held to the rows with a
+    filled position only."""
     rng = np.random.default_rng(1)
     jq, tq = _pair(rng, (B, H, D), dt)
     jk, tk = _pair(rng, (B, KV, T, D), dt)
@@ -74,8 +81,10 @@ def test_decode_attention_plain_matches_jax(B, H, KV, T, D, lengths, dt):
                                      scale=scale)
     assert got.dtype == tq.dtype and got.shape == (B, H, D)
     _assert_close(got, j_dec(jq, jk, jv, jnp.asarray(lens)), dt)
-    _assert_close(got, j_dec_ref(jq, jk, jv, jnp.asarray(lens),
-                                 scale=scale), dt)
+    live = lens > 0
+    want = j_dec_ref(jq, jk, jv, jnp.asarray(lens), scale=scale)
+    _assert_close(got[torch.from_numpy(live)], np.asarray(want)[live], dt)
+    assert not got[torch.from_numpy(~live)].any()
 
 
 def test_decode_attention_plain_ignores_a_garbage_tail():
@@ -96,6 +105,72 @@ def test_decode_attention_plain_ignores_a_garbage_tail():
                  jnp.asarray(lens), scale=0.2)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("qr,hg", [(1, 1), (2, 2), (3, 4), (4, 4), (6, 8),
+                                   (8, 8), (12, 8), (32, 8)])
+def test_decode_attention_head_groups(qr, hg):
+    """The kernel holds q for up to 8 heads a lane at once, in powers of
+    two; more heads per kv head run in groups of 8."""
+    assert heads_per_group(qr) == hg
+
+
+def test_decode_attention_shared_memory_and_scratch_sizes():
+    """`smem_bytes` mirrors the kernel's `DecLayout`: two 128-byte padded
+    staging buffers of 32 rows (16 spare bytes for an unaligned start),
+    float32 scores and weights [32][qp], merge weights [n_chunks][qp] and
+    an 8-byte mbarrier. At gemma-2b's decode shape: 2 * 16512 + 4 * 8 *
+    (64 + 32) + 8."""
+    assert smem_bytes(1024, 8, 256, 2) == 2 * 16512 + 3072 + 8
+    assert smem_bytes(1024, 8, 256, 4) == 2 * 32896 + 3072 + 8
+    # qr 3 runs as a group of 4 heads; hd 7 rows are 14 bytes
+    assert smem_bytes(61, 3, 7, 2) == 2 * 512 + 4 * 4 * 66 + 8
+    assert scratch_numel(4, 1, 1024, 8, 256) == 4 * 32 * 8 * 258
+    assert scratch_numel(3, 2, 1023, 4, 112) == 3 * 2 * 32 * 4 * 114
+
+
+def test_decode_attention_takes_the_cache_layouts_of_the_path():
+    """The model's cache (a layer's [B,KV,T,hd] slice of [G,B,KV,T,hd])
+    with q a [B,1,H,hd] projection's token 0, and chip_smoke's inputs,
+    have contiguous rows: the kernel takes them."""
+    cache = torch.zeros(3, 4, 1, 64, 32)
+    q = torch.zeros(4, 1, 8, 32)[:, 0]
+    lens = torch.zeros(4, dtype=torch.int32)
+    check_inputs(q, cache[1], cache[2], lens)
+    check_inputs(torch.zeros(4, 8, 256), torch.zeros(4, 2, 1023, 256),
+                 torch.zeros(4, 2, 1023, 256), lens)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("strided rows", "rows of k must be contiguous"),
+    ("transposed v", "rows of v must be contiguous"),
+    ("int64 lengths", "lengths must be int32"),
+    ("head_dim 300", "head_dim <= 256"),
+    ("GQA mismatch", "does not match"),
+    ("shared memory", "shared memory"),
+])
+def test_decode_attention_raises_for_what_the_kernel_does_not_take(
+        case, match):
+    q, k = torch.zeros(2, 8, 32), torch.zeros(2, 1, 64, 32)
+    lens = torch.zeros(2, dtype=torch.int32)
+    args = dict(q=q, k=k, v=k, lengths=lens)
+    if case == "strided rows":
+        args["k"] = torch.zeros(2, 1, 128, 32)[:, :, ::2]
+        args["v"] = args["k"]
+    elif case == "transposed v":
+        args["v"] = torch.zeros(2, 1, 32, 64).transpose(2, 3)
+    elif case == "int64 lengths":
+        args["lengths"] = lens.long()
+    elif case == "head_dim 300":
+        args.update(q=torch.zeros(2, 8, 300), k=torch.zeros(2, 1, 64, 300),
+                    v=torch.zeros(2, 1, 64, 300))
+    elif case == "GQA mismatch":
+        args.update(k=torch.zeros(2, 3, 64, 32), v=torch.zeros(2, 3, 64, 32))
+    elif case == "shared memory":       # merge weights of 8192 chunks
+        args.update(q=torch.zeros(2, 8, 1), k=torch.zeros(2, 1, 1 << 18, 1),
+                    v=torch.zeros(2, 1, 1 << 18, 1))
+    with pytest.raises(ValueError, match=match):
+        check_inputs(**args)
 
 
 @pytest.mark.parametrize("B,H,KV,S,T,D", [
