@@ -34,9 +34,14 @@ Drives the port's serving path on the card and checks it, in phases:
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
      search on the card, ann_topk against its plain version (k = 64, 128
-     and 256, with the resident blocks an SM the card reports),
-     recall@10 > 0.98 at the reference tests' size (8000 vectors), and
-     recall@10 at promote 128 and 256;
+     and 256; exact ties of copied rows across tile and split borders,
+     resolved to the lowest ids; N = 300 at k = 256 and k = N; Q = 1 and
+     65; D = 30 and 1024; a bitwise repeat), the resident blocks an SM
+     the card reports against the shared-memory rule, recall@10 > 0.98 at
+     the reference tests' size (8000 vectors), recall@10 at promote 128
+     and 256 (and at 256 with stage 1 by exact search), kernel time at
+     k = 1, 64, 128 and 256 against torch.addmm + torch.topk, and the
+     kernel's per-phase timeline;
   8. the autopilot: the reuse-sketch kernel bit for bit against its plain
      version (on the card and on the host) at the bench's shape, the
      scale replay's (50,000 and 2^20 intervals), an empty batch, every
@@ -102,6 +107,8 @@ ANN_N, ANN_D_FULL, ANN_D_RED, ANN_Q = 262_144, 1024, 128, 1024
 ANN_PROMOTE, ANN_K = 64, 10
 ANN_DEEP = (128, 256)          # deeper promotes, up to ann_topk's cap
 ANN_SMALL = (8000, 100)
+# rows copied from a pool, for exact ties: (corpus rows, pool rows, queries)
+ANN_TIED = (65_536, 512, 256)
 # ann_topk vs its plain version: float32 products in another summation
 # order differ by ~1e-6 at these magnitudes (|d| <= 3); ids are compared
 # wherever the plain version's neighbouring distances differ by > 1e-5
@@ -772,15 +779,106 @@ def phase_kvstore():
 
 
 # ---------------------------------------------------------------- phase 7
-def _separated_id_mismatches(d_ref_k1, ids, ids_ref):
+def _separated_id_mismatches(d_ref_k1, ids, ids_ref, copies=None):
     """ids equal wherever the plain version's neighbouring distances (its
-    k+1 nearest, so the k-th has a next) differ by more than ANN_TIE."""
+    k+1 nearest, so the k-th has a next) differ by more than ANN_TIE.
+    `copies` [Q, k+1] marks the places that hold a copy of the row
+    before them: a run of copies has one distance on both sides and is
+    ordered by id, so it counts as one place, set apart by the gaps
+    before and after the run."""
     import torch
-    gap = d_ref_k1[:, 1:] - d_ref_k1[:, :-1]
-    sep = torch.ones_like(ids, dtype=torch.bool)
-    sep[:, 1:] &= gap[:, :-1] > ANN_TIE
-    sep &= gap > ANN_TIE
+    inf = torch.full_like(d_ref_k1[:, :1], math.inf)
+    before = torch.cat([inf, d_ref_k1[:, 1:] - d_ref_k1[:, :-1]], dim=1)
+    first = torch.ones_like(before, dtype=torch.bool) if copies is None \
+        else ~copies
+    first[:, 0] = True
+    run = torch.cumsum(first.long(), dim=1) - 1
+    # the gap before each run; after run r comes run r + 1's
+    gap = torch.cat([inf.expand_as(before), inf], dim=1).scatter_reduce(
+        1, run, torch.where(first, before, inf.expand_as(before)), "amin")
+    sep = (gap.gather(1, run) > ANN_TIE) & (gap.gather(1, run + 1) > ANN_TIE)
+    sep = sep[:, :ids.shape[1]]
     return int(((ids != ids_ref) & sep).sum()), int(sep.sum())
+
+
+def _ann_case(q_, c_, k_, lab, group=None, rank=None):
+    """ann_topk against its plain version on the card: distances within
+    ANN_ATOL, distinct ids, equal to the plain version's at every
+    separated place; for a corpus of copied rows (`group`: each row's
+    pool row, `rank`: its place among the copies by id) every tied group
+    resolved to its lowest ids. Returns max_abs_err."""
+    import torch
+    from repro_torch.kernels.ann_topk import ann_topk, reference_ann_topk
+    n = c_.shape[0]
+    d, ids = ann_topk(q_, c_, k=k_)
+    rd, rids = reference_ann_topk(q_, c_, min(k_ + 1, n))
+    if k_ == n:                    # no next: the k-th is set apart from it
+        rd = torch.cat([rd, torch.full_like(rd[:, :1], math.inf)], dim=1)
+    copies = None
+    if group is not None:
+        g = group[rids.long()]
+        copies = torch.zeros_like(g, dtype=torch.bool)
+        copies[:, 1:] = g[:, 1:] == g[:, :-1]
+        if k_ == n:
+            copies = torch.cat([copies, torch.zeros_like(copies[:, :1])], 1)
+    rids = rids[:, :k_]
+    err = float((d - rd[:, :k_]).abs().max())
+    bad, n_sep = _separated_id_mismatches(rd, ids, rids, copies)
+    assert d.shape == ids.shape == (q_.shape[0], k_), (lab, d.shape)
+    assert bool(torch.isfinite(d).all()), lab
+    assert bool((ids.sort(dim=1).values.diff(dim=1) > 0).all()), lab
+    assert err <= ANN_ATOL and bad == 0, (lab, k_, err, bad)
+    tied = ""
+    if group is not None:
+        g = group[ids.long()]
+        held = (g[:, :, None] == g[:, None, :]).sum(dim=-1)
+        not_lowest = int((rank[ids.long()] >= held).sum())
+        assert not_lowest == 0, (lab, k_, not_lowest)
+        tied = (f"; {int((held > 1).sum())} places in tied groups, each "
+                f"group's lowest ids")
+    print(f"  check ann_topk          {lab} k={k_} max_abs_err={err:.3e}; "
+          f"ids equal at all {n_sep} separated places "
+          f"({int((ids != rids).sum())} near-tie swaps){tied}; ok")
+    return err
+
+
+def _tied_corpus(gen_np, n, d, pool, n_q):
+    """n rows copied from `pool` random rows (norm ~1) at scattered ids,
+    so exact ties cross tile and split borders, and n_q queries near pool
+    rows. Returns (queries, corpus, group, rank) on the card: each row's
+    pool row and its place among that row's copies by id."""
+    import numpy as np
+    import torch
+    rows = (gen_np.standard_normal((pool, d)) / math.sqrt(d)).astype(
+        np.float32)
+    group = gen_np.integers(0, pool, n)
+    order = np.argsort(group, kind="stable")
+    first = np.searchsorted(group[order], group[order], side="left")
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - first
+    qs = rows[gen_np.integers(0, pool, n_q)] + (0.3 / math.sqrt(d)) * \
+        gen_np.standard_normal((n_q, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in
+                 (qs, rows[group], group, rank))
+
+
+def _ann_pass_split(fn):
+    """Device ms a call of each kernel that `fn` launches, by
+    torch.profiler over three calls (each kernel's time over the calls the
+    profiler recorded of it); {} when it sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0].replace("void ", ""):
+            e.self_device_time_total / e.count / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
 
 
 def phase_ann():
@@ -792,7 +890,9 @@ def phase_ann():
     from repro_torch.ann.corpus import make_corpus, make_queries
     from repro_torch.ann.progressive import exact_topk, recall_at_k, search
     from repro_torch.kernels.ann_topk import ann_topk, reference_ann_topk
-    from repro_torch.kernels.ann_topk.ops import blocks_per_sm
+    from repro_torch.kernels.ann_topk import timeline as ann_timeline
+    from repro_torch.kernels.ann_topk.ops import (blocks_per_sm,
+                                                  resident_blocks, smem_bytes)
 
     t0 = time.perf_counter()
     full_np, red_np, _ = make_corpus(ANN_N, ANN_D_FULL, ANN_D_RED,
@@ -833,79 +933,112 @@ def phase_ann():
     assert int(pred.min()) >= 0 and int(pred.max()) < ANN_N
     assert bool((pred.sort(dim=1).values.diff(dim=1) > 0).all())
 
-    # ann_topk against its plain version at the path's shapes, and at the
-    # deeper promotes of (c)
+    # the resident first-pass blocks the card reports at each k: the
+    # shared-memory rule that the CPU test of split_plan takes
+    rule = resident_blocks()
+    per_sm = {k_: blocks_per_sm(k_, red.device)
+              for k_ in (1, 64, 88, 89, 128, 256)}
+    print(f"  ann_topk resident blocks an SM by k: {per_sm}; the rule "
+          f"({smem_bytes()} B of shared memory a block): {rule}")
+    assert all(n == rule for n in per_sm.values()), (per_sm, rule)
+
+    # ann_topk against its plain version at the path's shapes and at the
+    # deeper promotes of (c); then at edges of the design
     q_red = qs[:, :ANN_D_RED].contiguous()
     small = (torch.from_numpy(small_q[:, :ANN_D_RED]).cuda(),
              torch.from_numpy(small_red).cuda())
+    path = f"[{ANN_Q},{ANN_D_RED}] x [{ANN_N},{ANN_D_RED}]"
     errs = {}
     for q_, c_, k_, lab in (
-            (q_red, red, ANN_PROMOTE, f"[{ANN_Q},{ANN_D_RED}] x [{ANN_N},"
-             f"{ANN_D_RED}]"),
+            (q_red, red, ANN_PROMOTE, path),
             (*small, ANN_PROMOTE, f"[{ANN_SMALL[1]},{ANN_D_RED}] x "
              f"[{ANN_SMALL[0]},{ANN_D_RED}]"),
-            *((q_red, red, k_, f"[{ANN_Q},{ANN_D_RED}] x [{ANN_N},"
-               f"{ANN_D_RED}]") for k_ in ANN_DEEP)):
-        d, ids = ann_topk(q_, c_, k=k_)
-        rd, rids = reference_ann_topk(q_, c_, k_ + 1)
-        err = float((d - rd[:, :-1]).abs().max())
-        bad, n_sep = _separated_id_mismatches(rd, ids, rids[:, :-1])
-        assert err <= ANN_ATOL and bad == 0, (lab, k_, err, bad)
-        errs.setdefault(k_, err)
-        # the resident first-pass blocks the card reports at k, the ones
-        # the CPU test of split_plan takes for an H100
-        per_sm = blocks_per_sm(k_, q_.device)
-        assert per_sm == (2 if k_ <= 88 else 1), (k_, per_sm)
-        print(f"  check ann_topk          {lab} k={k_} "
-              f"max_abs_err={err:.3e}; ids equal at all {n_sep} separated "
-              f"places ({int((ids != rids[:, :-1]).sum())} near-tie swaps); "
-              f"resident blocks an SM: {per_sm}; ok")
-        del rd, rids
+            *((q_red, red, k_, path) for k_ in ANN_DEEP)):
+        errs.setdefault(k_, _ann_case(q_, c_, k_, lab))
+    gen = np.random.default_rng(SEED)
+    tq, tc, group, rank = _tied_corpus(gen, ANN_TIED[0], ANN_D_RED,
+                                       ANN_TIED[1], ANN_TIED[2])
+    for k_ in (ANN_PROMOTE, 256):
+        _ann_case(tq, tc, k_, f"[{ANN_TIED[2]},{ANN_D_RED}] x "
+                  f"[{ANN_TIED[0]},{ANN_D_RED}] copies of {ANN_TIED[1]} rows",
+                  group, rank)
+
+    def randn(*shape):             # rows of norm ~1, as the path's
+        return torch.from_numpy((gen.standard_normal(shape) / math.sqrt(
+            shape[1])).astype(np.float32)).cuda()
+    for n_ in (300, 256):
+        _ann_case(randn(100, ANN_D_RED), randn(n_, ANN_D_RED), 256,
+                  f"[100,{ANN_D_RED}] x [{n_},{ANN_D_RED}]")
+    for n_q in (1, 65):
+        for k_ in (ANN_PROMOTE, 256):
+            _ann_case(q_red[:n_q].contiguous(), red, k_,
+                      f"[{n_q},{ANN_D_RED}] x [{ANN_N},{ANN_D_RED}]")
+    _ann_case(randn(100, 30), randn(5000, 30), ANN_PROMOTE,
+              "[100,30] x [5000,30] (rows not 16-byte aligned)")
+    for k_ in (ANN_PROMOTE, 256):
+        _ann_case(qs[:100].contiguous(), full[:20000], k_,
+                  f"[100,{ANN_D_FULL}] x [20000,{ANN_D_FULL}]")
+    for k_ in (ANN_PROMOTE, 256):
+        d1, i1 = ann_topk(q_red, red, k=k_)
+        d2, i2 = ann_topk(q_red, red, k=k_)
+        assert torch.equal(d1.view(torch.int32), d2.view(torch.int32)) \
+            and torch.equal(i1, i2), k_
+        print(f"  check ann_topk          {path} k={k_}: two calls "
+              f"bit-identical")
 
     cn = torch.sum(red * red, dim=1)
-    nbytes = (q_red.numel() + red.numel()) * 4 + ANN_Q * ANN_PROMOTE * 8
-    b_ms, b_by = _bound_ms(nbytes, 2 * ANN_Q * ANN_N * ANN_D_RED,
-                           torch.float32)
-    out = dict(
-        shape=(f"queries [{ANN_Q},{ANN_D_RED}] corpus [{ANN_N},{ANN_D_RED}]"
-               f" f32, k={ANN_PROMOTE}"),
-        max_abs_err=errs[ANN_PROMOTE],
-        ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
-                    iters=10),
-        launch_ms=_time_ms([lambda: ann_topk(q_red, red, k=ANN_PROMOTE)],
-                           iters=10, queued=False),
-        plain_ms=_time_ms([lambda: reference_ann_topk(q_red, red,
-                                                      ANN_PROMOTE)],
-                          iters=5),
-        library_ms=_time_ms([lambda: torch.topk(torch.addmm(
-            cn[None, :], q_red, red.T, alpha=-2.0), ANN_PROMOTE,
-            largest=False)], iters=10),
-        library="torch.addmm(|c|^2, q, c.T, alpha=-2) + torch.topk "
-        "(|c|^2 precomputed)",
-        bound_ms=b_ms, bound_by=b_by)
+    flops = 2 * ANN_Q * ANN_N * ANN_D_RED
     # where stage 1's time goes: the kernel at k = 1 (products, almost no
-    # fold) and a bare float32 GEMM of the same shape
-    k1_ms = _time_ms([lambda: ann_topk(q_red, red, k=1)], iters=10)
+    # selection), at the promotes, a bare float32 GEMM of the same shape
+    # and the PyTorch calls that give the same result
     gemm_ms = _time_ms([lambda: torch.addmm(cn[None, :], q_red, red.T,
                                             alpha=-2.0)], iters=10)
-    print(f"  time  ann_topk at k=1 {k1_ms:.4f} ms; torch.addmm alone "
-          f"{gemm_ms:.4f} ms (same shape, float32)")
-
-    # (c) deeper promotes: k up to 256 (one first-pass block an SM above
-    # k = 88), and the recall they buy at 262,144 vectors
-    for k_ in ANN_DEEP:
-        b_ms = _bound_ms((q_red.numel() + red.numel()) * 4 + ANN_Q * k_ * 8,
-                         2 * ANN_Q * ANN_N * ANN_D_RED, torch.float32)[0]
-        k_ms = _time_ms([lambda: ann_topk(q_red, red, k=k_)], iters=5)
-        p_ms = _time_ms([lambda: reference_ann_topk(q_red, red, k_)],
-                        iters=3)
-        l_ms = _time_ms([lambda: torch.topk(torch.addmm(
-            cn[None, :], q_red, red.T, alpha=-2.0), k_, largest=False)],
-            iters=5)
+    times = {}
+    for k_ in (1, ANN_PROMOTE, *ANN_DEEP):
+        b_ms, b_by = _bound_ms((q_red.numel() + red.numel()) * 4
+                               + ANN_Q * k_ * 8, flops, torch.float32)
+        times[k_] = dict(
+            ms=_time_ms([lambda: ann_topk(q_red, red, k=k_)], iters=10),
+            launch_ms=_time_ms([lambda: ann_topk(q_red, red, k=k_)],
+                               iters=10, queued=False),
+            plain_ms=_time_ms([lambda: reference_ann_topk(q_red, red, k_)],
+                              iters=5),
+            library_ms=_time_ms([lambda: torch.topk(torch.addmm(
+                cn[None, :], q_red, red.T, alpha=-2.0), k_, largest=False)],
+                iters=10),
+            bound_ms=b_ms, bound_by=b_by)
+        t = times[k_]
         print(f"  time  ann_topk          queries [{ANN_Q},{ANN_D_RED}] "
               f"corpus [{ANN_N},{ANN_D_RED}] f32, k={k_}: kernel_ms="
-              f"{k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-              f"bound_ms={b_ms:.5f} (operations)")
+              f"{t['ms']!r} (with host launch {t['launch_ms']!r}) plain_ms="
+              f"{t['plain_ms']!r} library_ms={t['library_ms']!r} "
+              f"bound_ms={b_ms!r} ({b_by})")
+    print("  time  ann_topk by k: " + "; ".join(
+        f"k={k_} kernel {t['ms']:.4f} ms, addmm + topk "
+        f"{t['library_ms']:.4f}" for k_, t in times.items())
+        + f"; torch.addmm alone {gemm_ms:.4f} ms (float32, same shape)")
+    for k_ in (ANN_PROMOTE, 256):
+        split = _ann_pass_split(lambda: ann_topk(q_red, red, k=k_))
+        total = sum(split.values())
+        print(f"  profile ann_topk k={k_}: " + (", ".join(
+            f"{name} {ms:.4f} ms ({ms / total:.1%})"
+            for name, ms in split.items()) if split else
+            "the profiler saw no device time; split not measured"))
+    for k_ in (ANN_PROMOTE, *ANN_DEEP):
+        assert times[k_]["ms"] < times[k_]["library_ms"], (k_, times[k_])
+    # where a call's time goes, phase by phase (a -DANN_TIMELINE build)
+    tl = ann_timeline.run(q_red, red, tuple(times))
+    for k_, ph in tl["k"].items():
+        print(f"  time  ann_topk          timeline k={k_} (us, median "
+              f"block, SM clock {ph['sm_clock_mhz']} MHz): " + ", ".join(
+                  f"{p}={ph[p]}" for p in ann_timeline.PHASES)
+              + f"; a block's merge rounds {ph['n_rounds']}, merges "
+              f"{ph['n_merges']}, candidates {ph['n_survivors']}; first "
+              f"start to last exit {ph['first_start_to_last_exit_us']}")
+
+    # (c) deeper promotes, and the recall they buy at 262,144 vectors;
+    # at the deepest, the same search with stage 1 by exact_topk
+    for k_ in ANN_DEEP:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         pred_k, _ = search(qs, red, full, k=ANN_K, promote=k_, device="cuda")
@@ -915,6 +1048,22 @@ def phase_ann():
               f"{ANN_N} vectors; {(time.perf_counter() - t1) * 1e3:.1f} ms "
               f"wall")
         assert rec_k >= rec, (k_, rec_k, rec)
+    pred_p, _ = search(qs, red, full, k=ANN_K, promote=ANN_DEEP[-1],
+                       use_kernel=False, device="cuda")
+    rec_p = recall_at_k(pred_p, truth)
+    print(f"  search promote {ANN_DEEP[-1]}: recall@{ANN_K} = {rec_k!r} "
+          f"(ann_topk), {rec_p!r} (use_kernel=False)")
+    assert abs(rec_k - rec_p) <= 0.002, (rec_k, rec_p)
+
+    t = times[ANN_PROMOTE]
+    out = dict(
+        shape=(f"queries [{ANN_Q},{ANN_D_RED}] corpus [{ANN_N},{ANN_D_RED}]"
+               f" f32, k={ANN_PROMOTE}"),
+        max_abs_err=errs[ANN_PROMOTE], ms=t["ms"], launch_ms=t["launch_ms"],
+        plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+        library="torch.addmm(|c|^2, q, c.T, alpha=-2) + torch.topk "
+        "(|c|^2 precomputed)",
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"])
     print(f"  phase 7 wall {time.perf_counter() - t0:.1f} s")
     return launches, out
 

@@ -7,10 +7,46 @@ from .._build import check, library
 from .._wrap import on_cuda, stream_of
 from .ref import reference_ann_topk
 
-BLOCK_Q = 64          # queries per block of the first pass
-TILE = 64             # corpus rows per tile
+BLOCK_Q = 128         # queries per block of the first pass
+TILE = 128            # corpus rows per tile
 MAX_K = 256
 MAX_SPLITS = 128      # per-split lists the merge pass takes per query
+# a corpus of SEED_MIN_ROWS rows or more is searched twice: first a strided
+# sample of max(SEED_ROWS, 16 k) rows, whose k-th distances bound the
+# second, full pass
+SEED_ROWS = 2048
+SEED_MIN_ROWS = 131_072
+# the first pass's shared memory (`ann_smem_bytes` in csrc/ann_topk.cu)
+CHUNK = 64            # features per pipeline step
+QUERY_CHUNK = 128     # query features staged at once
+STAGES = 2            # corpus steps in the ring
+BUFFER = 64           # candidate slots per query
+THREADS = 256
+# an H100 SM: shared memory, of which each resident block takes 1 KB more,
+# registers and threads; and the first pass's register cap under
+# __launch_bounds__(256, 1)
+SM_SMEM, BLOCK_RESERVED = 228 * 1024, 1024
+SM_REGISTERS, SM_THREADS = 65536, 2048
+MAX_REGISTERS = 255
+
+
+def smem_bytes() -> int:
+    """Shared memory of one first-pass block, the same at every k: the
+    per-query buffers, thresholds and their caps (64-bit keys), the staged
+    queries and the corpus ring (rows padded by 4 floats), per-query
+    threshold distances, counts and list flags, and the tile's |c|^2."""
+    return (BLOCK_Q * (BUFFER + 2) * 8
+            + (BLOCK_Q * (QUERY_CHUNK + 4) + STAGES * TILE * (CHUNK + 4)) * 4
+            + (3 * BLOCK_Q + TILE) * 4)
+
+
+def resident_blocks() -> int:
+    """First-pass blocks an H100 SM holds by the design's own limits
+    (shared memory, the register cap, threads); `blocks_per_sm` asks the
+    card, which must agree."""
+    regs = -(-MAX_REGISTERS // 8) * 8          # allocated 8 a thread
+    return min(SM_SMEM // (smem_bytes() + BLOCK_RESERVED),
+               SM_REGISTERS // (THREADS * regs), SM_THREADS // THREADS)
 
 
 def split_plan(n_q: int, n_c: int, n_sm: int, per_sm: int):
@@ -60,8 +96,33 @@ def ann_topk(queries: torch.Tensor, corpus: torch.Tensor, *,
             or not (queries.is_contiguous() and corpus.is_contiguous()):
         raise ValueError("ann_topk: queries and corpus must be contiguous "
                          "float32")
-    if Q >= 2**31 or D >= 2**31:
-        raise ValueError("ann_topk: Q and D must fit in int32")
+    if max(Q, N, D) >= 2**31:
+        raise ValueError("ann_topk: Q, N and D must fit in int32")
+    return _launch(queries, corpus, k, seed_bound(queries, corpus, k))
+
+
+def seed_bound(queries: torch.Tensor, corpus: torch.Tensor, k: int):
+    """Each query's k-th nearest distance in a strided sample of
+    max(SEED_ROWS, 16 k) corpus rows (`ann_topk` on the sample: the kernel
+    on CUDA tensors, the plain version on CPU tensors), or None for a
+    corpus under SEED_MIN_ROWS rows. The k-th nearest in the whole
+    corpus is no farther, so the full pass admits only distances up to
+    this bound: its splits skip filling their lists from scratch, and the
+    result is the same. 16 k rows put the bound near the same quantile at
+    every k."""
+    N = corpus.shape[0]
+    if N < SEED_MIN_ROWS:
+        return None
+    rows = max(SEED_ROWS, 16 * k)
+    sample = corpus[::N // rows][:rows].contiguous()
+    return ann_topk(queries, sample, k=k)[0][:, k - 1].contiguous()
+
+
+def _launch(queries, corpus, k: int, bound):
+    """One launch of the kernel (both passes) on contiguous float32 CUDA
+    tensors, the first pass bounded by `bound` [Q] where one is given."""
+    Q, D = queries.shape
+    N = corpus.shape[0]
     dev = queries.device
     n_splits, per = split_plan(
         Q, N, torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -71,7 +132,8 @@ def ann_topk(queries: torch.Tensor, corpus: torch.Tensor, *,
     dists = torch.empty((Q, k), dtype=torch.float32, device=dev)
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
     err = library("ann_topk")(
-        queries.data_ptr(), corpus.data_ptr(), part_d.data_ptr(),
+        queries.data_ptr(), corpus.data_ptr(),
+        None if bound is None else bound.data_ptr(), part_d.data_ptr(),
         part_i.data_ptr(), dists.data_ptr(), ids.data_ptr(), Q, N, D, k,
         n_splits, per, stream_of(dev))
     check("ann_topk", err)

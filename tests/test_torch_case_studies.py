@@ -44,7 +44,8 @@ from repro_torch.ann import model as t_ann_model
 from repro_torch.ann.corpus import make_corpus, make_queries
 from repro_torch.ann.progressive import exact_topk, recall_at_k, search
 from repro_torch.core.policy import Tier as TTier, TieringPolicy as TPolicy
-from repro_torch.kernels.ann_topk.ops import split_plan
+from repro_torch.kernels.ann_topk.ops import BLOCK_Q, MAX_K, \
+    SEED_MIN_ROWS, TILE, resident_blocks, seed_bound, smem_bytes, split_plan
 from repro_torch.kernels.ann_topk.ref import reference_ann_topk, smallest_k
 from repro_torch.kernels.cuckoo_probe.ops import hash_pair
 from repro_torch.kernels.cuckoo_probe.ref import reference_cuckoo_probe
@@ -521,17 +522,61 @@ def test_ann_topk_ties_go_to_the_lower_id_and_k_is_bounded():
     (1024, 262144, 132, 128), (1024, 262144, 132, 256),
     (100, 8000, 132, 256), (64, 10**6, 8, 256)])
 def test_split_plan_covers_every_tile_once(Q, N, n_sm, k):
-    # the first pass's resident blocks an SM, as an H100 reports them: two
-    # while 2 x (ann_smem_bytes(k) + 1 KB) fits its 228 KB (k <= 88)
-    per_sm = 2 if k <= 88 else 1
+    # the first pass's resident blocks an SM by the shared-memory rule,
+    # which the card must report at every k (chip_smoke phase 7): the
+    # cases keep the promotes the path asks for
+    assert 1 <= k <= MAX_K
+    per_sm = resident_blocks()
     n_splits, per = split_plan(Q, N, n_sm, per_sm)
-    n_tiles = -(-N // 64)
-    q_blocks = -(-Q // 64)
+    n_tiles = -(-N // TILE)
+    q_blocks = -(-Q // BLOCK_Q)
     assert 1 <= n_splits <= 128
     # every split has a tile; together they cover all tiles
     assert (n_splits - 1) * per < n_tiles <= n_splits * per
     # one wave of resident blocks, unless the query blocks alone exceed it
     assert n_splits == 1 or q_blocks * n_splits <= per_sm * n_sm
+
+
+def test_first_pass_block_figures_are_the_same_at_every_k():
+    """The Python twin of `ann_smem_bytes` (csrc/ann_topk.cu): 128 queries
+    x (64 candidate keys + a threshold key + its cap), 128 x 132 staged
+    query floats, a ring of 2 x 128 x 68 corpus floats, per-query
+    threshold distances, counts and list flags and the tile's |c|^2. No
+    term depends on k: the sorted lists live in the pass's output. One
+    block fits an H100 SM (228 KB, 1 KB reserved a block) at every k
+    from 1 to 256, and stage 1's grid at Q = 1024,
+    N = 262,144 on 132 SMs is 8 query blocks x 16 splits of 128 tiles at
+    every promote. The card's own count at k = 1, 64, 88, 89, 128 and 256
+    is held to this rule on the chip (chip_smoke phase 7)."""
+    assert smem_bytes() == (128 * 66 * 8 + (128 * 132 + 2 * 128 * 68) * 4
+                            + (3 * 128 + 128) * 4) == 206_848
+    assert smem_bytes() <= 232_448 < 2 * (smem_bytes() + 1024)
+    assert resident_blocks() == 1
+    assert split_plan(1024, 262_144, 132, resident_blocks()) == (16, 128)
+
+
+@pytest.mark.parametrize("k", [1, 16, 256])
+def test_seed_bound_is_never_below_the_kth_nearest(k):
+    """The bound that the wrapper gives the kernel's full pass (each
+    query's k-th distance in a strided sample of the corpus) is never
+    below the query's k-th distance in the whole corpus, so admitting
+    only distances up to it keeps the exact top k, ties included. Integer
+    entries make every distance exact whatever the summation order, and
+    tie often. A corpus under SEED_MIN_ROWS rows gets no bound."""
+    rng = np.random.default_rng(k)
+    c = torch.from_numpy(rng.integers(-2, 3, (SEED_MIN_ROWS, 8)).astype(
+        np.float32))
+    q = torch.from_numpy(rng.integers(-2, 3, (16, 8)).astype(np.float32))
+    K.reset_launch_counts()
+    bound = seed_bound(q, c, k)
+    assert K.launch_counts()["ann_topk"] == 0
+    d, _ = reference_ann_topk(q, c, k)
+    assert bound.shape == (16,) and bound.dtype == torch.float32
+    assert bool((d[:, -1] <= bound).all())
+    # a bound, not the whole corpus: some distances lie above it
+    full = torch.sum(c * c, dim=1)[None, :] - 2.0 * (q @ c.T)
+    assert bool((full > bound[:, None]).any(dim=1).all())
+    assert seed_bound(q, c[:SEED_MIN_ROWS - 1], k) is None
 
 
 @pytest.fixture(scope="module")
