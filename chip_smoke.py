@@ -45,11 +45,16 @@ Drives the port's serving path on the card and checks it, in phases:
   8. the autopilot: the reuse-sketch kernel bit for bit against its plain
      version (on the card and on the host) at the bench's shape, the
      scale replay's (50,000 and 2^20 intervals), an empty batch, every
-     bucket edge +-64 ulps and special values; the admission benchmark
-     (4 scenarios x 240 steps) on the card, byte-identical to the same
-     suite on the CPU, with one kernel launch per observed key; and a
-     control plane of 20 steps x 50,000 Zipf keys over 1,000,000 ids
-     whose sketch is bit-identical on the card and the host every step.
+     bucket edge +-64 ulps and special values; M batches in one call
+     (M = 2, 10 and 349 one-key segments, random cuts with empty
+     segments, the small path's limit and one slot past it), the large
+     path right after itself, bitwise repeats, and one segment whose end
+     stops short of N on both paths; times at each flush size; the admission
+     benchmark (4 scenarios x 240 steps) on the card, byte-identical to
+     the same suite on the CPU, with one kernel launch per flush of a
+     tracker's pending observes; and a control plane of 20 steps x
+     50,000 Zipf keys over 1,000,000 ids whose sketch is bit-identical on
+     the card and the host every step.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -1069,13 +1074,13 @@ def phase_ann():
 
 
 # ---------------------------------------------------------------- phase 8
-def _sketch_edges(tau0: float, n_buckets: int):
-    """float32 intervals at tau0 * 2^b for b in -2 .. B+1, and 1 .. 64
+def _sketch_edges(tau0: float, n_buckets: int, ulps: int = 64):
+    """float32 intervals at tau0 * 2^b for b in -2 .. B+1, and 1 .. `ulps`
     ulps either side of each: where a floor of log2 can go either way."""
     import numpy as np
     base = np.float32(tau0) * np.exp2(np.arange(-2, n_buckets + 2)).astype(
         np.float32)
-    steps = np.arange(-64, 65, dtype=np.int64)
+    steps = np.arange(-ulps, ulps + 1, dtype=np.int64)
     bits = base.view(np.int32).astype(np.int64)[:, None] + steps[None, :]
     return bits.astype(np.int32).view(np.float32).ravel()
 
@@ -1092,10 +1097,10 @@ def _sketch_specials(n_classes: int):
 
 
 def phase_autopilot():
-    """The reuse-sketch kernel bit for bit against its plain version, the
-    admission benchmark on the card (byte-identical to the CPU run), and
-    a control plane at the scale replay's size. Returns (launches,
-    record)."""
+    """The reuse-sketch kernel bit for bit against its plain version (one
+    batch and M batches in one call, both paths), the admission benchmark
+    on the card (byte-identical to the CPU run), and a control plane at the
+    scale replay's size. Returns (launches, record)."""
     import hashlib
 
     import numpy as np
@@ -1105,21 +1110,33 @@ def phase_autopilot():
     from repro_torch.autopilot.bench import run_suite
     from repro_torch.kernels.reuse_sketch import (reference_reuse_sketch,
                                                   reuse_sketch_update)
+    from repro_torch.kernels.reuse_sketch import ops as sketch_ops
     from repro_torch.obs import bench_json
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    limit = sketch_ops.SMALL_MAX_SLOTS
 
-    def case(C, B, iv, cls, tau0, decay):
+    def case(C, B, iv, cls, tau0, decay, ends=None):
         hist = (rng.random((C, B)) * 7).astype(np.float32)
         return [torch.from_numpy(np.ascontiguousarray(a)) for a in
                 (hist, iv.astype(np.float32), cls.astype(np.int32))] + [
-            dict(tau0=tau0, decay=decay)]
+            dict(tau0=tau0, decay=decay),
+            None if ends is None else torch.from_numpy(
+                np.asarray(ends, np.int32))]
 
     def log_uniform(n, C):
         iv = np.power(10.0, rng.uniform(-9.0, 5.0, n)).astype(np.float32)
         return iv, rng.integers(-1, C + 1, n)
+
+    def cuts(n, m, n_empty):
+        """ends of m segments over n slots at random cuts, n_empty of the
+        segments empty"""
+        e = np.sort(rng.choice(np.arange(1, n), m - 1 - n_empty,
+                               replace=False))
+        e = np.sort(np.concatenate([e, rng.choice(e, n_empty)]))
+        return np.append(e, n)
 
     C_BENCH, C_PLANE, B = 8, 4, 32
     cases = {
@@ -1138,48 +1155,129 @@ def phase_autopilot():
         cases[f"hist [4,32] {edges.size} edges {tau0}*2^b +-64 ulps"] = \
             case(C_PLANE, B, edges, rng.integers(0, C_PLANE, edges.size),
                  tau0, 0.995)
+    # past the kernel's exponent shortcut (the top 256 mantissas of a
+    # binade take the log2) on both sides
+    edges = _sketch_edges(1e-3, B, 1024)
+    cases[f"hist [4,32] {edges.size} edges 0.001*2^b +-1024 ulps"] = case(
+        C_PLANE, B, edges, rng.integers(0, C_PLANE, edges.size), 1e-3, 0.995)
     sp_iv, sp_cls = _sketch_specials(C_PLANE)
     cases[f"hist [4,32] {sp_iv.size} special values"] = case(
         C_PLANE, B, sp_iv, sp_cls, 1e-3, 0.995)
-    for label, (h, iv, cls, kw) in cases.items():
-        got = reuse_sketch_update(h.to(dev), iv.to(dev), cls.to(dev), **kw)
-        want = reference_reuse_sketch(h.to(dev), iv.to(dev), cls.to(dev),
-                                      **kw)
-        host = reference_reuse_sketch(h, iv, cls, **kw)
+    # M batches in one call: one-key segments (the tracker's flushes: 10
+    # the suite's mean, 349 its largest), random cuts with empty segments,
+    # the small path's limit and one slot past it (the large path)
+    for m in (2, 10, 349):
+        cases[f"hist [8,32] M={m} one-key segments"] = case(
+            C_BENCH, B, *log_uniform(m, C_BENCH), 1e-3, 0.995,
+            np.arange(1, m + 1))
+    cases["hist [8,32] N=2000 M=64, 16 empty"] = case(
+        C_BENCH, B, *log_uniform(2000, C_BENCH), 1e-3, 0.995,
+        cuts(2000, 64, 16))
+    cases["hist [8,32] N=7 M=40, leading/trailing empty"] = case(
+        C_BENCH, B, *log_uniform(7, C_BENCH), 1e-3, 0.995,
+        [0] * 5 + [1, 1, 3, 3, 3] + [7] * 30)
+    cases[f"hist [8,32] N={limit} M=300 (small path's limit)"] = case(
+        C_BENCH, B, *log_uniform(limit, C_BENCH), 1e-3, 0.995,
+        cuts(limit, 300, 20))
+    cases[f"hist [8,32] N={limit} (limit, small path)"] = case(
+        C_BENCH, B, *log_uniform(limit, C_BENCH), 1e-3, 0.995)
+    cases[f"hist [8,32] N={limit + 1} (large path)"] = case(
+        C_BENCH, B, *log_uniform(limit + 1, C_BENCH), 1e-3, 0.995, [limit + 1])
+    # the most cells the kernel takes: 12 a thread, chunks of 4 segments
+    c_max = sketch_ops.MAX_CELLS // B
+    cases[f"hist [{c_max},32] N=1000 M=22 (most cells)"] = case(
+        c_max, B, *log_uniform(1000, c_max), 1e-3, 0.995, cuts(1000, 22, 3))
+    cases[f"hist [{c_max},32] N={SKETCH_N_STEP} (most cells, large path)"] \
+        = case(c_max, B, *log_uniform(SKETCH_N_STEP, c_max), 1e-3, 0.995)
+    results = {}
+
+    def check(label, again=""):
+        h, iv, cls, kw, ends = cases[label]
+        e = None if ends is None else ends.to(dev)
+        got = reuse_sketch_update(h.to(dev), iv.to(dev), cls.to(dev),
+                                  ends=e, **kw)
+        if label not in results:
+            want = reference_reuse_sketch(h.to(dev), iv.to(dev),
+                                          cls.to(dev), ends=e, **kw)
+            host = reference_reuse_sketch(h, iv, cls, ends=ends, **kw)
+            results[label] = (want, host)
+        want, host = results[label]
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         same_host = torch.equal(got.cpu().view(torch.int32),
                                 host.view(torch.int32))
-        assert same and same_host, f"reuse_sketch {label}: not bit-exact " \
-            f"(card plain {same}, host plain {same_host})"
-        counted = float((got - torch.full((), kw["decay"], device=dev)
-                         * h.to(dev)).sum())
-        print(f"  check reuse_sketch      {label:42s} bit-exact vs plain "
-              f"(card and host) ok; {counted:.0f} counted")
+        assert same and same_host, f"reuse_sketch {label}{again}: not " \
+            f"bit-exact (card plain {same}, host plain {same_host})"
+        n, m = iv.numel(), 1 if ends is None else ends.numel()
+        path = "small" if sketch_ops.small_path(n) else "large"
+        print(f"  check reuse_sketch      {label + again:50s} bit-exact vs "
+              f"plain (card and host) ok; {path} path, M={m}")
 
-    # times at the bench's shape and at the control plane's
-    def timed(C, n):
-        sets = [case(C, B, *log_uniform(n, C), 1e-3, 0.995)
-                for _ in range(4)]
-        sets = [(h.to(dev), iv.to(dev), cls.to(dev), kw)
-                for h, iv, cls, kw in sets]
-        nbytes = 8 * n + 8 * C * B
-        b_ms, b_by = _bound_ms(nbytes, 0, torch.float32)
+    for label in cases:
+        check(label)
+    # the large path right after large-path calls (its ticket and counts
+    # must be back at zero) and the small path between them, each call a
+    # bitwise repeat of its first
+    for label in (f"hist [8,32] N={limit + 1} (large path)",
+                  "hist [4,32] N=2^20 log-uniform",
+                  f"hist [4,32] N={SKETCH_N_STEP} log-uniform",
+                  "hist [8,32] M=349 one-key segments",
+                  "hist [4,32] N=2^20 log-uniform"):
+        check(label, again=" (again)")
+    # one segment whose end stops short of N: both paths count the slots
+    # before it, as the plain version does on those slots alone
+    for n in (limit, limit + 1):
+        h, iv, cls, kw, _ = case(C_BENCH, B, *log_uniform(n, C_BENCH), 1e-3,
+                                 0.995)
+        k = n // 2
+        got = reuse_sketch_update(
+            h.to(dev), iv.to(dev), cls.to(dev),
+            ends=torch.tensor([k], dtype=torch.int32, device=dev), **kw)
+        want = reference_reuse_sketch(h, iv[:k], cls[:k], **kw)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), \
+            f"reuse_sketch N={n} ends=[{k}]: not the first {k} slots' sketch"
+        path = "small" if sketch_ops.small_path(n) else "large"
+        print(f"  check reuse_sketch      N={n} ends=[{k}] (short end)"
+              f"{'':20s} bit-exact vs plain on the first {k} slots ok; "
+              f"{path} path")
+
+    # times: one batch at the bench's shape, the suite's mean and largest
+    # flush, the small path's limit and one past, the control plane's
+    def inputs(C, n, m=1):
+        """4 sets of (hist, intervals, class_ids, kw, ends) on the card;
+        m > 1: one-key segments (m == n)"""
+        sets = []
+        for _ in range(4):
+            h, iv, cls, kw, _ = case(C, B, *log_uniform(n, C), 1e-3, 0.995)
+            ends = None if m == 1 else torch.arange(
+                1, n + 1, dtype=torch.int32, device=dev)
+            sets.append((h.to(dev), iv.to(dev), cls.to(dev), kw, ends))
+        return sets
+
+    def timed(C, n, m=1):
+        sets = inputs(C, n, m)
+        b_ms, b_by = _bound_ms(8 * n + 8 * C * B + (4 * m if m > 1 else 0),
+                               0, torch.float32)
+
+        def calls(fn):
+            return [lambda s=s: fn(s[0], s[1], s[2], ends=s[4], **s[3])
+                    for s in sets]
         return dict(
             shape=f"hist [{C},{B}] f32, intervals [{n}] f32, class_ids "
-                  f"[{n}] i32",
+                  f"[{n}] i32" + (f", ends [{m}] i32" if m > 1 else ""),
             max_abs_err=0.0,
-            ms=_time_ms([lambda s=s: reuse_sketch_update(
-                s[0], s[1], s[2], **s[3]) for s in sets]),
-            launch_ms=_time_ms([lambda s=s: reuse_sketch_update(
-                s[0], s[1], s[2], **s[3]) for s in sets], queued=False),
-            plain_ms=_time_ms([lambda s=s: reference_reuse_sketch(
-                s[0], s[1], s[2], **s[3]) for s in sets], iters=20),
+            ms=_time_ms(calls(reuse_sketch_update)),
+            launch_ms=_time_ms(calls(reuse_sketch_update), queued=False),
+            plain_ms=_time_ms(calls(reference_reuse_sketch),
+                              iters=4 if m > 1 else 20),
             library_ms=None, library="none: no PyTorch call computes a "
             "decayed per-class log-bucket histogram",
             bound_ms=b_ms, bound_by=b_by)
     rec = timed(C_BENCH, 1)
-    for r in (rec, timed(C_PLANE, SKETCH_N_STEP), timed(C_PLANE, 1 << 20)):
+    for r in (rec, timed(C_BENCH, 10, 10), timed(C_BENCH, 349, 349),
+              timed(C_BENCH, limit), timed(C_BENCH, limit + 1),
+              timed(C_PLANE, SKETCH_N_STEP), timed(C_PLANE, 1 << 20)):
         print(f"  time  reuse_sketch      {r['shape']}: kernel_ms="
               f"{r['ms']:.6f} (with host launch {r['launch_ms']:.6f}) "
               f"plain_ms={r['plain_ms']:.6f} library_ms=none "
@@ -1208,6 +1306,7 @@ def phase_autopilot():
         torch.cuda.synchronize()
         wall_card = time.perf_counter() - t1
         launches = kernels.launch_counts()["reuse_sketch"]
+        flushes = sum(t.flushes for t in trackers)
     finally:
         ReuseTracker.__init__ = init
     observed = sum(t.observed for t in trackers)
@@ -1218,15 +1317,17 @@ def phase_autopilot():
     js_card = bench_json(dict(on_card, params=params))
     js_host = bench_json(dict(on_host, params=params))
     assert js_card == js_host, "admission benchmark differs between devices"
-    assert launches > 0 and launches == observed, (launches, observed)
+    # one launch per flush of a tracker's pending observes, far fewer than
+    # one per observe
+    assert 0 < launches == flushes < observed, (launches, flushes, observed)
     print(f"  admission benchmark, 4 scenarios x 240 steps: gate wins "
           f"{on_card['wins']}/{on_card['cells']}; bench_json identical on "
           f"cuda and cpu (sha256 "
           f"{hashlib.sha256(js_card.encode()).hexdigest()[:16]}); "
-          f"reuse_sketch launches {launches} == tracker.observed "
-          f"{observed}; wall {wall_card:.3f} s on cuda, {wall_host:.3f} s "
-          f"on cpu ({wall_card / observed * 1e6:.1f} us per observe on "
-          f"cuda)")
+          f"observes {observed}, flushes {flushes}, reuse_sketch launches "
+          f"{launches} == flushes; wall {wall_card:.3f} s on cuda, "
+          f"{wall_host:.3f} s on cpu ({wall_card / observed * 1e6:.1f} us "
+          f"per observe on cuda)")
     for cell in on_card["scenarios"]:
         g = cell["runs"]["economic"]
         print(f"    {cell['scenario']:12s} gate_wins={cell['gate_wins']} "

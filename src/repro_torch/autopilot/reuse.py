@@ -15,12 +15,19 @@ Two structures, both O(1) per access:
     tenant bursts). Classes are caller-defined strings — "kv" sessions,
     "expert" weights, per-tenant streams — registered on first use.
 
-The batched update runs the `kernels/reuse_sketch` wrapper on the
-tracker's device: the hand-written CUDA kernel for a CUDA histogram (one
-launch for thousands of keys per decode step), the plain PyTorch version
-for a CPU one. Both give the reference's numpy oracle bit for bit. The
-ghost stays on the host (a Python key dict and numpy arrays, as in the
-reference); the estimates copy one class row to the host and run numpy.
+The sketch lives on the tracker's device and is updated lazily: each
+observed batch is appended to a host-side pending buffer as one segment,
+and every pending segment is applied, in order, in one call of the
+`kernels/reuse_sketch` wrapper just before anything reads or writes the
+sketch (or when the buffer would pass the kernel's small path). Applying
+the batches in order when the sketch is read gives the same bits as
+applying each when it is observed, with one launch per read instead of
+one per observe. On CUDA the call is the hand-written kernel, fed by one
+host-to-device copy from a pinned staging buffer; on the CPU it is the
+plain PyTorch version. Both give the reference's numpy oracle bit for
+bit. The ghost stays on the host (a Python key dict and numpy arrays, as
+in the reference); the estimates copy one class row to the host and run
+numpy.
 
 Class quantiles of the sketch answer "what reuse interval should I
 assume for a key I know nothing about" (the EconomicGate's first-touch
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..kernels.reuse_sketch.ops import reuse_sketch_update
+from ..kernels.reuse_sketch.ops import SMALL_MAX_SLOTS, reuse_sketch_update
 
 
 class _ArrayGhost:
@@ -155,7 +162,9 @@ class _ArrayGhost:
 class ReuseTracker:
     """Ghost cache + per-class sketch. `hist` is a float32 [max_classes,
     n_buckets] tensor on `device` (CUDA unless the caller names another;
-    without CUDA and without a device this raises)."""
+    without CUDA and without a device this raises), with every observed
+    batch applied. `flushes` counts the calls that applied pending
+    batches (on CUDA, the kernel's launches)."""
 
     def __init__(self, n_buckets: int = 32, tau0: float = 1e-3,
                  decay: float = 0.995, ghost_capacity: int = 1 << 16,
@@ -169,8 +178,21 @@ class ReuseTracker:
         self.ghost_capacity = int(ghost_capacity)
         self.max_classes = int(max_classes)
         self.device = resolve_device(device)
-        self.hist = torch.zeros((max_classes, n_buckets),
-                                dtype=torch.float32, device=self.device)
+        self._hist = torch.zeros((max_classes, n_buckets),
+                                 dtype=torch.float32, device=self.device)
+        # batches observed but not yet in the sketch: slots [0, _n) of the
+        # buffers in segments ending at _ends[:_m]
+        self._iv = np.empty(SMALL_MAX_SLOTS, np.float32)
+        self._cls = np.empty(SMALL_MAX_SLOTS, np.int32)
+        self._ends = np.empty(SMALL_MAX_SLOTS, np.int32)
+        self._n = self._m = 0
+        # CUDA: two pinned staging buffers, each with the event of the last
+        # copy that read it, and the device buffer the copies land in
+        self._staging: List[Optional[torch.Tensor]] = [None, None]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+        self._landing: Optional[torch.Tensor] = None
+        self.flushes = 0
         self._class_ids: Dict[str, int] = {}
         # array-backed ghost; keeps the `_last_seen` name (and len())
         # the tests and tooling observe
@@ -227,11 +249,77 @@ class ReuseTracker:
         intervals = self._last_seen.touch_batch(keys, now)
         self.observed += n
         self.measured += int((intervals > 0).sum())
-        self.hist = reuse_sketch_update(
-            self.hist, torch.from_numpy(intervals).to(self.device),
-            torch.from_numpy(cids).to(self.device), tau0=self.tau0,
-            decay=self.decay)
+        # the pending buffers hold SMALL_MAX_SLOTS slots and segments: one
+        # call of the kernel's small path
+        if self._n + n > SMALL_MAX_SLOTS or self._m == SMALL_MAX_SLOTS:
+            self._flush()
+        if n > SMALL_MAX_SLOTS:                 # alone, on the large path
+            self._apply(intervals, cids, None)
+        else:
+            self._iv[self._n:self._n + n] = intervals
+            self._cls[self._n:self._n + n] = cids
+            self._n += n
+            self._ends[self._m] = self._n
+            self._m += 1
         return intervals
+
+    # ---------------------------------------------------------- the sketch
+    @property
+    def hist(self) -> torch.Tensor:
+        """The sketch with every observed batch applied."""
+        self._flush()
+        return self._hist
+
+    def _flush(self) -> None:
+        """Apply the pending batches, in order, in one call."""
+        if self._m:
+            n, m = self._n, self._m
+            self._n = self._m = 0
+            self._apply(self._iv[:n], self._cls[:n], self._ends[:m])
+
+    def _apply(self, intervals: np.ndarray, cids: np.ndarray,
+               ends: Optional[np.ndarray]) -> None:
+        n = intervals.size
+        if self.device.type == "cpu":
+            iv, cls = torch.from_numpy(intervals), torch.from_numpy(cids)
+            e = None if ends is None else torch.from_numpy(ends)
+        else:
+            iv, cls, e = self._upload(intervals, cids, ends)
+        self._hist = reuse_sketch_update(self._hist, iv, cls, ends=e,
+                                         tau0=self.tau0, decay=self.decay)
+        self.flushes += 1
+
+    def _upload(self, intervals, cids, ends):
+        """One host-to-device copy of the intervals' bits, the class ids
+        and the ends, packed into a pinned int32 staging buffer; returns
+        their views on the device. The two staging buffers take turns,
+        and a buffer is refilled only once its last copy has ended."""
+        n = intervals.size
+        m = 0 if ends is None else ends.size
+        size = 2 * n + m
+        turn, self._turn = self._turn, 1 - self._turn
+        staging, copied = self._staging[turn], self._copied[turn]
+        if copied is None:
+            copied = self._copied[turn] = torch.cuda.Event()
+        else:
+            copied.synchronize()
+        if staging is None or staging.numel() < size:
+            staging = self._staging[turn] = torch.empty(
+                max(size, 3 * SMALL_MAX_SLOTS), dtype=torch.int32,
+                pin_memory=True)
+        host = staging.numpy()
+        host[:n] = intervals.view(np.int32)
+        host[n:2 * n] = cids
+        if m:
+            host[2 * n:size] = ends
+        if self._landing is None or self._landing.numel() < size:
+            self._landing = torch.empty(staging.numel(), dtype=torch.int32,
+                                        device=self.device)
+        dev = self._landing[:size]
+        dev.copy_(staging[:size], non_blocking=True)
+        copied.record()
+        return (dev[:n].view(torch.float32), dev[n:2 * n],
+                dev[2 * n:] if m else None)
 
     def last_seen(self, key) -> Optional[float]:
         return self._last_seen.get(key)

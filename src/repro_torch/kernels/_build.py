@@ -47,7 +47,8 @@ SIGNATURES = {
         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),
     "cuckoo_probe": ("cuckoo_probe_fwd", [_P] * 5 + [_LL, _I, _I, _P]),
     "ann_topk": ("ann_topk_fwd", [_P] * 7 + [_I, _LL] + [_I] * 4 + [_P]),
-    "reuse_sketch": ("reuse_sketch_fwd", [_P] * 5 + [_LL, _I, _I, _F, _F, _P]),
+    "reuse_sketch": ("reuse_sketch_fwd",
+                     [_P] * 6 + [_LL, _I, _I, _I, _F, _F, _P]),
 }
 # further C entry points, {name: (source, function, argtypes)}: queries a
 # wrapper makes of the card before it launches

@@ -23,11 +23,23 @@ def bucket_of(intervals: torch.Tensor, tau0: float,
 
 
 def reference_reuse_sketch(hist, intervals, class_ids, *, tau0: float,
-                           decay: float) -> torch.Tensor:
+                           decay: float, ends=None) -> torch.Tensor:
     """hist [C, B] float32; intervals [N] float32 (<= 0 or NaN marks an
     invalid slot: first touch or padding, skipped); class_ids [N] int32
     (out of range also skipped). Returns decay * hist + this batch's
-    per-(class, bucket) counts, the multiply and the add rounded apart."""
+    per-(class, bucket) counts, the multiply and the add rounded apart.
+    With ends (int32 [M], non-decreasing, the last N) it applies the M
+    batches [ends[j-1], ends[j]) one after another, each as above."""
+    if ends is not None:
+        iv = intervals.reshape(-1)
+        cls = class_ids.reshape(-1)
+        out, start = hist, 0
+        for end in ends.tolist():
+            out = reference_reuse_sketch(out, iv[start:end],
+                                         cls[start:end], tau0=tau0,
+                                         decay=decay)
+            start = end
+        return out
     hist = hist.to(torch.float32)
     C, B = hist.shape
     iv = intervals.to(torch.float32).reshape(-1)

@@ -18,6 +18,8 @@ counts are the port's exactly. On the CPU the kernel wrapper takes the
 plain version and counts no launch; chip_smoke.py holds the CUDA kernel
 to the plain version bit for bit on the card."""
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -51,6 +53,9 @@ from repro_torch.core.ssd_model import storage_next_ssd
 from repro_torch.kernels.reuse_sketch import (bucket_of,
                                               reference_reuse_sketch,
                                               reuse_sketch_update)
+from repro_torch.kernels.reuse_sketch.ops import (MAX_CELLS,
+                                                  SMALL_MAX_SLOTS,
+                                                  small_path)
 from repro_torch.obs import bench_json
 from repro_torch.runtime import (GpuDirectQueueModel, SsdQueueModel,
                                  TierSpec, TieredStore, VirtualClock)
@@ -71,6 +76,25 @@ def _sketch(hist, iv, cls, **kw) -> np.ndarray:
         torch.from_numpy(np.asarray(hist, np.float32)),
         torch.from_numpy(np.asarray(iv, np.float32)),
         torch.from_numpy(np.asarray(cls, np.int32)), **kw).numpy()
+
+
+def _segments(rng, n, m, empty_frac):
+    """int32 ends of m segments over n slots at seeded random cuts, a share
+    `empty_frac` of the segments empty (one-key segments when m == n)."""
+    if m == n and not empty_frac:
+        return np.arange(1, n + 1, dtype=np.int32)
+    cuts = np.sort(rng.integers(0, n + 1, m - 1))
+    cuts[rng.random(m - 1) < empty_frac] = 0
+    return np.append(np.sort(cuts), n).astype(np.int32)
+
+
+def _oracle_over_segments(hist, iv, cls, ends, **kw):
+    """The reference's numpy oracle applied segment after segment."""
+    out, start = np.asarray(hist, np.float32), 0
+    for end in ends:
+        out = j_oracle(out, iv[start:end], cls[start:end], **kw)
+        start = end
+    return out
 
 
 def _log_normal_case(seed, n, c, b):
@@ -104,6 +128,64 @@ def test_sketch_plain_matches_oracle_bit_for_bit(seed, n, c, b):
     want = j_oracle(hist, iv, cls, tau0=TAU0, decay=0.97)
     assert got.dtype == np.float32 and got.shape == (c, b)
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("seed,n,m,empty_frac", [
+    (0, 1, 1, 0.0), (1, 600, 1, 0.0), (2, 349, 349, 0.0),
+    (3, 10, 10, 0.0), (4, 500, 40, 0.3), (5, 64, 200, 0.5),
+    (6, 0, 1, 0.0), (7, 0, 5, 0.0), (8, 2000, 349, 0.1)])
+def test_sketch_segments_match_oracle_over_segments(seed, n, m, empty_frac):
+    """M batches in one call, bit for bit the reference's oracle looped
+    over the same segments: one-key segments (a flush of the tracker),
+    random cuts with empty segments among them, and N = 0."""
+    hist, iv, cls = _log_normal_case(seed, n, 6, 32)
+    rng = np.random.default_rng(100 + seed)
+    ends = _segments(rng, n, m, empty_frac)
+    assert ends.size == m
+    for decay in (0.995, 1.0):
+        got = _sketch(hist, iv, cls, tau0=TAU0, decay=decay,
+                      ends=torch.from_numpy(ends))
+        want = _oracle_over_segments(hist, iv, cls, ends, tau0=TAU0,
+                                     decay=decay)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    # one segment is the unsegmented call
+    if m == 1:
+        np.testing.assert_array_equal(
+            _bits(_sketch(hist, iv, cls, tau0=TAU0, decay=0.995,
+                          ends=torch.from_numpy(ends))),
+            _bits(_sketch(hist, iv, cls, tau0=TAU0, decay=0.995)))
+
+
+def test_sketch_segments_are_checked():
+    hist = torch.zeros(2, 8)
+    iv = torch.full((6,), 0.5)
+    cls = torch.zeros(6, dtype=torch.int32)
+    for bad in ([2, 1, 6], [-1, 6], [3, 5], [], [[6]]):
+        with pytest.raises(ValueError, match="ends"):
+            reuse_sketch_update(hist, iv, cls, tau0=TAU0, decay=0.9,
+                                ends=torch.tensor(bad, dtype=torch.int32))
+    n = SMALL_MAX_SLOTS + 1
+    big_iv, big_cls = torch.full((n,), 0.5), torch.zeros(n, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most"):
+        reuse_sketch_update(hist, big_iv, big_cls, tau0=TAU0, decay=0.9,
+                            ends=torch.tensor([1, n], dtype=torch.int32))
+    one = reuse_sketch_update(hist, big_iv, big_cls, tau0=TAU0, decay=0.9,
+                              ends=torch.tensor([n], dtype=torch.int32))
+    assert float(one.sum()) == n
+
+
+def test_small_path_rule_at_its_limit():
+    """The Python twin of `sketch_small_path` (csrc/reuse_sketch.cu):
+    the one-block path up to SMALL_MAX_SLOTS slots, the large path from
+    one more; the constants are the source's."""
+    assert small_path(0) and small_path(SMALL_MAX_SLOTS - 1)
+    assert small_path(SMALL_MAX_SLOTS)
+    assert not small_path(SMALL_MAX_SLOTS + 1)
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" /
+           "repro_torch" / "csrc" / "reuse_sketch.cu").read_text()
+    assert re.search(r"kSmallMaxSlots = (\d+);", src).group(1) == \
+        str(SMALL_MAX_SLOTS)
+    assert re.search(r"kMaxCells = (\d+);", src).group(1) == str(MAX_CELLS)
 
 
 def test_sketch_empty_batch_decays_only():
@@ -156,6 +238,31 @@ def test_bucket_of_matches_numpy_at_every_edge(tau0, b_lo, b_hi):
     np.testing.assert_array_equal(
         _bits(_sketch(hist, iv, cls, tau0=tau0, decay=1.0)),
         _bits(j_oracle(hist, iv, cls, tau0=tau0, decay=1.0)))
+
+
+def test_bucket_exponent_shortcut_is_the_log2_floor():
+    """The kernel takes a quotient's bucket from its float32 exponent e
+    when the mantissa is below kFastMantissa (csrc/reuse_sketch.cu), and
+    the log2 otherwise. The oracle's floor of a float32 log2 rises with q,
+    so it is e on all of a binade's mantissas up to the largest the
+    shortcut takes iff it is e there; e < 0 clips to bucket 0."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" /
+           "repro_torch" / "csrc" / "reuse_sketch.cu").read_text()
+    fast = int(re.search(r"kFastMantissa = (0x[0-9A-F]+)u;", src).group(1),
+               16)
+    e = np.arange(-126, 128)
+    top = ((e + 127).astype(np.int64) << 23 | (fast - 1)).astype(
+        np.int32).view(np.float32)
+    low = ((e + 127).astype(np.int64) << 23).astype(np.int32).view(
+        np.float32)
+    for q in (top, low):
+        floor = np.floor(np.log2(q, dtype=np.float32))
+        np.testing.assert_array_equal(np.maximum(floor, 0),
+                                      np.maximum(e, 0))
+    # and the shortcut stops short of where the floor does move to e + 1
+    above = ((e[e >= 0] + 127).astype(np.int64) << 23 | 0x7FFFFF).astype(
+        np.int32).view(np.float32)
+    assert (np.floor(np.log2(above, dtype=np.float32)) == e[e >= 0] + 1).any()
 
 
 def test_sketch_special_values():
@@ -260,6 +367,70 @@ def _assert_trackers_equal(pt, jt, classes):
 
 def _pair_trackers(**kw):
     return ReuseTracker(device="cpu", **kw), JTracker(**kw)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_tracker_applies_pending_observes_at_each_read(seed):
+    """One-key observes with class_quantile, seed_prior and histogram
+    interleaved at random: the lazily applied sketch has the reference's
+    bits at every read, and it is applied once per read that finds
+    observes pending (and at no other time)."""
+    pt, jt = _pair_trackers(decay=0.97, ghost_capacity=64)
+    classes = ["kv", "obj", "scan"]
+    for tr in (pt, jt):
+        for c in classes:
+            tr.class_id(c)
+    rng = np.random.default_rng(seed)
+    pending, reads_pending, observes, now = False, 0, 0, 0.0
+    for _ in range(600):
+        now += float(rng.exponential(0.05))
+        op = rng.random()
+        cls = classes[int(rng.integers(0, 3))]
+        if op < 0.8:
+            key = (cls, int(rng.integers(0, 40)))
+            assert pt.observe(key, cls, now) == jt.observe(key, cls, now)
+            pending, observes = True, observes + 1
+            continue
+        reads_pending += pending
+        pending = False
+        if op < 0.9:
+            q = float(rng.choice([0.1, 0.5, 0.9]))
+            assert pt.class_quantile(cls, q) == jt.class_quantile(cls, q)
+        elif op < 0.95:
+            iv, w = float(rng.uniform(1e-4, 10.0)), float(rng.uniform(0.1, 2))
+            pt.seed_prior(cls, iv, w)
+            jt.seed_prior(cls, iv, w)
+        np.testing.assert_array_equal(_bits(pt.histogram(cls)),
+                                      _bits(jt.histogram(cls)))
+        assert pt.flushes == reads_pending
+    np.testing.assert_array_equal(_bits(pt.hist.numpy()), _bits(jt.hist))
+    assert pt.flushes == reads_pending + pending
+    assert 0 < pt.flushes < pt.observed == jt.observed == observes
+
+
+def test_tracker_flushes_at_the_small_path_limit():
+    """Pending slots never pass SMALL_MAX_SLOTS: a batch that would is
+    applied after the pending ones, and a batch larger than the limit is
+    applied alone (the large path); the bits stay the reference's."""
+    pt, jt = _pair_trackers(decay=0.99, ghost_capacity=1 << 15)
+    rng = np.random.default_rng(11)
+
+    def feed(n, now):
+        keys = [int(k) for k in rng.integers(0, 20_000, n)]
+        np.testing.assert_array_equal(_bits(pt.observe_batch(keys, "kv", now)),
+                                      _bits(jt.observe_batch(keys, "kv", now)))
+
+    feed(SMALL_MAX_SLOTS - 1, 1.0)
+    feed(1, 2.0)                           # exactly at the limit: pending
+    assert (pt.flushes, pt._n, pt._m) == (0, SMALL_MAX_SLOTS, 2)
+    feed(1, 3.0)                           # one past: the two go first
+    assert (pt.flushes, pt._n, pt._m) == (1, 1, 1)
+    feed(SMALL_MAX_SLOTS + 1, 4.0)         # pending first, then it alone
+    assert (pt.flushes, pt._n, pt._m) == (3, 0, 0)
+    feed(0, 5.0)                           # an empty batch decays only
+    assert (pt.flushes, pt._n, pt._m) == (3, 0, 1)
+    np.testing.assert_array_equal(_bits(pt.hist.numpy()), _bits(jt.hist))
+    assert pt.flushes == 4
 
 
 def test_tracker_ghost_measures_reuse_and_bounds_size():
@@ -639,6 +810,8 @@ def test_economic_run_observes_every_access_once(scenario, monkeypatch):
     (tracker,) = made
     assert tracker.observed == rec["accesses"] == len(
         [k for s in generate(scenario, n_steps=60).steps for k in s])
+    # the observes are applied in batches, one call per read of the sketch
+    assert 0 < tracker.flushes < tracker.observed
 
 
 def test_bench_modes_and_best_static():
