@@ -14,14 +14,22 @@ Drives the port's serving path on the card and checks it, in phases:
      strided layout too; decode attention also at lengths 0 and past T,
      behind NaN/inf unfilled rows, at head dims 16, 32, 100 and 112, two
      calls bit-identical, right after a call with other lengths, and its
-     per-phase timeline;
+     per-phase timeline; rmsnorm and add_rmsnorm (the residual add fused
+     into the norm) in f32 and bf16 at D = 64 to 8192 and one D that is
+     not a multiple of 8, rows 1, 4 and 1023, [1, 1023, D] and views at
+     an odd element offset, the fused entry bit for bit against
+     rmsnorm(x + r) and x + r, the card's launch plan against the Python
+     twin, both entries timed at a decode step's and a prefill's rows,
+     the wrapper's host time split into its parts, and the kernel's time
+     against the rows a block takes;
   4. full-width gemma-2b (random bf16 weights from a seed, full depth)
      serves 6 requests through `DecodeEngine`, then parks two sessions
      through a `TieredStore` whose DRAM holds 1.5 KV blobs, so the colder
      one is demoted to flash and comes back through a prefetch on the
-     virtual clock; every serving kernel's launch counter must move; then
+     virtual clock; every serving kernel's launch counter must move, and
+     a prefill and a decode step each make 37 rmsnorm launches; then
      one prefill and one decode step under torch.profiler: device
-     operations by time and the device-idle share, and one
+     operations by time, their count and the device-idle share, and one
      decode-attention kernel with one launch a layer in the step;
   5. reduced gemma-2b in float32: the engine's greedy tokens (kernels)
      equal a greedy loop over the plain PyTorch path;
@@ -64,6 +72,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import pathlib
@@ -101,6 +110,11 @@ KERNELS = {
                      "src/repro/kernels/reuse_sketch/kernel.py:54"),
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+# phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
+# the TPU kernel's largest and one that is not a multiple of 8; rows of a
+# step, of a decode step's slots and of the largest prefill bucket
+RMS_DS = (64, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
+RMS_ROWS = (1, MAX_SLOTS, MAX_LEN - 1)
 # phase 6: examples/kvstore_demo.py's store, and one at deployment size
 KV_DEMO_BUCKETS = 8192
 KV_BUCKETS = 1 << 23           # x 8 slots x (key + value) int32 = 512 MiB
@@ -176,6 +190,205 @@ def _check(name, got, want, dtype_name, label):
 
 
 # ---------------------------------------------------------------- phase 3
+def _rmsnorm_cases(eps):
+    """rmsnorm and add_rmsnorm against their plain versions (TOL) at every
+    D of the repo's configs (64 reduced; 1536 to 6144), the TPU kernel's
+    largest (8192) and one that is not a multiple of 8, at rows 1, 4 and
+    1023, leading dims [1, 1023, D], and views at an odd element offset
+    (the scalar path); bit for bit, the fused normed against rmsnorm(x + r)
+    and the sum against x + r, a misaligned row against the same row
+    aligned, and a batch's first rows against those rows alone; the plan
+    the card takes against ops.launch_plan. Returns the largest errors."""
+    import torch
+    from repro_torch.kernels import _build, add_rmsnorm, rmsnorm
+    from repro_torch.kernels._wrap import DTYPE_CODES
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import (reference_add_rmsnorm,
+                                                 reference_rmsnorm)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_of = _build.library("rmsnorm_plan_of")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for D in RMS_DS:
+            s = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+
+            def fresh(*shape, offset=0):
+                n = math.prod(shape)
+                flat = torch.randn(n + offset, generator=gen, device=dev)
+                return flat.to(dt)[offset:].view(shape)
+
+            cases = [((rows, D), 0) for rows in RMS_ROWS]
+            cases += [((1, RMS_ROWS[-1], D), 0), ((4, D), 1),
+                      ((RMS_ROWS[-1], D), 1)]
+            worst = [0.0, 0.0]
+            for shape, offset in cases:
+                x, r = fresh(*shape, offset=offset), \
+                    fresh(*shape, offset=offset)
+                label = f"{list(shape)} {name}" + (
+                    " odd offset" if offset else "")
+                got = rmsnorm(x, s, eps)
+                normed, summed = add_rmsnorm(x, r, s, eps)
+                want_n, want_s = reference_add_rmsnorm(x, r, s, eps)
+                for i, (g, w, lab) in enumerate(
+                        ((got, reference_rmsnorm(x, s, eps), "rmsnorm"),
+                         (normed, want_n, "add_rmsnorm"))):
+                    e = float((g.float() - w.float()).abs().max())
+                    torch.testing.assert_close(
+                        g.float(), w.float(), **TOL[name],
+                        msg=lambda m: f"{lab} {label}: {m}")
+                    worst[i] = max(worst[i], e)
+                assert torch.equal(summed, x + r), f"sum {label}"
+                assert torch.equal(summed, want_s), f"sum {label}"
+                assert torch.equal(normed, rmsnorm(x + r, s, eps)), \
+                    f"fused != unfused {label}"
+                if offset:
+                    assert torch.equal(got, rmsnorm(x.clone(), s, eps)), \
+                        f"path changed the bits {label}"
+                rows = x.numel() // D
+                if rows > 4:
+                    assert torch.equal(got.view(rows, D)[:4], rmsnorm(
+                        x.view(rows, D)[:4].clone(), s, eps)), \
+                        f"batch changed the bits {label}"
+                aligned = offset == 0
+                plan = (ctypes.c_longlong * 5)()
+                plan_of(rows, D, DTYPE_CODES[dt], int(aligned), plan)
+                want = rms_ops.launch_plan(rows, D, x.element_size(),
+                                           aligned, n_sm)
+                assert list(plan) == [
+                    want["row_threads"], want["chunks"], want["rows"],
+                    want["blocks"], int(want["path"] == "vector")], \
+                    (label, list(plan), want)
+            big = rms_ops.launch_plan(RMS_ROWS[-1], D, x.element_size(),
+                                      True, n_sm)
+            errs[(dt, D)] = worst
+            print(f"  check rmsnorm D={D:<5d} {name:8s} {len(cases)} shapes: "
+                  f"max_abs_err {worst[0]:.3e}, fused {worst[1]:.3e}; "
+                  f"fused == rmsnorm(x + r) and sum == x + r bitwise; "
+                  f"plan at 1023 rows {big['row_threads']} threads a row x "
+                  f"{big['chunks']} chunks, {big['rows']} rows a block, "
+                  f"{big['path']}")
+    return errs
+
+
+def _host_us(fn, n: int = 2000) -> float:
+    """Host time of one call over n calls, synchronised at the end."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def _rmsnorm_host_split(D, eps):
+    """Where a decode-step call's host time goes ([4, D] bf16): the whole
+    wrapper, its checks, the output's allocation, the stream lookup, the
+    ctypes call with everything prepared, and F.rms_norm with its launch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, _wrap, add_rmsnorm, rmsnorm
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    x = torch.randn(MAX_SLOTS, D, device="cuda").to(torch.bfloat16)
+    r = torch.randn(MAX_SLOTS, D, device="cuda").to(torch.bfloat16)
+    s = torch.ones(D, device="cuda")
+    s16 = s.to(torch.bfloat16)
+    out = torch.empty_like(x)
+    fn = _build.library("rmsnorm")
+    args = (x.data_ptr(), None, s.data_ptr(), out.data_ptr(), None,
+            MAX_SLOTS, D, float(eps), 1, _wrap.stream_of(x.device))
+    split = {
+        "wrapper": _host_us(lambda: rmsnorm(x, s, eps)),
+        "fused wrapper": _host_us(lambda: add_rmsnorm(x, r, s, eps)),
+        "checks": _host_us(lambda: (_wrap.on_cuda("rmsnorm", x, s),
+                                    rms_ops.check_args("rmsnorm", x, None,
+                                                       s))),
+        "empty_like": _host_us(lambda: torch.empty_like(x)),
+        "stream_of": _host_us(lambda: _wrap.stream_of(x.device)),
+        # the lookup stream_of made before (a torch.cuda.Stream a call)
+        "stream_of before": _host_us(
+            lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        "ctypes call": _host_us(lambda: fn(*args)),
+        "F.rms_norm": _host_us(lambda: F.rms_norm(x, (D,), s16, eps)),
+        "x + r": _host_us(lambda: x + r),
+    }
+    print(f"  host  rmsnorm x [{MAX_SLOTS},{D}] bf16, us a call (host "
+          f"clock over 2000 calls): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in split.items()))
+    return split
+
+
+def _rmsnorm_times(D, eps, rows):
+    """Device, with-launch, plain and library times and the byte bound of
+    both entries at [rows, D] bf16; the fused entry also against the
+    two launches it replaces (x + r, then the kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import add_rmsnorm, rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import (reference_add_rmsnorm,
+                                                 reference_rmsnorm)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n_in = 8 if rows <= MAX_SLOTS else 4
+    xs = [(torch.randn(rows, D, generator=gen, device=dev).to(
+        torch.bfloat16), torch.randn(rows, D, generator=gen,
+                                     device=dev).to(torch.bfloat16))
+          for _ in range(n_in)]
+    s = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+    s16 = s.to(torch.bfloat16)
+    row_bytes = rows * D * 2
+    out = {}
+    for entry, calls in (
+            ("rmsnorm", dict(
+                kernel=[lambda x=x: rmsnorm(x, s, eps) for x, _ in xs],
+                plain=[lambda x=x: reference_rmsnorm(x, s, eps)
+                       for x, _ in xs],
+                library=[lambda x=x: F.rms_norm(x, (D,), s16, eps)
+                         for x, _ in xs])),
+            ("add_rmsnorm", dict(
+                kernel=[lambda x=x, r=r: add_rmsnorm(x, r, s, eps)
+                        for x, r in xs],
+                plain=[lambda x=x, r=r: reference_add_rmsnorm(x, r, s, eps)
+                       for x, r in xs],
+                library=[lambda x=x, r=r: F.rms_norm(x + r, (D,), s16, eps)
+                         for x, r in xs],
+                unfused=[lambda x=x, r=r: rmsnorm(x + r, s, eps)
+                         for x, r in xs]))):
+        n_io = 2 if entry == "rmsnorm" else 4
+        b_ms, b_by = _bound_ms(n_io * row_bytes + D * 4,
+                               (4 if entry == "rmsnorm" else 5) * rows * D,
+                               torch.bfloat16)
+        t = dict(ms=_time_ms(calls["kernel"]),
+                 launch_ms=_time_ms(calls["kernel"], queued=False),
+                 plain_ms=_time_ms(calls["plain"]),
+                 library_ms=_time_ms(calls["library"]),
+                 bound_ms=b_ms, bound_by=b_by)
+        if "unfused" in calls:
+            t["unfused_ms"] = _time_ms(calls["unfused"])
+            t["unfused_launch_ms"] = _time_ms(calls["unfused"],
+                                              queued=False)
+        lib = ("F.rms_norm" if entry == "rmsnorm"
+               else "x + r, then F.rms_norm: two calls")
+        extra = ("" if "unfused_ms" not in t else
+                 f" unfused (x + r, then the kernel) {t['unfused_ms']:.6f} "
+                 f"(with host launch {t['unfused_launch_ms']:.6f})")
+        print(f"  time  {entry:17s} x [{rows},{D}] bf16: kernel_ms="
+              f"{t['ms']:.6f} (with host launch {t['launch_ms']:.6f}) "
+              f"plain_ms={t['plain_ms']:.6f} library_ms="
+              f"{t['library_ms']:.6f} ({lib}) bound_ms={b_ms:.7f} "
+              f"({b_by}){extra}")
+        out[entry] = t
+    return out
+
+
 def phase_kernels(cfg, lengths_main, buckets):
     """Kernel vs plain version on the card; returns {name: record}.
     `buckets` are phase 4's prefill lengths, the largest the main shape."""
@@ -236,6 +449,10 @@ def phase_kernels(cfg, lengths_main, buckets):
     print(f"  time  rmsnorm           x [{S_main},{D}] bf16 (prefill): "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
           f"bound_ms={b_ms:.5f} (bytes)")
+    _rmsnorm_cases(eps)
+    _rmsnorm_times(D, eps, MAX_SLOTS)
+    _rmsnorm_times(D, eps, S_main)
+    _rmsnorm_host_split(D, eps)
 
     # ---- decode attention: gemma MQA and a GQA case, ragged lengths ------
     ragged = torch.tensor([1, 77, 700, MAX_LEN], dtype=torch.int32,
@@ -456,8 +673,11 @@ def phase_serving(cfg, prompts):
     M.decode_step(params, cfg, p0[:, :1], M.init_cache(
         cfg, 1, MAX_LEN, torch.bfloat16, "cuda"), 0,
         compute_dtype=torch.bfloat16)
+    per_step = kernels.launch_counts()
     print(f"  launches per prefill {per_prefill}, per decode step "
-          f"{kernels.launch_counts()}")
+          f"{per_step}")
+    assert per_prefill["rmsnorm"] == per_step["rmsnorm"] == _norms(cfg), \
+        (per_prefill, per_step)
     plain = first_logits(params, torch.bfloat16, True)
     params32 = _map(params, lambda t: t.float())
     truth = first_logits(params32, torch.float32, True)
@@ -533,6 +753,12 @@ def phase_serving(cfg, prompts):
     return counts
 
 
+def _norms(cfg) -> int:
+    """rmsnorm launches a forward: one before each sublayer and the final
+    norm (the residual adds run inside them)."""
+    return cfg.n_groups * sum(len(layer) for layer in cfg.pattern) + 1
+
+
 def _profile_split(eng, prompts):
     """Where a prefill and a decode step spend the card's time: each under
     torch.profiler after a warm-up, with the device operations by time and
@@ -579,6 +805,10 @@ def _profile_split(eng, prompts):
               f"{w * 1e3:.3f} ms profiled, {w0 * 1e3:.3f} ms without the "
               f"profiler; device-idle share {1 - busy / (w * 1e3):.3f} "
               f"profiled, {1 - busy / (w0 * 1e3):.3f} without")
+        n_rms = sum(e.count for e in kern if "rmsnorm" in e.key)
+        print(f"  profile {label}: {sum(e.count for e in kern)} device "
+              f"operations, {n_rms} of them rmsnorm kernels")
+        assert n_rms == _norms(eng.cfg), n_rms
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
             t = e.self_device_time_total / 1e3
             print(f"    {t:9.4f} ms {100 * t / busy:5.1f}% x{e.count:<4d} "

@@ -38,7 +38,7 @@ _F = ctypes.c_float
 
 # argtypes of each library's C entry point (see the .cu sources)
 SIGNATURES = {
-    "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _LL, _I, _F, _I, _P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P] * 5 + [_LL, _I, _F, _I, _P]),
     "decode_attention": (
         "decode_attention_fwd",
         [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _I, _P]),
@@ -54,6 +54,7 @@ SIGNATURES = {
 # wrapper makes of the card before it launches
 QUERIES = {
     "ann_topk_blocks_per_sm": ("ann_topk", "ann_topk_blocks_per_sm", [_I]),
+    "rmsnorm_plan_of": ("rmsnorm", "rmsnorm_plan_of", [_LL, _I, _I, _I, _P]),
 }
 
 

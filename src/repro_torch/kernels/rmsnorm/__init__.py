@@ -1,2 +1,2 @@
-from .ops import rmsnorm  # noqa
-from .ref import reference_rmsnorm  # noqa
+from .ops import add_rmsnorm, rmsnorm  # noqa
+from .ref import reference_add_rmsnorm, reference_rmsnorm  # noqa

@@ -8,8 +8,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rmsnorm.ops import rmsnorm
-from ..kernels.rmsnorm.ref import reference_rmsnorm
+from ..kernels.rmsnorm.ops import add_rmsnorm, rmsnorm
+from ..kernels.rmsnorm.ref import reference_add_rmsnorm, reference_rmsnorm
 
 
 @dataclasses.dataclass
@@ -57,6 +57,17 @@ def apply_norm(params, x, kind: str, eps: float, plain: bool = False):
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
     fn = reference_rmsnorm if plain else rmsnorm
     return fn(x, params["scale"], eps)
+
+
+def apply_add_norm(params, x, residual, kind: str, eps: float,
+                   plain: bool = False):
+    """The residual add and the norm after it: (norm(x + residual),
+    x + residual), the sum in x.dtype and the norm read from it, in one
+    launch of the rmsnorm kernel (or its plain version when `plain`)."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    fn = reference_add_rmsnorm if plain else add_rmsnorm
+    return fn(x, residual, params["scale"], eps)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ import torch
 from .._device import resolve_device
 from . import attention, ffn
 from .config import ModelConfig
-from .layers import Ctx, apply_norm, embed_init
+from .layers import Ctx, apply_add_norm, apply_norm, embed_init
 
 _MIXERS = {"attn": attention, "ffn": ffn}
 
@@ -175,13 +175,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Stack
 # ---------------------------------------------------------------------------
 
-def _sub_apply(params, x, spec, cfg: ModelConfig, ctx: Ctx, cache=None):
-    h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps, ctx.plain)
+def _sub_apply(params, x, spec, cfg: ModelConfig, ctx: Ctx, cache=None,
+               residual=None):
+    """One sublayer: its norm, then its mixer. `residual` is the previous
+    sublayer's output (None for the first), added into the stream inside
+    this norm. Returns (x, out): the stream at this sublayer's input and
+    the mixer's output, which the next norm adds in."""
+    if residual is None:
+        h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps, ctx.plain)
+    else:
+        h, x = apply_add_norm(params["norm"], x, residual, cfg.norm,
+                              cfg.norm_eps, ctx.plain)
     if spec.kind == "attn":
         out, _ = attention.apply(params["mixer"], h, spec, cfg, ctx, cache)
     else:
         out = ffn.apply(params["mixer"], h, spec, cfg, ctx)
-    return x + out
+    return x, out
 
 
 def _index(tree, g: int):
@@ -191,14 +200,26 @@ def _index(tree, g: int):
 
 
 def run_stack(params, x, cfg: ModelConfig, ctx: Ctx, caches=None):
-    """The group stack; caches (if any) are updated in place."""
+    """The group stack; caches (if any) are updated in place. Returns
+    (x, out): the stream before the last sublayer's residual add, and that
+    sublayer's output (None for an empty stack); `_final_norm` adds them."""
+    out = None
     for g in range(cfg.n_groups):
         for k, spec in _sublayers(cfg):
             p = _index(params["groups"][k], g)
             c = (_index(caches["groups"][k], g)
                  if caches is not None and k in caches["groups"] else None)
-            x = _sub_apply(p, x, spec, cfg, ctx, c)
-    return x
+            x, out = _sub_apply(p, x, spec, cfg, ctx, c, out)
+    return x, out
+
+
+def _final_norm(params, cfg: ModelConfig, x, out, plain: bool):
+    """The final norm of x + out, the last residual add inside it."""
+    if out is None:
+        return apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps,
+                          plain)
+    return apply_add_norm(params["final_norm"], x, out, cfg.norm,
+                          cfg.norm_eps, plain)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +252,8 @@ def forward(params, cfg: ModelConfig, tokens,
     x = _embed_tokens(params, cfg, tokens, compute_dtype)
     ctx = Ctx(mode="train", positions=_positions(B, S, tokens.device),
               compute_dtype=compute_dtype, plain=plain)
-    x = run_stack(params, x, cfg, ctx)
-    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps, plain)
-    return _logits(params, cfg, x)
+    x, out = run_stack(params, x, cfg, ctx)
+    return _logits(params, cfg, _final_norm(params, cfg, x, out, plain))
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache,
@@ -250,10 +270,11 @@ def prefill(params, cfg: ModelConfig, tokens, cache,
     x = _embed_tokens(params, cfg, tokens, compute_dtype)
     ctx = Ctx(mode="prefill", positions=_positions(B, S, tokens.device),
               compute_dtype=compute_dtype, plain=plain)
-    x = run_stack(params, x, cfg, ctx, caches=cache)
+    x, out = run_stack(params, x, cfg, ctx, caches=cache)
     i = S - 1 if last_index is None else int(last_index)
-    x_last = apply_norm(params["final_norm"], x[:, i:i + 1], cfg.norm,
-                        cfg.norm_eps, plain)
+    # only position i reaches the logits: its row alone is summed and normed
+    x_last = _final_norm(params, cfg, x[:, i:i + 1],
+                         None if out is None else out[:, i:i + 1], plain)
     return cache, _logits(params, cfg, x_last)[:, 0]
 
 
@@ -269,6 +290,6 @@ def decode_step(params, cfg: ModelConfig, token, cache, index,
     idx = (idx.expand(B) if idx.dim() == 0 else idx).to(torch.int64)
     ctx = Ctx(mode="decode", positions=idx[:, None], cache_index=idx,
               compute_dtype=compute_dtype, plain=plain)
-    x = run_stack(params, x, cfg, ctx, caches=cache)
-    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps, plain)
-    return cache, _logits(params, cfg, x)[:, 0]
+    x, out = run_stack(params, x, cfg, ctx, caches=cache)
+    return cache, _logits(params, cfg,
+                          _final_norm(params, cfg, x, out, plain))[:, 0]

@@ -8,6 +8,8 @@ both sides, outputs are rounded to bf16 (2^-8 relative) after float32
 math in another order. On the CPU the kernel wrappers take the plain
 version and count no launch; the CUDA kernels themselves are held against
 these plain versions on the card by chip_smoke.py."""
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +30,9 @@ from repro_torch.kernels.decode_attention.ref import \
 from repro_torch.kernels.flash_attention.ops import kernel_head_dim, \
     padded_attention
 from repro_torch.kernels.flash_attention.ref import reference_attention
-from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm, \
+    reference_rmsnorm
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -57,6 +61,84 @@ def test_rmsnorm_plain_matches_jax(shape, dt):
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _assert_close(got, j_rms(jx, jnp.asarray(s), eps=1e-6), dt)
     _assert_close(got, j_rms_ref(jx, jnp.asarray(s), 1e-6), dt)
+
+
+@pytest.mark.parametrize("shape", [(4, 256), (3, 100, 512), (1, 8, 2048)])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_add_rmsnorm_plain_matches_jax(shape, dt):
+    """add_rmsnorm's plain version against x + r, then the reference's
+    oracle and its Pallas kernel (interpret mode); the sum is the same
+    rounded add on both sides, so it compares exactly."""
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng, shape, dt)
+    jr, tr = _pair(rng, shape, dt)
+    s = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    normed, summed = reference_add_rmsnorm(tx, tr, torch.from_numpy(s),
+                                           1e-6)
+    assert normed.dtype == summed.dtype == tx.dtype
+    assert normed.shape == summed.shape == tx.shape
+    js = jx + jr
+    np.testing.assert_array_equal(summed.float().numpy(),
+                                  np.asarray(js, np.float32))
+    _assert_close(normed, j_rms(js, jnp.asarray(s), eps=1e-6), dt)
+    _assert_close(normed, j_rms_ref(js, jnp.asarray(s), 1e-6), dt)
+
+
+# (rows, D, itemsize, aligned) -> (threads a row, chunks a thread, rows a
+# block, blocks, path), worked by hand from the rule in csrc/rmsnorm.cu
+PLAN_EDGES = [
+    ((4, 2048, 2, True), (256, 1, 1, 4, "vector")),      # decode step
+    ((1, 2048, 2, True), (256, 1, 1, 1, "vector")),
+    ((1023, 2048, 2, True), (256, 1, 2, 512, "vector")),  # prefill
+    ((1023, 2048, 4, True), (512, 1, 1, 1023, "vector")),
+    ((4, 64, 2, True), (8, 1, 4, 1, "vector")),          # rows share warps
+    ((1023, 64, 4, True), (16, 1, 4, 256, "vector")),
+    ((1, 8192, 2, True), (1024, 1, 1, 1, "vector")),
+    ((1023, 8192, 2, True), (1024, 1, 1, 1023, "vector")),
+    ((1023, 8192, 4, True), (1024, 2, 1, 1023, "vector")),
+    ((4, 8192, 4, True), (1024, 2, 1, 4, "vector")),
+    ((1023, 2050, 2, True), (288, 1, 1, 1023, "scalar")),  # D % 8 != 0
+    ((4, 2050, 4, True), (544, 1, 1, 4, "scalar")),
+    ((1023, 2048, 2, False), (256, 1, 2, 512, "scalar")),  # odd offset
+    ((4, 2048, 2, False), (256, 1, 1, 4, "scalar")),
+    ((4, 1, 2, True), (1, 1, 32, 1, "scalar")),
+    ((8 * 132, 256, 2, True), (32, 1, 8, 132, "vector")),
+    ((8 * 132 - 1, 256, 2, True), (32, 1, 4, 264, "vector")),
+    ((8 * 132, 1536, 2, True), (192, 1, 2, 528, "vector")),
+    ((2 * 132 - 1, 2048, 2, True), (256, 1, 1, 263, "vector")),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_EDGES,
+                         ids=[str(a) for a, _ in PLAN_EDGES])
+def test_rmsnorm_launch_plan_at_its_edges(args, want):
+    """ops.launch_plan, the Python twin of `rmsnorm_plan` (the card checks
+    the two agree, chip_smoke phase 3): a row's chunks across its threads,
+    rows packed into whole warps and then into blocks of up to 512 threads
+    while every SM still gets a block; the scalar path for a ragged D or a
+    misaligned pointer."""
+    rows, d, itemsize, aligned = args
+    plan = rms_ops.launch_plan(rows, d, itemsize, aligned)
+    got = tuple(plan[k] for k in ("row_threads", "chunks", "rows", "blocks",
+                                  "path"))
+    assert got == want
+    threads = plan["rows"] * plan["row_threads"]
+    assert threads % 32 == 0 and threads <= rms_ops.MAX_THREADS
+    assert plan["chunks"] * plan["row_threads"] * 16 // itemsize >= d
+
+
+def test_rmsnorm_constants_match_the_source():
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" /
+           "repro_torch" / "csrc" / "rmsnorm.cu").read_text()
+    for name, value in (("kRmsVecBytes", rms_ops.VEC_BYTES),
+                        ("kRmsMaxThreads", rms_ops.MAX_THREADS),
+                        ("kRmsBlockThreads", rms_ops.BLOCK_THREADS),
+                        ("kRmsMaxRowBytes", rms_ops.MAX_ROW_BYTES)):
+        assert f"constexpr int {name} = {value};" in src, name
+    # the widest row the kernel takes: 1024 threads x 2 chunks of 16 bytes
+    assert rms_ops.MAX_ROW_BYTES == 2 * rms_ops.MAX_THREADS * 16
+    assert rms_ops.launch_plan(1, rms_ops.MAX_ROW_BYTES // 2, 2)[
+        "chunks"] == 2
 
 
 @pytest.mark.parametrize("B,H,KV,T,D,lengths", [
@@ -224,6 +306,11 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     x = torch.from_numpy(rng.standard_normal((3, 5, 64)).astype(np.float32))
     s = torch.ones(64)
     assert torch.equal(K.rmsnorm(x, s), reference_rmsnorm(x, s))
+    r = torch.from_numpy(rng.standard_normal((3, 5, 64)).astype(np.float32))
+    normed, summed = K.add_rmsnorm(x, r, s)
+    want_normed, want_summed = reference_add_rmsnorm(x, r, s)
+    assert torch.equal(normed, want_normed)
+    assert torch.equal(summed, want_summed) and torch.equal(summed, x + r)
     q = torch.from_numpy(rng.standard_normal((2, 4, 32)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((2, 2, 9, 32))
                          .astype(np.float32))

@@ -17,7 +17,10 @@ from repro.models import model as JM
 from repro.parallel.sharding import single_device_rules
 from repro_torch.configs import ARCHS, PORTED, get_config
 from repro_torch.models import model as TM
+from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
+from repro_torch.models import attention, ffn
 from repro_torch.models.config import AttnSpec
+from repro_torch.models.layers import Ctx
 
 ATOL = 1e-4
 
@@ -160,6 +163,75 @@ def test_decode_matches_forward(setup):
         np.testing.assert_allclose(dec.numpy(), par[:, t].numpy(),
                                    rtol=5e-4, atol=5e-4,
                                    err_msg=f"decode step {t} diverged")
+
+
+def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
+             last=None):
+    """The stack as composed before the residual add moved into the
+    norms: norm, mixer, x + out after every sublayer, then the final norm
+    of the stream (of one row at prefill). Returns the logits."""
+    B, S = tokens.shape
+    x = TM._embed_tokens(tp, cfg, tokens, dtype)
+    if mode == "decode":
+        idx = torch.as_tensor(index).to(torch.int64)
+        ctx = Ctx(mode=mode, positions=idx[:, None], cache_index=idx,
+                  compute_dtype=dtype, plain=True)
+    else:
+        ctx = Ctx(mode=mode, positions=TM._positions(B, S, tokens.device),
+                  compute_dtype=dtype, plain=True)
+    for g in range(cfg.n_groups):
+        for k, spec in TM._sublayers(cfg):
+            p = TM._index(tp["groups"][k], g)
+            c = (TM._index(cache["groups"][k], g)
+                 if cache is not None and k in cache["groups"] else None)
+            h = reference_rmsnorm(x, p["norm"]["scale"], cfg.norm_eps)
+            if spec.kind == "attn":
+                out, _ = attention.apply(p["mixer"], h, spec, cfg, ctx, c)
+            else:
+                out = ffn.apply(p["mixer"], h, spec, cfg, ctx)
+            x = x + out
+    if mode == "prefill":
+        i = S - 1 if last is None else last
+        x = x[:, i:i + 1]
+    x = reference_rmsnorm(x, tp["final_norm"]["scale"], cfg.norm_eps)
+    logits = TM._logits(tp, cfg, x)
+    return logits if mode == "train" else logits[:, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_residual_adds_are_bit_identical_on_the_cpu(setup, dtype):
+    """The stack adds each sublayer's output inside the next norm (and the
+    last one inside the final norm); on the CPU that is x + out, then the
+    plain rmsnorm, so forward, prefill and decode give the unfused
+    composition's logits and caches bit for bit."""
+    _, cfg, _, tp, _ = setup
+    B, S, T = 2, 9, 16
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (B, S + 3)))
+    assert torch.equal(TM.forward(tp, cfg, toks[:, :S], compute_dtype=dtype),
+                       _unfused(tp, cfg, toks[:, :S], "train", dtype))
+    for last in (None, 5):
+        got_c = TM.init_cache(cfg, B, T, dtype=dtype, device="cpu")
+        want_c = TM.init_cache(cfg, B, T, dtype=dtype, device="cpu")
+        got_c, got = TM.prefill(tp, cfg, toks[:, :S], got_c,
+                                compute_dtype=dtype, last_index=last)
+        want = _unfused(tp, cfg, toks[:, :S], "prefill", dtype, want_c,
+                        last=last)
+        assert torch.equal(got, want), last
+    index = np.array([S, S - 2], np.int64)
+    for step in range(3):
+        tok = toks[:, S + step:S + step + 1]
+        got_c, got = TM.decode_step(tp, cfg, tok, got_c,
+                                    torch.from_numpy(index),
+                                    compute_dtype=dtype)
+        want = _unfused(tp, cfg, tok, "decode", dtype, want_c,
+                        index=torch.from_numpy(index))
+        assert torch.equal(got, want), f"decode step {step}"
+        index = index + 1
+    for k in got_c["groups"]:
+        for leaf in ("k", "v"):
+            assert torch.equal(got_c["groups"][k][leaf],
+                               want_c["groups"][k][leaf])
 
 
 def test_forward_matches_reference(setup):
