@@ -37,8 +37,14 @@ Drives the port's serving path on the card and checks it, in phases:
      kvstore_demo.py's store (8192 buckets x 8 slots, load 0.7) answers
      4096 batched GETs through the probe kernel and a timed store's
      get_many; then a table of 2^23 buckets x 8 slots (512 MiB on the
-     card) answers 2^20 probes, half stored and half absent, and the
-     kernel is held against its plain version and timed;
+     card, each bucket's keys and values in one 64-byte row) answers 2^20
+     probes, half stored and half absent; the kernel is held bit for bit
+     against its plain version there and on every path (slots 4, 5, 8
+     and 16; two arrays, one table, one at a 4-byte offset; N = 0 to
+     4096 around a group's edges; one bucket; negative keys; the tests'
+     hand-made table and the int32 wrap), its launch plan against the
+     Python twin, and it is timed on both layouts, at a table inside L2
+     too, beside torch.index_select of the same rows;
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
      search on the card, ann_topk against its plain version (k = 64, 128
@@ -121,6 +127,7 @@ KV_BUCKETS = 1 << 23           # x 8 slots x (key + value) int32 = 512 MiB
 KV_SLOTS = 8
 KV_LOAD = 0.7
 KV_PROBES = 1 << 20
+KV_L2_BUCKETS = 1 << 19        # x 8 x 2 x 4 B = 32 MiB: inside the 50 MB L2
 # phase 7: the corpus and queries; the reference tests' size
 ANN_N, ANN_D_FULL, ANN_D_RED, ANN_Q = 262_144, 1024, 128, 1024
 ANN_PROMOTE, ANN_K = 64, 10
@@ -906,18 +913,12 @@ def _fill_table(n_buckets, slots, keys, vals):
     return tk.view(n_buckets, slots), tv.view(n_buckets, slots), placed
 
 
-def phase_kvstore():
-    """The cuckoo store through its entry points, then the probe kernel at
-    deployment size against its plain version. Returns (launches, record)."""
+def _kv_demo():
+    """examples/kvstore_demo.py's scenario on the card: returns (the timed
+    store, its inner store, 4096 probe keys, all stored)."""
     import numpy as np
-    import torch
-    from repro_torch import kernels
-    from repro_torch.kernels.cuckoo_probe import (cuckoo_probe, hash_pair,
-                                                  reference_cuckoo_probe)
-    from repro_torch.kvstore import BlockedCuckooStore, TimedCuckooStore
+    from repro_torch.kvstore import TimedCuckooStore
 
-    t0 = time.perf_counter()
-    # (a) examples/kvstore_demo.py's scenario
     timed = TimedCuckooStore(KV_DEMO_BUCKETS, slots=KV_SLOTS,
                              dram_cache_items=1024, wal_limit=128,
                              device="cuda")
@@ -928,17 +929,243 @@ def phase_kvstore():
     for k in keys:
         store.put(int(k), int(k) % 99991)
     store.flush()
-    probe = keys[rng.integers(0, n, 4096)].astype(np.int32)
+    return timed, store, keys[rng.integers(0, n, 4096)].astype(np.int32)
+
+
+def _kv_table(n_buckets, gen):
+    """A table of n_buckets x KV_SLOTS on the card filled to ~KV_LOAD, and
+    four sets of KV_PROBES probes, half stored and half absent. Returns
+    (bucket_keys, bucket_vals [n_buckets, KV_SLOTS] contiguous, the stored
+    keys, the probe sets)."""
+    import torch
+    dev = torch.device("cuda")
+    n_fill = int(n_buckets * KV_SLOTS * KV_LOAD)
+    half = KV_PROBES // 2
+    pool = torch.unique(torch.randint(
+        1, 2**31 - 1, (n_fill + max(n_fill // 8, 2 * half),), generator=gen,
+        device=dev))
+    pool = pool[torch.randperm(len(pool), generator=gen, device=dev)]
+    assert len(pool) >= n_fill + half
+    cand, absent = pool[:n_fill], pool[n_fill:n_fill + half]
+    cand_vals = (cand * 2654435761 % 2**31).to(torch.int32)
+    bk, bv, placed = _fill_table(n_buckets, KV_SLOTS, cand.to(torch.int32),
+                                 cand_vals)
+    stored = cand[placed]
+    assert len(stored) >= half
+    probes = []
+    for _ in range(4):       # distinct probe sets for timing; set 0 checked
+        sel = stored[torch.randperm(len(stored), generator=gen,
+                                    device=dev)[:half]]
+        p = torch.cat([sel, absent]).to(torch.int32)
+        probes.append(p[torch.randperm(len(p), generator=gen, device=dev)])
+    return bk, bv, stored, probes
+
+
+def _probe_rows(bk, probes):
+    """The rows the probes' lookups touch: both buckets' key rows, the
+    value row of the bucket that hit, of each found key, the number of
+    bucket rows the kernel reads (bucket 2 only after a miss in bucket
+    1), and the number of distinct key rows the function needs (bucket
+    1's of every lookup, bucket 2's of those that bucket 1 missed)."""
+    import torch
+    from repro_torch.kernels.cuckoo_probe import hash_pair
+    out = []
+    for p in probes:
+        b1, b2 = hash_pair(p, bk.shape[0])
+        in1 = (bk[b1.long()] == p[:, None]).any(1)
+        in2 = (bk[b2.long()] == p[:, None]).any(1)
+        out.append((torch.cat([b1, b2]).long(),
+                    torch.where(in1, b1, b2)[in1 | in2].long(),
+                    len(p) + int((~in1).sum()),
+                    int(torch.unique(torch.cat([b1, b2[~in1]])).numel())))
+    return out
+
+
+def _probe_times(bk, bv, probes, label):
+    """The kernel on the two layouts (one [n_buckets, 2 * slots] table, as
+    the store keeps it, and two arrays) and, for the same random rows,
+    torch.index_select of both buckets' key rows and of the hits' value
+    rows: a gather, not the same function, and no library_ms."""
+    import torch
+    from repro_torch.kernels.cuckoo_probe import cuckoo_probe
+    t = torch.cat([bk, bv], 1)
+    joint = (t[:, :KV_SLOTS], t[:, KV_SLOTS:])
+    rows = _probe_rows(bk, probes)
+    ms = {
+        "one row a bucket": _time_ms(
+            [lambda p=p: cuckoo_probe(p, *joint) for p in probes]),
+        "two arrays": _time_ms(
+            [lambda p=p: cuckoo_probe(p, bk, bv) for p in probes]),
+        "index_select key rows": _time_ms(
+            [lambda r=r: torch.index_select(bk, 0, r[0]) for r in rows]),
+        "index_select value rows": _time_ms(
+            [lambda r=r: torch.index_select(bv, 0, r[1]) for r in rows])}
+    n_rows, n_hits = len(rows[0][0]), len(rows[0][1])
+    reads = sum(r[2] for r in rows) / len(rows)
+    print(f"  time  cuckoo_probe {label}: kernel, one row a bucket "
+          f"{ms['one row a bucket']:.6f} ms, two arrays "
+          f"{ms['two arrays']:.6f} ms; it reads "
+          f"{reads / len(probes[0]):.4f} bucket rows a lookup, "
+          f"{reads / ms['one row a bucket'] / 1e6:.2f} G rows/s; "
+          f"index_select of {n_rows} key rows "
+          f"({n_rows * KV_SLOTS * 4 / 2**20:.0f} MiB written) "
+          f"{ms['index_select key rows']:.6f} ms, of {n_hits} value rows "
+          f"({n_hits * KV_SLOTS * 4 / 2**20:.0f} MiB written) "
+          f"{ms['index_select value rows']:.6f} ms")
+    return ms
+
+
+def _probe_edges():
+    """The kernel bit for bit (torch.equal) against its plain version on
+    every path: slots 4, 8 and 16 (vector) and 5 (scalar); two arrays,
+    one table of both (the store's) and that table at a 4-byte offset
+    (scalar); N = 0, 1, 255-257, one group and +-1, 4096; n_buckets = 1
+    (h1 == h2); negative keys and values; the tests' hand-made table (a
+    key in both buckets, a duplicate hit, key 0, the int32 wrap); the
+    launch plan the card takes against ops.launch_plan. Returns the
+    number of cases."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cuckoo_probe import (cuckoo_probe, hash_pair,
+                                                  ops as probe_ops,
+                                                  reference_cuckoo_probe)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def layouts(tk, tv):
+        nb, s = tk.shape
+        t = torch.cat([tk, tv], 1)
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        off = flat[1:].view(nb, 2 * s)
+        off.copy_(t)
+        return {"two arrays": (tk, tv), "one table": (t[:, :s], t[:, s:]),
+                "4-byte offset": (off[:, :s], off[:, s:])}
+
+    def aligned(*ts):
+        return all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0
+                   for t in ts)
+
+    n_cases = 0
+
+    def case(label, keys, bk, bv):
+        nonlocal n_cases
+        f, v = cuckoo_probe(keys, bk, bv)
+        rf, rv = reference_cuckoo_probe(keys, *hash_pair(keys, bk.shape[0]),
+                                        bk, bv)
+        assert torch.equal(f, rf) and torch.equal(v, rv), \
+            f"cuckoo_probe {label}: kernel != plain"
+        n_cases += 1
+        return f, v
+
+    def rand_i32(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    paths = set()
+    for slots in (4, 5, 8, 16):
+        nb = 4096
+        pool = torch.unique(rand_i32(2 * nb * slots))
+        pool = pool[pool != 0]
+        pool = pool[torch.randperm(len(pool), generator=gen, device=dev)]
+        n_fill = int(nb * slots * KV_LOAD)
+        tk, tv, placed = _fill_table(nb, slots, pool[:n_fill],
+                                     rand_i32(n_fill))
+        stored = pool[:n_fill][placed]
+        probe = torch.cat([stored[:2048], pool[n_fill:n_fill + 2047],
+                           torch.zeros(1, dtype=torch.int32, device=dev)])
+        probe = probe[torch.randperm(len(probe), generator=gen, device=dev)]
+        assert (probe < 0).any() and len(probe) == 4096
+        for name, (bk, bv) in layouts(tk, tv).items():
+            plan = probe_ops.launch_plan(len(probe), slots, n_sm,
+                                         aligned(bk, bv))
+            assert (plan["path"] == "scalar") == (
+                slots == 5 or name == "4-byte offset"), (slots, name, plan)
+            paths.add(plan["path"])
+            g = plan["lookups"] * plan["threads"]
+            for n in sorted({0, 1, 255, 256, 257, g - 1, g, g + 1, 4096}):
+                case(f"slots {slots}, {name}, N {n}", probe[:n], bk, bv)
+        # one bucket: h1 == h2 == 0
+        row = torch.zeros(1, slots, dtype=torch.int32, device=dev)
+        row[0, :3] = torch.tensor([7, -9, -9], device=dev)
+        rowv = torch.zeros_like(row)
+        rowv[0, :3] = torch.tensor([70, 2**31 - 1, 5], device=dev)
+        one = torch.tensor([7, -9, 0, 8, -2**31], dtype=torch.int32,
+                           device=dev)
+        for name, (bk, bv) in layouts(row, rowv).items():
+            f, v = case(f"slots {slots}, {name}, one bucket", one, bk, bv)
+            assert f.tolist() == [1, 1, 1, 0, 0]
+            assert v.tolist()[:3] == [70, -2**31 + 4, 0]
+    assert paths == {"vector", "scalar"}
+
+    # the tests' hand-made table (tests/test_torch_case_studies.py)
+    nb, slots = 16, 4
+    b1, b2 = (h.tolist() for h in hash_pair(
+        torch.arange(1, 200, dtype=torch.int32, device=dev), nb))
+    both = next(k for k in range(1, 200) if b1[k - 1] != b2[k - 1])
+    dup = next(k for k in range(1, 200) if k != both
+               and b1[k - 1] not in (b1[both - 1], b2[both - 1]))
+    hk = torch.zeros(nb, slots, dtype=torch.int32, device=dev)
+    hv = torch.zeros_like(hk)
+    hk[b1[both - 1], 0], hv[b1[both - 1], 0] = both, 11
+    hk[b2[both - 1], 1], hv[b2[both - 1], 1] = both, 22
+    hk[b1[dup - 1], 2:4] = dup
+    hv[b1[dup - 1], 2:4] = torch.tensor([5, 7], device=dev)
+    hand = torch.tensor([both, dup, 0, 12345], dtype=torch.int32,
+                        device=dev)
+    for name, (bk, bv) in layouts(hk, hv).items():
+        f, v = case(f"hand-made table, {name}", hand, bk, bv)
+        assert f.tolist() == [1, 1, 1, 0] and v.tolist() == [11, 12, 0, 0]
+    hv[b1[dup - 1], 2:4] = torch.tensor([2**31 - 1, 2**31 - 2], device=dev)
+    for name, (bk, bv) in layouts(hk, hv).items():
+        f, v = case(f"int32 wrap, {name}", hand[1:2], bk, bv)
+        assert v.tolist() == [-3]
+
+    # the plan the card takes == the Python twin; the grid's blocks fit
+    plan_of = _build.library("cuckoo_probe_plan_of")
+    got = (ctypes.c_longlong * 5)()
+    for slots in (4, 5, 8, 16):
+        for al in (True, False):
+            g = probe_ops.launch_plan(1, slots, n_sm, al)
+            g = g["lookups"] * g["threads"]
+            for n in (0, 1, g - 1, g, g + 1, 4096, KV_PROBES, 2**31):
+                want = probe_ops.launch_plan(n, slots, n_sm, al)
+                _build.check("cuckoo_probe_plan_of",
+                             plan_of(n, slots, int(al), got))
+                card = {"threads": got[0], "lookups": got[1],
+                        "blocks": got[2],
+                        "path": "vector" if got[3] else "scalar"}
+                assert card == want, (n, slots, al, card, want)
+                assert got[4] >= probe_ops.BLOCKS_PER_SM, \
+                    f"{got[4]} resident blocks an SM, the grid assumes " \
+                    f"{probe_ops.BLOCKS_PER_SM}"
+                n_cases += 1
+    return n_cases
+
+
+def phase_kvstore():
+    """The cuckoo store through its entry points, then the probe kernel at
+    deployment size against its plain version, on every path, and timed.
+    Returns (launches, record)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.cuckoo_probe import (cuckoo_probe, hash_pair,
+                                                  reference_cuckoo_probe)
+    from repro_torch.kvstore import BlockedCuckooStore
+
+    t0 = time.perf_counter()
+    # (a) examples/kvstore_demo.py's scenario
+    timed, store, probe = _kv_demo()
     kernels.reset_launch_counts()
     found, vals = store.get_batch(probe)
     launches = kernels.launch_counts()["cuckoo_probe"]
     assert found.all() and (vals == probe % 99991).all(), "demo GETs wrong"
     pf, pv = store.get_batch(probe, use_kernel=False)
     assert (pf == found).all() and (pv == vals).all()
-    print(f"  demo store: {n} items at load {store.load_factor():.4f}, "
-          f"{store.stats.relocations} relocations; batched GET x"
-          f"{len(probe)} through the kernel: all found, all values right, "
-          f"== plain version; {store.stats}")
+    print(f"  demo store: {len(store.keys.nonzero()[0])} items at load "
+          f"{store.load_factor():.4f}, {store.stats.relocations} "
+          f"relocations; batched GET x{len(probe)} through the kernel: all "
+          f"found, all values right, == plain version; {store.stats}")
     got = timed.get_many(probe[:100].tolist())
     assert got == [int(k) % 99991 for k in probe[:100]]
     print(f"  timed store get_many x100: modeled {timed.clock.now()!r} s\n"
@@ -946,40 +1173,30 @@ def phase_kvstore():
                       for line in timed.modeled_report().splitlines()))
 
     # (b) 2^23 buckets x 8 slots on the card, filled to ~0.7
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_fill = int(KV_BUCKETS * KV_SLOTS * KV_LOAD)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bk, bv, stored, probes = _kv_table(KV_BUCKETS, gen)
     half = KV_PROBES // 2
-    pool = torch.unique(torch.randint(1, 2**31 - 1, (n_fill + n_fill // 8,),
-                                      generator=gen, device=dev))
-    pool = pool[torch.randperm(len(pool), generator=gen, device=dev)]
-    assert len(pool) >= n_fill + half
-    cand, absent = pool[:n_fill], pool[n_fill:n_fill + half]
-    cand_vals = (cand * 2654435761 % 2**31).to(torch.int32)
-    bk, bv, placed = _fill_table(KV_BUCKETS, KV_SLOTS, cand.to(torch.int32),
-                                 cand_vals)
-    stored = cand[placed]
     big = BlockedCuckooStore.from_table(bk.cpu().numpy(), bv.cpu().numpy(),
                                         device="cuda")
-    probes = []
-    for _ in range(4):       # distinct probe sets for timing; set 0 checked
-        sel = stored[torch.randperm(len(stored), generator=gen,
-                                    device=dev)[:half]]
-        p = torch.cat([sel, absent]).to(torch.int32)
-        probes.append(p[torch.randperm(len(p), generator=gen, device=dev)])
+    bk_d, bv_d = big.device_table()
+    assert bk_d.data_ptr() + KV_SLOTS * 4 == bv_d.data_ptr() \
+        and bk_d.stride() == bv_d.stride() == (2 * KV_SLOTS, 1), \
+        "the store's table is not one row a bucket"
     print(f"  deployment table: {KV_BUCKETS} buckets x {KV_SLOTS} slots "
-          f"({2 * bk.numel() * 4 / 2**20:.0f} MiB on the card), "
-          f"{len(stored)} keys placed of {n_fill} (load "
+          f"({bk_d.numel() * 8 / 2**20:.0f} MiB on the card, keys and "
+          f"values of a bucket in one row), {len(stored)} keys placed of "
+          f"{int(KV_BUCKETS * KV_SLOTS * KV_LOAD)} (load "
           f"{big.load_factor():.4f})")
     kernels.reset_launch_counts()
     f, v = big.get_batch(probes[0])
     torch.cuda.synchronize()
     launches += kernels.launch_counts()["cuckoo_probe"]
     # the check: kernel == plain version exactly; stored found, absent not
-    bk_d, bv_d = big.device_table()
     rf, rv = reference_cuckoo_probe(
         probes[0], *hash_pair(probes[0], KV_BUCKETS), bk_d, bv_d)
     assert torch.equal(f, rf) and torch.equal(v, rv), "kernel != plain"
+    f2, v2 = cuckoo_probe(probes[0], bk, bv)
+    assert torch.equal(f2, f) and torch.equal(v2, v), "two arrays != table"
     want_v = torch.zeros_like(v)
     is_stored = torch.isin(probes[0], stored.to(torch.int32))
     assert int(is_stored.sum()) == half
@@ -989,21 +1206,39 @@ def phase_kvstore():
                          % 2**31).to(torch.int32)
     assert torch.equal(v, want_v), "wrong values"
     print(f"  check cuckoo_probe      {KV_PROBES} probes (half stored) "
-          f"max_abs_err=0 (exact) ok: {int(f.sum())} found")
-    b1, b2 = hash_pair(probes[0], KV_BUCKETS)
-    rows = int(torch.unique(torch.cat([b1, b2])).numel())
-    # bytes the lookups need: each probed key, each key row touched once,
+          f"max_abs_err=0 (exact, store's table and two arrays) ok: "
+          f"{int(f.sum())} found")
+    n_edges = _probe_edges()
+    print(f"  check cuckoo_probe      {n_edges} edge cases and launch plans "
+          f"(slots 4/5/8/16, two arrays, one table, a 4-byte offset, N "
+          f"0..4096, one bucket, the hand-made table, int32 wrap) exact ok")
+    # bytes the lookups need: each probed key, each key row once (bucket
+    # 2's only where bucket 1 missed: a hit there decides both outputs),
     # the hit value, and found + value out
+    rows = _probe_rows(bk, probes[:1])[0][3]
     nbytes = KV_PROBES * 4 + rows * KV_SLOTS * 4 + half * 4 + KV_PROBES * 8
     b_ms, b_by = _bound_ms(nbytes, 0, torch.int32)
+    print(f"  bound cuckoo_probe      {rows} distinct key rows needed, "
+          f"{nbytes} bytes")
+    pk = torch.as_tensor(probe, device="cuda")
+    dk, dv = store.device_table()
+    demo = [lambda: cuckoo_probe(pk, dk, dv)]
+    demo_ms = _time_ms(demo)
+    demo_launch_ms = _time_ms(demo, queued=False)
+    _probe_times(bk, bv, probes,
+                 f"{KV_PROBES} GETs into [{KV_BUCKETS},{KV_SLOTS}]")
+    sk, sv, _, sp = _kv_table(KV_L2_BUCKETS, gen)
+    _probe_times(sk, sv, sp,
+                 f"{KV_PROBES} GETs into [{KV_L2_BUCKETS},{KV_SLOTS}] "
+                 f"({2 * sk.numel() * 4 / 2**20:.0f} MiB, inside L2)")
+    print(f"  time  cuckoo_probe demo batch x{len(probe)}: device "
+          f"{demo_ms:.6f} ms, with the host's launch {demo_launch_ms:.6f} ms")
+    calls = [lambda p=p: cuckoo_probe(p, bk_d, bv_d) for p in probes]
     rec = dict(
         shape=(f"keys [{KV_PROBES}] (half stored), table [{KV_BUCKETS},"
-               f"{KV_SLOTS}] int32 x2"),
-        max_abs_err=0.0,
-        ms=_time_ms([lambda p=p: cuckoo_probe(p, bk_d, bv_d)
-                     for p in probes]),
-        launch_ms=_time_ms([lambda p=p: cuckoo_probe(p, bk_d, bv_d)
-                            for p in probes], queued=False),
+               f"{2 * KV_SLOTS}] int32 (keys | values a row)"),
+        max_abs_err=0.0, ms=_time_ms(calls),
+        launch_ms=_time_ms(calls, queued=False),
         plain_ms=_time_ms([lambda p=p: reference_cuckoo_probe(
             p, *hash_pair(p, KV_BUCKETS), bk_d, bv_d) for p in probes],
             iters=8),

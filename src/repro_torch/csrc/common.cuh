@@ -43,4 +43,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The current device's SM count, read once a device (0 if it cannot be
+// read); a host helper for the launch plans.
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return counts[dev];
+}
+
 }  // namespace repro_torch

@@ -309,16 +309,6 @@ inline RmsPlan rmsnorm_plan(long long n_rows, int d, int elem_bytes,
   return p;
 }
 
-inline int rms_sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
-                           dev);
-  return counts[dev];
-}
-
 template <typename T, bool kAdd, bool kVec>
 int rms_launch(const RmsPlan& p, const void* x, const void* res,
                const void* scale, void* out, void* sum_out,
@@ -373,7 +363,7 @@ extern "C" int rmsnorm_fwd(const void* x, const void* res, const void* scale,
   const bool aligned = rms_aligned(x) && rms_aligned(res) &&
                        rms_aligned(scale) && rms_aligned(out) &&
                        rms_aligned(sum_out);
-  const RmsPlan p = rmsnorm_plan(n_rows, d, elem, aligned, rms_sm_count());
+  const RmsPlan p = rmsnorm_plan(n_rows, d, elem, aligned, sm_count());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == kDtypeF32
              ? rms_dispatch<float>(p, x, res, scale, out, sum_out, n_rows,
@@ -390,7 +380,7 @@ extern "C" int rmsnorm_plan_of(long long n_rows, int d, int dtype,
   using namespace repro_torch;
   const int elem = dtype == kDtypeF32 ? 4 : 2;
   const RmsPlan p = rmsnorm_plan(n_rows, d, elem, aligned != 0,
-                                 rms_sm_count());
+                                 sm_count());
   plan[0] = p.row_threads;
   plan[1] = p.chunks;
   plan[2] = p.rows;

@@ -45,7 +45,8 @@ SIGNATURES = {
     "flash_attention": (
         "flash_attention_fwd",
         [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),
-    "cuckoo_probe": ("cuckoo_probe_fwd", [_P] * 5 + [_LL, _I, _I, _P]),
+    "cuckoo_probe": ("cuckoo_probe_fwd",
+                     [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P]),
     "ann_topk": ("ann_topk_fwd", [_P] * 7 + [_I, _LL] + [_I] * 4 + [_P]),
     "reuse_sketch": ("reuse_sketch_fwd",
                      [_P] * 6 + [_LL, _I, _I, _I, _F, _F, _P]),
@@ -55,6 +56,8 @@ SIGNATURES = {
 QUERIES = {
     "ann_topk_blocks_per_sm": ("ann_topk", "ann_topk_blocks_per_sm", [_I]),
     "rmsnorm_plan_of": ("rmsnorm", "rmsnorm_plan_of", [_LL, _I, _I, _I, _P]),
+    "cuckoo_probe_plan_of": ("cuckoo_probe", "cuckoo_probe_plan_of",
+                             [_LL, _I, _I, _P]),
 }
 
 

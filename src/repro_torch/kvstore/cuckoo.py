@@ -86,7 +86,7 @@ class BlockedCuckooStore:
         # WAL: pending updates coalesced per bucket
         self.wal_limit = wal_limit
         self.wal: List[Tuple[int, int]] = []
-        # keys, vals on the device; None after a write changed the table
+        # keys, vals: views of one device table; None after a write
         self._table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @classmethod
@@ -114,11 +114,16 @@ class BlockedCuckooStore:
         return store
 
     def device_table(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The table's copy on the store's device, uploaded again only
-        after a write changed the table."""
+        """The table's copy on the store's device as (keys, vals), each
+        [n_buckets, slots] int32, uploaded again only after a write changed
+        the table. Both are views of one [n_buckets, 2 * slots] tensor that
+        holds each bucket's keys and then its values in one row (64 bytes
+        at 8 slots), so a hit's value comes from device memory with its
+        keys (faster than two arrays on the H100: PERF.md, §6)."""
         if self._table is None:
-            self._table = (torch.from_numpy(self.keys).to(self.device),
-                           torch.from_numpy(self.vals).to(self.device))
+            t = torch.from_numpy(np.concatenate([self.keys, self.vals],
+                                                axis=1)).to(self.device)
+            self._table = (t[:, :self.slots], t[:, self.slots:])
         return self._table
 
     # ---------------------------------------------------------------- reads

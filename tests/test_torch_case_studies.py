@@ -16,6 +16,7 @@ runs them. On the CPU the port's wrappers take the plain version and
 count no launch; the CUDA kernels are held against the plain versions on
 the card by chip_smoke.py."""
 import dataclasses
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +48,7 @@ from repro_torch.core.policy import Tier as TTier, TieringPolicy as TPolicy
 from repro_torch.kernels.ann_topk.ops import BLOCK_Q, MAX_K, \
     SEED_MIN_ROWS, TILE, resident_blocks, seed_bound, smem_bytes, split_plan
 from repro_torch.kernels.ann_topk.ref import reference_ann_topk, smallest_k
+from repro_torch.kernels.cuckoo_probe import ops as probe_ops
 from repro_torch.kernels.cuckoo_probe.ops import hash_pair
 from repro_torch.kernels.cuckoo_probe.ref import reference_cuckoo_probe
 from repro_torch.kvstore import model as t_kv_model
@@ -201,6 +203,105 @@ def test_new_wrappers_refuse_other_devices():
         K.ann_topk(torch.empty(2, 8, device="meta"), torch.empty(16, 8))
 
 
+@pytest.mark.parametrize("nb,slots,n", [(512, 4, 800), (97, 5, 300),
+                                        (128, 8, 400)])
+def test_cuckoo_probe_plain_on_one_table_equals_reference(nb, slots, n):
+    """The plain version, and the wrapper on CPU tensors, on the row views
+    of one [n_buckets, 2 * slots] table (the store's device layout) equal
+    the oracle and the Pallas kernel on contiguous copies; negative keys
+    and values, and key 0 summing every empty slot's negative value."""
+    bk, bv, stored = _build_table(nb, slots, n)
+    bv = bv - 5000
+    probe = np.concatenate([stored[:128], _keys(np.random.default_rng(2),
+                                                64)])
+    t = torch.from_numpy(np.concatenate([bk, bv], axis=1))
+    vk, vv = t[:, :slots], t[:, slots:]
+    assert vk.stride() == vv.stride() == (2 * slots, 1)
+    tp = torch.from_numpy(probe)
+    plain = reference_cuckoo_probe(tp, *hash_pair(tp, nb), vk, vv)
+    K.reset_launch_counts()
+    wrapped = K.cuckoo_probe(tp, vk, vv)
+    assert K.launch_counts()["cuckoo_probe"] == 0
+    jf, jv, rf, rv, _, _ = _probe_both(probe, bk, bv)
+    for f, v in ((jf, jv), (rf, rv)):
+        for got_f, got_v in (plain, wrapped):
+            np.testing.assert_array_equal(got_f.numpy(), f)
+            np.testing.assert_array_equal(got_v.numpy(), v)
+    assert plain[0][:len(stored[:128])].all()
+    assert plain[0][probe == 0].all() and (plain[1][probe == 0] < 0).all()
+
+
+# the kernel's launch plan (`probe_plan` in csrc/cuckoo_probe.cu): threads
+# a block, lookups a thread (L = 16 / slots on the vector path, 1 on the
+# scalar one), blocks (groups of L * 256, at most 4 an SM of 132), path
+PROBE_PLAN_EDGES = [
+    ((0, 8, True), (256, 2, 0, "vector")),
+    ((1, 8, True), (256, 2, 1, "vector")),
+    ((511, 8, True), (256, 2, 1, "vector")),
+    ((512, 8, True), (256, 2, 1, "vector")),      # one group
+    ((513, 8, True), (256, 2, 2, "vector")),
+    ((4096, 8, True), (256, 2, 8, "vector")),     # the demo batch
+    ((2**20, 8, True), (256, 2, 528, "vector")),  # the deployment batch
+    ((2**31, 8, True), (256, 2, 528, "vector")),
+    ((1025, 4, True), (256, 4, 2, "vector")),
+    ((257, 16, True), (256, 1, 2, "vector")),
+    ((1024, 5, True), (256, 1, 4, "scalar")),     # a row of 20 bytes
+    ((1025, 8, False), (256, 1, 5, "scalar")),    # a misaligned table
+]
+
+
+@pytest.mark.parametrize("args,want", PROBE_PLAN_EDGES,
+                         ids=[str(a) for a, _ in PROBE_PLAN_EDGES])
+def test_cuckoo_probe_launch_plan_at_its_edges(args, want):
+    """ops.launch_plan, the Python twin of `probe_plan` (the card checks
+    the two agree, chip_smoke phase 6)."""
+    n, slots, aligned = args
+    plan = probe_ops.launch_plan(n, slots, aligned=aligned)
+    assert tuple(plan[k] for k in ("threads", "lookups", "blocks",
+                                   "path")) == want
+    if n:
+        group = plan["lookups"] * plan["threads"]
+        assert plan["blocks"] == min(-(-n // group),
+                                     probe_ops.H100_SMS *
+                                     probe_ops.BLOCKS_PER_SM)
+
+
+def test_cuckoo_probe_constants_match_the_source():
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" /
+           "repro_torch" / "csrc" / "cuckoo_probe.cu").read_text()
+    for name, value in (("kProbeThreads", probe_ops.THREADS),
+                        ("kProbeBlocksPerSm", probe_ops.BLOCKS_PER_SM),
+                        ("kProbeRowInts", probe_ops.ROW_INTS)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "constexpr int L = kProbeRowInts / kSlots;" in src
+    assert "p.lookups = p.vec ? kProbeRowInts / slots : 1;" in src
+    # every vector width gets a whole number of lookups a thread, >= 1
+    for slots in probe_ops.VECTOR_SLOTS:
+        assert probe_ops.ROW_INTS % slots == 0
+        assert probe_ops.launch_plan(1, slots)["lookups"] >= 1
+
+
+def test_cuckoo_probe_refuses_what_the_kernel_does_not_take():
+    """The checks a CUDA call passes before its launch, on meta tensors:
+    row views with a unit slot stride pass; anything else raises."""
+    t = torch.empty(64, 16, dtype=torch.int32, device="meta")
+    keys = torch.empty(10, dtype=torch.int32, device="meta")
+    assert probe_ops.check_args(keys, t[:, :8], t[:, 8:]) == (64, 8)
+    assert probe_ops.check_args(keys, t, t) == (64, 16)
+    with pytest.raises(ValueError, match="unit slot stride"):
+        probe_ops.check_args(keys, t[:, ::2], t[:, 1::2])
+    with pytest.raises(ValueError, match="unit slot stride"):
+        probe_ops.check_args(keys, t.t(), t.t().contiguous())
+    with pytest.raises(ValueError, match="n_buckets, slots"):
+        probe_ops.check_args(keys, t[:, :8], t[:, 8:12])
+    with pytest.raises(ValueError, match="n_buckets, slots"):
+        probe_ops.check_args(keys, t[:32, :8], t[:, 8:])
+    with pytest.raises(ValueError, match="int32"):
+        probe_ops.check_args(keys, t[:, :8], t[:, 8:].to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_ops.check_args(keys[::2], t[:, :8], t[:, 8:])
+
+
 # ---------------------------------------------------------------------------
 # BlockedCuckooStore: same seed, same operations -> same table and counters
 # ---------------------------------------------------------------------------
@@ -338,6 +439,25 @@ def test_from_table_copies_and_continues_the_reference_rng():
     js.flush()
     assert ts.stats.relocations > relocated      # the generator was used
     _assert_same_store(js, ts)
+
+
+def test_device_table_is_one_row_a_bucket():
+    """The device table holds each bucket's keys, then its values, in one
+    row: two views of one tensor whose values are the host table's, and
+    it is uploaded again after a put + flush."""
+    ts = TStore(64, slots=8, wal_limit=4, device=CPU)
+    for k in range(1, 5):
+        ts.put(k, -k)                        # the 4th put flushes
+    for _ in range(2):
+        bk, bv = ts.device_table()
+        assert bk.shape == bv.shape == (64, 8)
+        assert bk.stride() == bv.stride() == (16, 1)
+        assert bv.data_ptr() == bk.data_ptr() + 8 * 4
+        np.testing.assert_array_equal(bk.numpy(), ts.keys)
+        np.testing.assert_array_equal(bv.numpy(), ts.vals)
+        ts.put(9, -90)
+        ts.flush()
+    assert (bk.numpy() == 9).sum() == 1 and (bv.numpy() == -90).sum() == 1
 
 
 def test_device_table_uploads_only_after_a_write():
