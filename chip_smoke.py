@@ -44,7 +44,9 @@ Drives the port's serving path on the card and checks it, in phases:
      4096 around a group's edges; one bucket; negative keys; the tests'
      hand-made table and the int32 wrap), its launch plan against the
      Python twin, and it is timed on both layouts, at a table inside L2
-     too, beside torch.index_select of the same rows;
+     too, beside torch.index_select of the same rows, each batch (the
+     demo's too) beside the bytes it needs (a bound at HBM rate for the
+     2^23-bucket table; the tables that stay in L2 have none);
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
      search on the card, ann_topk against its plain version (k = 64, 128
@@ -68,7 +70,21 @@ Drives the port's serving path on the card and checks it, in phases:
      the same suite on the CPU, with one kernel launch per flush of a
      tracker's pending observes; and a control plane of 20 steps x
      50,000 Zipf keys over 1,000,000 ids whose sketch is bit-identical on
-     the card and the host every step.
+     the card and the host every step;
+  9. the declared platform: examples/serve_tiered_kv.py's one-host spec
+     (static thresholds, 5 ms step) with phase 4's tiers, compiled by
+     `Platform.compile(device="cuda")`, serves phase 4's prompts on phase
+     4's weights through `Platform.engine`, then runs the example's
+     pause / reuse / prefetch / resume flow; the same flow on an engine
+     built directly on a TieredStore must give the same tokens, tiers
+     and kv_stall_time; the serving kernels must launch within the
+     phase, and the cold session's blob must be on flash before its
+     prefetch; then six decode windows of 199 steps with every slot in
+     use, platform and direct engine in turns, give tokens/s (three
+     windows each, median and range); tokens/s, kv_stall_time and both
+     reports are printed beside the card's name and power limit; then a
+     traced kv_session save, think gap and resume (quickstart section 6)
+     whose stall ledger conserves and whose Perfetto export is not empty.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -79,6 +95,7 @@ exits non-zero.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import pathlib
@@ -95,6 +112,7 @@ MAX_NEW = 16
 MAX_SLOTS = 4
 MAX_LEN = 1024
 STEP_TIME = 5e-3
+STEADY_NEW = 200               # tokens a request in phase 9's windows
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's ~2 GHz SM clock
 # kernel vs plain version: both accumulate in float32; float32 outputs
 # differ only by summation order, bfloat16 outputs additionally by one
@@ -632,11 +650,9 @@ def phase_serving(cfg, prompts):
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.core import units
-    from repro_torch.core.policy import Tier, TieringPolicy
+    from repro_torch.core.policy import Tier
     from repro_torch.models import model as M
-    from repro_torch.runtime import TieredStore, TierSpec, VirtualClock
-    from repro_torch.serving import DecodeEngine, Request
+    from repro_torch.serving import Request
 
     t0 = time.perf_counter()
     params = M.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
@@ -647,20 +663,8 @@ def phase_serving(cfg, prompts):
     print(f"  gemma-2b: {n_params} parameters, bf16, native init in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # a paused session's blob: every K/V leaf of one slot, as float32
-    attn = cfg.pattern[0][0]
-    blob_bytes = 2 * cfg.n_groups * attn.n_kv * MAX_LEN * attn.head_dim * 4
-    # the modeled hierarchy: the card's HBM (data-sheet size and rate),
-    # host DRAM that holds 1.5 blobs, a Storage-Next SSD
-    specs = {Tier.HBM: TierSpec(80e9, units.H100_HBM_BW, 1e-7),
-             Tier.DRAM: TierSpec(1.5 * blob_bytes, 45e9, 5e-7),
-             Tier.FLASH: TierSpec(4e12, 7e9, 2e-5)}
-    clock = VirtualClock()
-    policy = TieringPolicy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
-    store = TieredStore(policy, specs=specs, clock=clock)
-    eng = DecodeEngine(cfg, params, max_slots=MAX_SLOTS, max_len=MAX_LEN,
-                       policy=policy, store=store, step_time=STEP_TIME,
-                       compute_dtype=torch.bfloat16, device="cuda")
+    eng, clock = _direct_engine(cfg, params)
+    store = eng.store
 
     # first-step logits: kernels vs the plain path, same bf16 weights.
     # Two bf16 computations of an 18-layer stack differ by the rounding
@@ -757,7 +761,7 @@ def phase_serving(cfg, prompts):
     for name, n in counts.items():
         assert n > 0, f"{name} kernel never launched on the main path"
     _profile_split(eng, prompts)
-    return counts
+    return counts, params
 
 
 def _norms(cfg) -> int:
@@ -845,6 +849,200 @@ def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+# ---------------------------------------------------------------- phase 9
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _blob_bytes(cfg) -> int:
+    """A paused session's blob: every K/V leaf of one slot, as float32."""
+    attn = cfg.pattern[0][0]
+    return 2 * cfg.n_groups * attn.n_kv * MAX_LEN * attn.head_dim * 4
+
+
+def _tier_table(cfg) -> dict:
+    """The modeled hierarchy of phases 4 and 9, (capacity, bandwidth,
+    latency) by tier: the card's HBM (data-sheet size and rate), host
+    DRAM that holds 1.5 blobs, so the colder of two paused sessions goes
+    to flash, and a Storage-Next SSD."""
+    from repro_torch.core import units
+    return {"hbm": (80e9, units.H100_HBM_BW, 1e-7),
+            "dram": (1.5 * _blob_bytes(cfg), 45e9, 5e-7),
+            "flash": (4e12, 7e9, 2e-5)}
+
+
+def _direct_engine(cfg, params):
+    """A DecodeEngine built by hand on a TieredStore with `_tier_table`'s
+    tiers and serve_tiered_kv's static policy (tau_hot 0.05, tau_be 1.0,
+    ema_alpha 1.0, 5 ms step); (engine, its clock)."""
+    import torch
+    from repro_torch.core.policy import Tier, TieringPolicy
+    from repro_torch.runtime import TieredStore, TierSpec, VirtualClock
+    from repro_torch.serving import DecodeEngine
+
+    specs = {Tier[name.upper()]: TierSpec(*t)
+             for name, t in _tier_table(cfg).items()}
+    clock = VirtualClock()
+    policy = TieringPolicy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
+    store = TieredStore(policy, specs=specs, clock=clock)
+    return DecodeEngine(cfg, params, max_slots=MAX_SLOTS, max_len=MAX_LEN,
+                        policy=policy, store=store, step_time=STEP_TIME,
+                        compute_dtype=torch.bfloat16,
+                        device="cuda"), clock
+
+
+def _example_flow(eng, clock, prompts):
+    """examples/serve_tiered_kv.py's flow at full width: serve phase 4's
+    requests, run the example's `tier_sessions` on the first two, then
+    the hot one resumes too and both decode to their end. Returns the
+    tokens, the tiers (three pauses, then the cold session's before its
+    prefetch) and the serving's wall seconds (host clock, synchronised)."""
+    import torch
+    from repro_torch.examples.serve_tiered_kv import tier_sessions
+    from repro_torch.serving import Request
+
+    reqs = [Request(rid=f"s{i}", prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts[:N_REQUESTS])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert len(done) == N_REQUESTS and all(
+        len(r.generated) == MAX_NEW for r in done), "requests unfinished"
+    tiers = tier_sessions(eng, clock, done[0], done[1], STEP_TIME)
+    eng.resume(done[0].rid)
+    while eng.live.any():
+        eng.step()
+    torch.cuda.synchronize()
+    return [r.generated for r in done], [t.name for t in tiers], wall
+
+
+def _decode_window(eng, prompts, tag: str) -> float:
+    """Decode tokens/s with every slot in use, on the host clock,
+    synchronised: MAX_SLOTS requests of STEADY_NEW tokens are admitted
+    (their prefills outside the window), then the timed steps run until
+    all finish together."""
+    import torch
+    from repro_torch.serving import Request
+
+    reqs = [Request(rid=f"{tag}{i}", prompt=p, max_new=STEADY_NEW)
+            for i, p in enumerate(prompts[:MAX_SLOTS])]
+    for r in reqs:
+        eng.admit(r)
+    assert eng.live.all(), "a slot was left empty"
+    before = sum(len(r.generated) for r in reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.live.any():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(len(r.generated) == STEADY_NEW for r in reqs)
+    return (sum(len(r.generated) for r in reqs) - before) / wall
+
+
+def phase_platform(cfg, params, prompts):
+    """The declared platform on the card: serve_tiered_kv's one-host spec
+    (static tau_hot 0.05 / tau_be 1.0 / ema_alpha 1.0, 5 ms step) with
+    phase 4's tiers (DRAM of 1.5 KV blobs) through Platform.compile and
+    Platform.engine on phase 4's weights and prompts; the same flow on a
+    DecodeEngine built directly on a TieredStore must decode the same
+    tokens. Then decode windows with every slot in use on both engines,
+    in turns, and a traced kv_session save / think gap / resume. Returns
+    the serving kernels' launches in the platform's run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.policy import Tier
+    from repro_torch.platform import (HierarchySpec, HostDecl,
+                                      ObservabilityDecl, Platform,
+                                      PolicyDecl, TierDecl)
+
+    t0 = time.perf_counter()
+    card = _smi()
+    spec = HierarchySpec(
+        hosts=(HostDecl(tiers={name: TierDecl(*t) for name, t in
+                               _tier_table(cfg).items()}),),
+        policy=PolicyDecl.static(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0),
+        step_time=STEP_TIME)
+    platform = Platform.compile(spec, device="cuda")
+    eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
+                          max_len=MAX_LEN, compute_dtype=torch.bfloat16)
+    assert eng.device.type == "cuda" and eng.store.fabric is platform.fabric
+    print(f"  spec {spec.to_json()}")
+
+    kernels.reset_launch_counts()
+    tokens, tier_names, wall = _example_flow(eng, platform.clock, prompts)
+    counts = kernels.launch_counts()
+    counts = {name: counts[name] for name in SERVING_KERNELS}
+    cold = tier_names[-1]
+    print(f"  platform engine: served {N_REQUESTS} requests, "
+          f"{N_REQUESTS * MAX_NEW} tokens, in {wall:.3f} s (host clock, "
+          f"synchronised; too short a window for a rate) [{card}]")
+    print(f"  paused tiers {tier_names[:3]}; cold session on {cold} "
+          f"before its prefetch; kv_stall_time={eng.kv_stall_time!r} s "
+          f"[{card}]; launches {counts}")
+    for name, n in counts.items():
+        assert n > 0, f"{name} kernel never launched through Platform.engine"
+    assert cold == Tier.FLASH.name, "the cold session's blob did not " \
+        "reach FLASH"
+
+    direct, clock = _direct_engine(cfg, params)
+    d_tokens, d_tiers, _ = _example_flow(direct, clock, prompts)
+    print(f"  direct engine: paused tiers {d_tiers[:3]}; "
+          f"kv_stall_time={direct.kv_stall_time!r} s")
+    assert tokens == d_tokens, "the platform's engine decoded other tokens"
+    assert tier_names == d_tiers
+    assert eng.kv_stall_time == direct.kv_stall_time
+    print(f"  tokens of the platform's engine == the direct engine's "
+          f"({sum(map(len, tokens))} tokens, {len(tokens)} sessions)")
+
+    # decode windows with every slot in use, in turns: a host-bound step
+    # moves between runs of the same code, so each engine gets three
+    turns = [("platform", eng), ("direct", direct), ("direct", direct),
+             ("platform", eng), ("platform", eng), ("direct", direct)]
+    tps = [(name, _decode_window(e, prompts, f"w{i}-"))
+           for i, (name, e) in enumerate(turns)]
+    print(f"  decode windows, {MAX_SLOTS} slots live for "
+          f"{STEADY_NEW - 1} steps each, tokens/s (host clock, "
+          f"synchronised) [{card}]: "
+          + ", ".join(f"{n} {t!r}" for n, t in tps))
+    for name in ("platform", "direct"):
+        got = sorted(t for n, t in tps if n == name)
+        print(f"  {name}: median {got[1]!r} tokens/s, range {got[0]!r} - "
+              f"{got[-1]!r} over {len(got)} windows [{card}]")
+    print(f"  platform.report() [{card}]:")
+    print("\n".join("    " + ln for ln in platform.report().splitlines()))
+    print(f"  eng.store.runtime.report() [{card}]:")
+    print("\n".join("    " + ln
+                    for ln in eng.store.runtime.report().splitlines()))
+    del eng, direct
+    torch.cuda.empty_cache()
+
+    # quickstart section 6 on the card: a traced save, think gap, resume
+    traced = Platform.compile(dataclasses.replace(
+        spec, observability=ObservabilityDecl(trace=True)), device="cuda")
+    sess = traced.kv_session("user-42")
+    sess.save(np.zeros(_blob_bytes(cfg) // 4, np.float32))
+    traced.clock.advance(5.0)
+    sess.resume()
+    led = traced.ledger.as_dict()
+    parts = sum(v for k, v in led.items() if k not in ("total", "tenants"))
+    chrome = traced.tracer.to_chrome_json()
+    assert led["total"] > 0 and abs(parts - led["total"]) <= \
+        1e-12 * led["total"], led
+    assert len(traced.tracer) > 0 and '"traceEvents"' in chrome
+    print(f"  traced session: ledger total {led['total']!r} s == sum of "
+          f"its components; {len(traced.tracer)} trace events, "
+          f"{len(chrome)} bytes of Perfetto JSON")
+    print(f"  phase 9 wall {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 # ---------------------------------------------------------------- phase 5
@@ -981,7 +1179,31 @@ def _probe_rows(bk, probes):
     return out
 
 
-def _probe_times(bk, bv, probes, label):
+def _probe_bound(bk, probe):
+    """The least time the card could take for one batch of lookups: the
+    bytes the function must move over the memory rate — each probed key,
+    each key row it needs once (bucket 2's only where bucket 1 missed: a
+    hit there decides both outputs), each hit's value, and found + value
+    out. Returns (bound_ms, bound_by, key rows needed, bytes)."""
+    import torch
+    _, hits, _, rows = _probe_rows(bk, [probe])[0]
+    n = len(probe)
+    nbytes = n * 4 + rows * bk.shape[1] * 4 + len(hits) * 4 + n * 8
+    return _bound_ms(nbytes, 0, torch.int32) + (rows, nbytes)
+
+
+def _bytes_at(b_ms, in_l2: bool) -> str:
+    """`_probe_bound`'s time, named for what it is: a bound where the
+    table is read from HBM; for a table the timing loop keeps in L2 only
+    the needed bytes at HBM rate, since the measurement guide's table
+    gives no L2 rate to bound them with."""
+    if in_l2:
+        return (f"needed bytes at HBM rate {b_ms:.6f} ms (not a bound: "
+                f"the table stays in L2)")
+    return f"bound {b_ms:.6f} ms"
+
+
+def _probe_times(bk, bv, probes, label, in_l2=False):
     """The kernel on the two layouts (one [n_buckets, 2 * slots] table, as
     the store keeps it, and two arrays) and, for the same random rows,
     torch.index_select of both buckets' key rows and of the hits' value
@@ -1002,6 +1224,7 @@ def _probe_times(bk, bv, probes, label):
             [lambda r=r: torch.index_select(bv, 0, r[1]) for r in rows])}
     n_rows, n_hits = len(rows[0][0]), len(rows[0][1])
     reads = sum(r[2] for r in rows) / len(rows)
+    b_ms, _, b_rows, b_bytes = _probe_bound(bk, probes[0])
     print(f"  time  cuckoo_probe {label}: kernel, one row a bucket "
           f"{ms['one row a bucket']:.6f} ms, two arrays "
           f"{ms['two arrays']:.6f} ms; it reads "
@@ -1011,7 +1234,9 @@ def _probe_times(bk, bv, probes, label):
           f"({n_rows * KV_SLOTS * 4 / 2**20:.0f} MiB written) "
           f"{ms['index_select key rows']:.6f} ms, of {n_hits} value rows "
           f"({n_hits * KV_SLOTS * 4 / 2**20:.0f} MiB written) "
-          f"{ms['index_select value rows']:.6f} ms")
+          f"{ms['index_select value rows']:.6f} ms; "
+          f"{_bytes_at(b_ms, in_l2)} ({b_rows} distinct key rows needed, "
+          f"{b_bytes} bytes)")
     return ms
 
 
@@ -1212,12 +1437,7 @@ def phase_kvstore():
     print(f"  check cuckoo_probe      {n_edges} edge cases and launch plans "
           f"(slots 4/5/8/16, two arrays, one table, a 4-byte offset, N "
           f"0..4096, one bucket, the hand-made table, int32 wrap) exact ok")
-    # bytes the lookups need: each probed key, each key row once (bucket
-    # 2's only where bucket 1 missed: a hit there decides both outputs),
-    # the hit value, and found + value out
-    rows = _probe_rows(bk, probes[:1])[0][3]
-    nbytes = KV_PROBES * 4 + rows * KV_SLOTS * 4 + half * 4 + KV_PROBES * 8
-    b_ms, b_by = _bound_ms(nbytes, 0, torch.int32)
+    b_ms, b_by, rows, nbytes = _probe_bound(bk, probes[0])
     print(f"  bound cuckoo_probe      {rows} distinct key rows needed, "
           f"{nbytes} bytes")
     pk = torch.as_tensor(probe, device="cuda")
@@ -1225,14 +1445,18 @@ def phase_kvstore():
     demo = [lambda: cuckoo_probe(pk, dk, dv)]
     demo_ms = _time_ms(demo)
     demo_launch_ms = _time_ms(demo, queued=False)
+    demo_b_ms, _, demo_rows, demo_bytes = _probe_bound(dk, pk)
     _probe_times(bk, bv, probes,
                  f"{KV_PROBES} GETs into [{KV_BUCKETS},{KV_SLOTS}]")
     sk, sv, _, sp = _kv_table(KV_L2_BUCKETS, gen)
     _probe_times(sk, sv, sp,
                  f"{KV_PROBES} GETs into [{KV_L2_BUCKETS},{KV_SLOTS}] "
-                 f"({2 * sk.numel() * 4 / 2**20:.0f} MiB, inside L2)")
+                 f"({2 * sk.numel() * 4 / 2**20:.0f} MiB, inside L2)",
+                 in_l2=True)
     print(f"  time  cuckoo_probe demo batch x{len(probe)}: device "
-          f"{demo_ms:.6f} ms, with the host's launch {demo_launch_ms:.6f} ms")
+          f"{demo_ms:.6f} ms, with the host's launch {demo_launch_ms:.6f} "
+          f"ms; {_bytes_at(demo_b_ms, True)} ({demo_rows} distinct key "
+          f"rows needed, {demo_bytes} bytes)")
     calls = [lambda p=p: cuckoo_probe(p, bk_d, bv_d) for p in probes]
     rec = dict(
         shape=(f"keys [{KV_PROBES}] (half stored), table [{KV_BUCKETS},"
@@ -1872,10 +2096,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 1: the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(_smi())
     print(f"[1] torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, devices {torch.cuda.device_count()}")
 
@@ -1901,7 +2122,7 @@ def main() -> int:
     print("[3] kernels vs plain versions on the card")
     rec = phase_kernels(cfg, lengths_main, buckets)
     print("[4] full-width gemma-2b serving through the kernels and tiers")
-    counts = phase_serving(cfg, prompts)
+    counts, params = phase_serving(cfg, prompts)
     print("[5] reduced gemma-2b, float32, kernels vs plain path")
     phase_reduced(rng)
     print("[6] cuckoo KV store: demo scenario and a 2^23 x 8 table")
@@ -1910,6 +2131,13 @@ def main() -> int:
     counts["ann_topk"], rec["ann_topk"] = phase_ann()
     print("[8] autopilot: reuse sketch, admission benchmark, control plane")
     counts["reuse_sketch"], rec["reuse_sketch"] = phase_autopilot()
+    print("[9] the declared platform: HierarchySpec -> Platform.compile -> "
+          "Platform.engine, full-width gemma-2b")
+    served = phase_platform(cfg, params, prompts)
+    print(f"  launches of the serving kernels: phase 4 "
+          f"{ {n: counts[n] for n in SERVING_KERNELS} }, phase 9 {served}")
+    counts.update(served)
+    del params
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

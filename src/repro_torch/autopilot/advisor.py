@@ -11,10 +11,6 @@ the DRAM:flash split to provision, a host count, and whether the
 deployment is capacity- or bandwidth-limited per `core.workload`'s
 T_B/T_S/T_C thresholds.
 
-This port advises one host's `TieredStore`. The `fabric=` forms (a
-sharded fleet's census and rebalance cost) raise NotImplementedError
-until the fabric is ported (ROADMAP Queue 1 item 0).
-
 The bridge is `EmpiricalWorkload`: each class's histogram expands into a
 weighted interval sample (bucket-center resolution), samples are scaled
 so classes contribute proportionally to their resident key census, and
@@ -34,10 +30,6 @@ from ..core.workload import EmpiricalWorkload, thresholds
 from ..core.policy import Tier
 from .gate import default_classify
 from .reuse import ReuseTracker
-
-_NO_FABRIC = ("ProvisionAdvisor on a fabric needs the sharded fleet, which "
-              "is not ported yet (ROADMAP Queue 1 item 0); pass store= or "
-              "the explicit scalars")
 
 
 @dataclasses.dataclass
@@ -260,13 +252,12 @@ class ProvisionAdvisor:
     # ----------------------------------------------------------------- main
     def advise(self, tracker: ReuseTracker, store=None, fabric=None,
                horizon: Optional[float] = None) -> ProvisionAdvice:
-        """Guidance from live state: pass a single `TieredStore` as
-        `store=` (`fabric=` is not ported yet and raises)."""
-        if fabric is not None:
-            raise NotImplementedError(_NO_FABRIC)
-        if store is None:
+        """Guidance from live state: pass a single `TieredStore` or a
+        `ShardedTieredStore` fabric (its per-host stores aggregate)."""
+        if (store is None) == (fabric is None):
             raise ValueError("pass exactly one of store= or fabric=")
-        stores = [store]
+        stores = [store] if store is not None else \
+            list(fabric.hosts.values())
         clock = stores[0].clock
         horizon = clock.now() if horizon is None else float(horizon)
 
@@ -334,6 +325,15 @@ class ProvisionAdvisor:
                                                 max(len(stores), 1))
         hosts = max(1, int(np.ceil(target / max(per_host, 1.0))))
 
+        rebalance = None
+        if fabric is not None and fabric.rebalances:
+            moved = float(sum(rb.bytes_moved for rb in fabric.rebalances))
+            rebalance = {
+                "events": float(len(fabric.rebalances)),
+                "bytes_moved": moved,
+                "moved_fraction": moved / max(resident, 1.0),
+            }
+
         verdict = self._verdict(limit, target, dram_cap, hosts,
                                 len(stores))
         return ProvisionAdvice(
@@ -344,7 +344,7 @@ class ProvisionAdvisor:
             recommended_dram_bytes=float(target),
             recommended_hosts=hosts, t_b=float(t_b), t_s=float(t_s),
             t_c=float(t_c), limit=limit, verdict=verdict,
-            classes=classes)
+            classes=classes, rebalance=rebalance)
 
     # ------------------------------------------------------- availability
     def advise_availability(self, *, fabric=None,
@@ -374,14 +374,26 @@ class ProvisionAdvisor:
         kill-at-peak scenario checks the recommendation against
         measured $/token.
 
-        Pass the explicit scalars (`fabric=` is not ported yet and
-        raises)."""
+        Pass `fabric=` to census live state, or the explicit scalars."""
         if mttf <= 0:
             raise ValueError("mttf must be positive seconds per host")
         if max_replicas < 1:
             raise ValueError("max_replicas must be >= 1")
         if fabric is not None:
-            raise NotImplementedError(_NO_FABRIC)
+            stores = list(fabric.hosts.values())
+            seen: Dict[object, int] = {}
+            for s in stores:
+                for key in s.keys():
+                    seen.setdefault(key, s.nbytes_of(key))
+            if resident_bytes is None:
+                resident_bytes = float(sum(seen.values()))
+            if n_hosts is None:
+                n_hosts = fabric.n_hosts
+            if dram_fraction is None:
+                used = sum(s.used_bytes(Tier.DRAM)
+                           + s.used_bytes(Tier.FLASH) for s in stores)
+                dram = sum(s.used_bytes(Tier.DRAM) for s in stores)
+                dram_fraction = dram / used if used > 0 else 0.0
         if resident_bytes is None or n_hosts is None:
             raise ValueError(
                 "pass fabric= or both resident_bytes= and n_hosts=")

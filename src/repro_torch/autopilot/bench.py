@@ -40,8 +40,7 @@ sketch gives the reference's numpy oracle bit for bit on either device
 (`device=`: the reuse_sketch kernel on CUDA, its plain version on the
 CPU), so the record written through `obs.bench_json` is byte-identical
 across runs, across devices, and to the reference's
-`benchmarks/serving_autopilot.py`. The tracer (`obs=`) waits for the
-port's observability plane.
+`benchmarks/serving_autopilot.py`.
 """
 from __future__ import annotations
 
@@ -109,11 +108,17 @@ def run_scenario(scenario: str, mode: str, *,
                  ssd: Optional[SsdConfig] = None,
                  seed: int = 0,
                  sim_cfg=None,
+                 obs=None,
                  device: Optional[Union[str, torch.device]] = None
                  ) -> Dict[str, object]:
     """One (scenario, policy) cell; returns a JSON-ready record. The
     economic gate's sketch lives on `device` (CUDA unless the caller
-    names another); the record does not depend on it."""
+    names another); the record does not depend on it.
+
+    `obs` (a `repro_torch.obs.Observability`) attaches the observability
+    plane: transfer spans, stall attribution and gate-decision instants
+    land in its tracer/metrics/ledger. The modeled record is identical
+    with or without it."""
     device = resolve_device(device)
     ssd = ssd or storage_next_ssd()
     trace = generate(scenario, n_steps=n_steps, step_time=step_time,
@@ -136,9 +141,11 @@ def run_scenario(scenario: str, mode: str, *,
     }
     policy = _policy_for(mode, host, ssd, l_blk, alpha_accel, sim_cfg,
                          device)
+    if obs is not None and hasattr(policy, "obs"):
+        policy.obs = obs
     clock = VirtualClock()
     store = TieredStore(policy, specs=specs, clock=clock, sim_cfg=sim_cfg,
-                        label=f"{scenario}/{mode}")
+                        obs=obs, label=f"{scenario}/{mode}")
     blob = np.zeros(max(l_blk // 4, 1), np.float32)
     put_tier = Tier.FLASH if mode == "flash" else Tier.DRAM
 

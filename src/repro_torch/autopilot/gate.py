@@ -27,11 +27,10 @@ oscillating between admit and demote. HBM residency stays earned-only
 
 Construct with explicit thresholds, or `EconomicGate.from_break_even`
 (host + SSD configs -> tau_be) / `from_platform` (feasibility-capped
-IOPS, inherited). The gate plugs into `TieredStore` and `DecodeEngine`
-unchanged — they speak TieringPolicy. Its default `ReuseTracker` keeps
-its sketch on `device` (CUDA unless the caller names another). The
-reference's tracer instants for each admission wait for the port's
-tracer.
+IOPS, inherited). The same gate instance (or a per-host factory) plugs
+into `TieredStore`, `ShardedTieredStore` and `DecodeEngine` unchanged —
+they speak TieringPolicy. Its default `ReuseTracker` keeps its sketch on
+`device` (CUDA unless the caller names another).
 """
 from __future__ import annotations
 
@@ -88,10 +87,12 @@ class EconomicGate(TieringPolicy):
         self.classify = classify
         self.prior_quantile = prior_quantile
         self.gate_stats = GateStats()
-        # `_priced_out` remembers keys this gate sent to FLASH against a
-        # warmer ask, so the stall ledger can bill their later restores
-        # to the *decision* (gate_miss_restore), not the media
-        # (flash_service)
+        # observability: attached by the fabric/platform (tracer instants
+        # for every admit decision); `_priced_out` remembers keys this
+        # gate sent to FLASH against a warmer ask, so the stall ledger
+        # can bill their later restores to the *decision*
+        # (gate_miss_restore), not the media (flash_service)
+        self.obs = None
         self._priced_out = set()
         # per-class (per-tenant) break-even overrides: a class's SLO
         # alpha_stall folds into its own tau_be (see `breakeven_tau`);
@@ -186,6 +187,16 @@ class EconomicGate(TieringPolicy):
             self._priced_out.add(key)
         else:
             self._priced_out.discard(key)
+        if self.obs is not None and self.obs.tracer is not None:
+            t = self.obs.tracer
+            t.instant(t.track("gate", "admit"), "admit_tier", now,
+                      cat="policy",
+                      args={"key": str(key),
+                            "est": -1.0 if est is None else est,
+                            "source": source,
+                            "tau_be": self.tau_for(key),
+                            "requested": requested.name,
+                            "decided": decided.name})
         return decided
 
     def pool_admit(self, key, requested: Tier, now: float) -> bool:

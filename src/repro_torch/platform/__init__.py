@@ -1,0 +1,35 @@
+"""Declarative platform API: `HierarchySpec` -> compiled `Platform`.
+
+One validated spec (per-host tier geometry, fabric topology, policy,
+workload priors, clock source) compiles into the whole runtime — clock,
+per-host stores with per-host `EconomicGate`s, the capacity-weighted
+sharded fabric, and an attached `ProvisionAdvisor`. Specs round-trip
+through JSON byte for byte (the reference package writes the same
+bytes), so benchmarks and CI pin scenarios instead of constructor call
+sites.
+
+    from repro_torch.platform import (HierarchySpec, HostDecl,
+                                      PolicyDecl, Platform)
+    spec = HierarchySpec(hosts=(HostDecl(count=4),),
+                         policy=PolicyDecl.economic(l_blk=128 << 10))
+    platform = Platform.compile(spec)           # device="cpu" without CUDA
+
+The closed provisioning loop (`autoscale`), the workload compiler and
+the failover bench are not ported yet (ROADMAP Queue 1 items 0f and 7).
+"""
+from .compiler import Platform  # noqa: F401
+from .handles import Handle, KvSession  # noqa: F401
+from .roofline_hook import measured_step_time  # noqa: F401
+from .spec import (ArrivalDecl, AutoscaleDecl,  # noqa: F401
+                   HierarchySpec, HostDecl, NetDecl, ObservabilityDecl,
+                   PolicyDecl, PoolDecl, SchedulerDecl, SessionShapeDecl,
+                   SloDecl, TenantDecl, TierDecl, TopologyDecl,
+                   WorkloadDecl, gpu_flash_tier)
+
+__all__ = [
+    "ArrivalDecl", "AutoscaleDecl", "Handle", "HierarchySpec", "HostDecl",
+    "KvSession", "NetDecl", "ObservabilityDecl", "Platform",
+    "PolicyDecl", "PoolDecl", "SchedulerDecl",
+    "SessionShapeDecl", "SloDecl", "TenantDecl", "TierDecl",
+    "TopologyDecl", "WorkloadDecl", "gpu_flash_tier", "measured_step_time",
+]

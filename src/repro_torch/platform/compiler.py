@@ -1,0 +1,338 @@
+"""Platform — the compiled runtime behind a `HierarchySpec`.
+
+`Platform.compile(spec)` assembles in one pass the injected clock, N
+per-host `TieredStore`s (each with its own tier geometry and its own
+policy — per-host `EconomicGate`s sharing one fleet-wide `ReuseTracker`
+under the economic policy), the sharded fabric with a capacity-weighted
+consistent-hash ring, the NIC/topology service models, and an attached
+`ProvisionAdvisor`. Economics and topology are inputs; nothing is
+plumbing.
+
+The facade hands out uniform capabilities:
+
+    platform = Platform.compile(spec)           # CUDA unless device= says
+    sess = platform.kv_session("user-42", host=1)
+    sess.save(blob); h = sess.prefetch(); ...; blob = h.result()
+    eng = platform.engine(cfg, params, host=0)
+    advice = platform.advise()
+    platform.fail_host(2)                       # unplanned failure
+    platform.advise_availability()              # replication pricing
+
+`device` is where the economic gates keep their reuse sketch and where
+`engine` decodes; it resolves to CUDA unless the caller asks for the CPU.
+
+Not ported yet, and raising NotImplementedError with their ROADMAP item:
+the far-memory pool (`spec.pool`), `expert_store`, `scheduler` and
+`repair` (Queue 1 item 7); `autoscale`, `workload`/`jobs` and specs with
+workload tenants (item 0f).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Union
+
+import torch
+
+from .._device import resolve_device
+from ..autopilot.advisor import ProvisionAdvice, ProvisionAdvisor
+from ..autopilot.gate import EconomicGate
+from ..autopilot.reuse import ReuseTracker
+from ..core.policy import TieringPolicy
+from ..obs import Observability
+from ..runtime.clock import VirtualClock, WallClock
+from ..runtime.fabric import RebalanceStats, ShardedTieredStore
+from ..runtime.service import NetQueueModel, SsdQueueModel
+from .handles import Handle, KvSession
+from .spec import HierarchySpec, PolicyDecl
+
+__all__ = ["Platform", "Handle", "KvSession"]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class Platform:
+    """Compiled hierarchy: clock + fabric + policies + advisor, behind
+    capability handles. Construct via `Platform.compile(spec)`."""
+
+    def __init__(self, spec: HierarchySpec, clock, fabric, *,
+                 tracker: Optional[ReuseTracker] = None,
+                 advisor: Optional[ProvisionAdvisor] = None,
+                 step_time: float = 0.0,
+                 obs: Optional[Observability] = None,
+                 device: Optional[torch.device] = None):
+        self.spec = spec
+        self.clock = clock
+        self.fabric = fabric
+        self.tracker = tracker
+        self.advisor = advisor
+        self.step_time = step_time
+        self.obs = obs if obs is not None else Observability()
+        self.device = device
+
+    # ------------------------------------------------------ observability
+    @property
+    def tracer(self):
+        """Causal tracer (None unless spec.observability.trace)."""
+        return self.obs.tracer
+
+    @property
+    def metrics(self):
+        """`MetricsRegistry` (None when spec.observability.metrics off)."""
+        return self.obs.metrics
+
+    @property
+    def ledger(self):
+        """The fleet's always-on Eq. 1 stall ledger."""
+        return self.obs.ledger
+
+    # ------------------------------------------------------------- compile
+    @classmethod
+    def compile(cls, spec: HierarchySpec, *, sim_cfg=None,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> "Platform":
+        """Validate `spec` and assemble the runtime. `sim_cfg` (a
+        `repro_torch.ssdsim.SimConfig`) overrides the flash calibration
+        for every host — programmatic only, like a policy factory.
+        `device` holds the economic gates' reuse sketch and is the
+        engines' default device: CUDA unless the caller asks for the
+        CPU."""
+        spec.validate()
+        device = resolve_device(device)
+        if spec.pool is not None:
+            raise _not_ported("the far-memory pool (HierarchySpec.pool)",
+                              "7")
+        if spec.workload is not None and spec.workload.tenants:
+            raise _not_ported(
+                "compiling workload tenants (HierarchySpec.workload)", "0f")
+        clock = VirtualClock(spec.t0) if spec.clock == "virtual" \
+            else WallClock()
+
+        tracker: Optional[ReuseTracker] = None
+        advisor: Optional[ProvisionAdvisor] = None
+        decl = spec.policy
+        if callable(decl) and not isinstance(decl, PolicyDecl):
+            factory = decl
+        elif decl.kind == "static":
+            def factory(_h, _d=decl):
+                return TieringPolicy(tau_hot=_d.tau_hot, tau_be=_d.tau_be,
+                                     hysteresis=_d.hysteresis,
+                                     ema_alpha=_d.ema_alpha)
+        else:
+            host_cfg, ssd = decl.economics()
+            # one fleet-wide tracker: every host's gate feeds it, the
+            # advisor reads the whole workload's reuse histograms
+            tracker = ReuseTracker(max_classes=8, device=device)
+            fetch_seconds = 0.0
+            if decl.alpha_stall:
+                # price the miss the way the cost model does: the
+                # modeled demand-fetch time at depth 1
+                fetch_seconds = SsdQueueModel.shared(sim_cfg).service(
+                    decl.l_blk, 1).total
+            for cls_name, interval in sorted(spec.class_priors.items()):
+                tracker.seed_prior(cls_name, interval)
+            # a host declaring a "gpu_flash" tier is refused by its store
+            # (the fourth tier is ROADMAP Queue 1 item 7), so no gate
+            # here routes admissions down the GPU-direct path
+
+            def factory(_h, _d=decl, _t=tracker, _f=fetch_seconds,
+                        _host=host_cfg, _ssd=ssd):
+                return EconomicGate.from_break_even(
+                    _host, _ssd, _d.l_blk, gamma_rw=_d.gamma_rw,
+                    phi_wa=_d.phi_wa, alpha_stall=_d.alpha_stall,
+                    fetch_seconds=_f, tracker=_t,
+                    prior_quantile=_d.prior_quantile)
+
+        topology = spec.topology.compile() if spec.topology is not None \
+            else None
+        net_model = None
+        if spec.net is not None:
+            net_model = NetQueueModel(rtt=spec.net.rtt,
+                                      bandwidth=spec.net.bandwidth,
+                                      sat_depth=spec.net.sat_depth,
+                                      topology=topology)
+            topology = None         # attached to the model, per fabric rule
+
+        obs_decl = spec.observability
+        obs = Observability(trace=obs_decl.trace,
+                            metrics=obs_decl.metrics,
+                            max_events=obs_decl.max_events)
+
+        fabric = ShardedTieredStore(
+            host_specs=[h.tier_specs() for h in spec.expanded_hosts()],
+            weights=spec.resolved_weights(),
+            policy_factory=factory, clock=clock, sim_cfg=sim_cfg,
+            net_model=net_model, topology=topology,
+            write_shield_depth=spec.write_shield_depth,
+            vnodes=spec.vnodes, rebalance_rate=spec.rebalance_rate,
+            obs=obs)
+        if obs.metrics is not None:
+            obs.metrics.register("fabric", fabric)
+
+        if tracker is not None:
+            template = spec.hosts[spec.autoscale.template]
+            advisor = ProvisionAdvisor(
+                host_cfg, ssd, decl.l_blk, gamma_rw=decl.gamma_rw,
+                phi_wa=decl.phi_wa,
+                dram_bytes_per_host=template.dram_capacity(),
+                active_window=spec.autoscale.active_window)
+
+        return cls(spec, clock, fabric, tracker=tracker, advisor=advisor,
+                   step_time=spec.resolved_step_time(), obs=obs,
+                   device=device)
+
+    # -------------------------------------------------------- capabilities
+    @property
+    def n_hosts(self) -> int:
+        return self.fabric.n_hosts
+
+    def policy(self, host: int = 0) -> TieringPolicy:
+        return self.fabric.hosts[host].policy
+
+    def kv_session(self, rid: str, *, host: int = 0,
+                   replicas: Optional[int] = None) -> KvSession:
+        """Session-state capability (save/prefetch/resume one KV blob)."""
+        return KvSession(self.fabric, rid, host,
+                         replicas=replicas if replicas is not None
+                         else self.spec.replicas)
+
+    def expert_store(self, *args, **kw):
+        raise _not_ported("Platform.expert_store (tiering/)", "7")
+
+    def checkpoint_steps(self, step_time: Optional[float] = None) -> int:
+        """spec.checkpoint_interval (seconds) -> decode steps for this
+        platform's step time; 0 when checkpointing is off."""
+        iv = self.spec.checkpoint_interval
+        if iv is None:
+            return 0
+        st = self.step_time if step_time is None else step_time
+        if st > 0:
+            return max(1, int(math.ceil(iv / st)))
+        return max(1, int(round(iv)))
+
+    def engine(self, cfg, params, *, host: int = 0,
+               step_time: Optional[float] = None, **kw):
+        """Decode engine on `host`'s fabric view, stepping the shared
+        clock by the spec's (possibly roofline-measured) step time, on
+        the platform's device unless `device=` names another. The view
+        replicates puts to `spec.replicas` holders — a paused or
+        checkpointed session's KV blob survives `fail_host` — and
+        `spec.checkpoint_interval` arms the engine's periodic session
+        checkpointing."""
+        from ..serving.engine import DecodeEngine
+        st = self.step_time if step_time is None else step_time
+        kw.setdefault("checkpoint_interval", self.checkpoint_steps(st))
+        kw.setdefault("device", self.device)
+        return DecodeEngine(
+            cfg, params, policy=self.policy(host),
+            store=self.fabric.host_view(host,
+                                        replicas=self.spec.replicas),
+            step_time=st, **kw)
+
+    def scheduler(self, *args, **kw):
+        raise _not_ported("Platform.scheduler (serving/scheduler.py)",
+                          "7")
+
+    # ------------------------------------------------------------ workload
+    def workload(self):
+        raise _not_ported("Platform.workload (platform/workload.py)",
+                          "0f")
+
+    def jobs(self, *, vocab: int = 64):
+        raise _not_ported("Platform.jobs (platform/workload.py)", "0f")
+
+    # ---------------------------------------------------------- provision
+    def advise(self, horizon: Optional[float] = None) -> ProvisionAdvice:
+        """Live provisioning guidance from the fleet's measured state."""
+        if self.advisor is None or self.tracker is None:
+            raise ValueError(
+                "platform has no advisor: provisioning guidance needs "
+                "the economic policy (PolicyDecl(kind='economic')); "
+                "static/factory policies track no reuse telemetry")
+        return self.advisor.advise(self.tracker, fabric=self.fabric,
+                                   horizon=horizon)
+
+    def add_host(self) -> RebalanceStats:
+        """Join a template host (spec.autoscale.template) and rebalance
+        under the spec's pacer."""
+        spec = self.spec
+        template = spec.hosts[spec.autoscale.template]
+        weights = spec.resolved_weights()
+        first = sum(h.count for h in
+                    spec.hosts[:spec.autoscale.template])
+        return self.fabric.add_host(specs=template.tier_specs(),
+                                    weight=weights[first])
+
+    def fail_host(self, host: int):
+        """Unplanned failure: drop `host` with no drain (see
+        `ShardedTieredStore.fail_host`). Returns the `FailureReport`."""
+        return self.fabric.fail_host(host)
+
+    def repair(self, batch_keys: int = 64):
+        raise _not_ported("Platform.repair (runtime/repair.py)", "7")
+
+    def advise_availability(self, mttf: Optional[float] = None, **kw):
+        """Replication-factor recommendation priced from live fleet
+        state; `mttf` defaults to the spec's declared value."""
+        if self.advisor is None:
+            raise ValueError(
+                "platform has no advisor: availability pricing needs "
+                "the economic policy (PolicyDecl(kind='economic'))")
+        mttf = self.spec.mttf if mttf is None else mttf
+        if mttf is None:
+            raise ValueError("no MTTF declared: set spec.mttf or pass "
+                             "mttf= explicitly")
+        return self.advisor.advise_availability(fabric=self.fabric,
+                                                mttf=mttf, **kw)
+
+    def advise_tiers(self, *, access_rate: float,
+                     resident_bytes: Optional[float] = None, **kw):
+        """Four-arm hierarchy-shape recommendation (3-tier baseline vs
+        +pool vs +gpu_flash vs both) priced from the fleet's tracked
+        reuse distribution; `resident_bytes` defaults to a live census
+        across hosts."""
+        if self.advisor is None or self.tracker is None:
+            raise ValueError(
+                "platform has no advisor: tier-shape pricing needs "
+                "the economic policy (PolicyDecl(kind='economic'))")
+        if resident_bytes is None:
+            seen: Dict[object, int] = {}
+            for s in self.fabric.hosts.values():
+                for key in s.keys():
+                    seen.setdefault(key, s.nbytes_of(key))
+            resident_bytes = float(sum(seen.values()))
+        return self.advisor.advise_tiers(
+            self.tracker, access_rate=access_rate,
+            resident_bytes=resident_bytes, **kw)
+
+    def autoscale(self, step: Optional[int] = None):
+        raise _not_ported("Platform.autoscale (platform/autoscale.py)",
+                          "0f")
+
+    # ------------------------------------------------------------- control
+    def drain(self) -> float:
+        return self.fabric.drain()
+
+    def reset_stats(self):
+        """One reset for the whole platform, routed through the
+        metrics registry's snapshot/reset protocol: registered
+        components (fabric counters + per-host/NIC queue stats, the
+        stall ledger) and every counter/gauge/histogram reset together.
+        Falls back to direct resets when metrics are declared off."""
+        if self.obs.metrics is not None:
+            self.obs.metrics.reset()
+        else:
+            self.fabric.reset_stats()
+            self.obs.ledger.reset_stats()
+
+    def snapshot_stats(self) -> Dict[str, object]:
+        """Uniform stats snapshot (metrics + registered components)."""
+        return self.obs.snapshot_stats()
+
+    def summary(self) -> Dict[str, float]:
+        return self.fabric.summary()
+
+    def report(self) -> str:
+        return self.fabric.report()

@@ -1,5 +1,8 @@
 from .async_engine import AsyncTierRuntime, QueueStats, Transfer  # noqa
 from .clock import CallableClock, VirtualClock, WallClock, ensure_clock  # noqa
-from .service import (FixedLatencyModel, GpuDirectQueueModel, Service,  # noqa
+from .fabric import (NIC, FailureReport, HostView,  # noqa
+                     RebalanceStats, RemoteFetch, ShardedTieredStore)
+from .service import (FabricTopology, FixedLatencyModel,  # noqa
+                      GpuDirectQueueModel, NetQueueModel, Service,
                       SsdQueueModel)
 from .tiers import PendingFetch, TierSpec, TierStats, TieredStore  # noqa

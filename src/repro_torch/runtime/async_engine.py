@@ -19,15 +19,21 @@ Per-tier `QueueStats` record stall time and miss-under-miss occupancy so
 benchmarks can report modeled per-token stall under load. Every stalled
 second `wait` materializes lands in the `StallLedger`.
 
-This is the single-host engine: lanes are the `Tier`s of one
-`TieredStore`. The fabric's NIC lanes, the far-memory pool's lanes and
-the GPU-direct flash path wait for a later slice of the port.
+Queues are keyed by *lane*: any hashable key with a service model. The
+single-host `TieredStore` uses the `Tier` enum; the sharded fabric
+(`runtime.fabric`) adds per-host NIC lanes with a `NetQueueModel` on the
+same engine. `submit(..., not_before=t)` lets a transfer's start be
+gated on an upstream completion, which is how a remote fetch composes
+the remote host's flash service with the network service (the NIC
+transfer cannot start before the flash read delivers the bytes).
+The far-memory pool's lanes and the GPU-direct flash lane wait for a
+later slice of the port (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..core.policy import Tier
 from ..obs.ledger import StallLedger, tenant_of_key
@@ -39,14 +45,18 @@ from .service import FixedLatencyModel, Service, SsdQueueModel
 class Transfer:
     key: object
     nbytes: int
-    tier: object                 # lane key: a Tier
+    tier: object                 # lane key: a Tier, or e.g. a NIC lane
     kind: str                    # "fetch" | "promote" | "demote" | "write"
     issue_t: float
     start_t: float
     done_t: float
     depth_at_issue: int
     seq: int
-    gate_miss: bool = False      # flash restore of a priced-out key
+    # ---- stall-ledger attribution (set at submit / by the fabric) ----
+    gate_t: Optional[float] = None   # upstream not_before horizon
+    behind_interference: bool = False  # queued behind rebalance/repair
+    incast_frac: float = 0.0         # NIC: share of service due to fan-in
+    gate_miss: bool = False          # flash restore of a priced-out key
 
     def is_done(self, now: float) -> bool:
         return now >= self.done_t - 1e-12
@@ -71,7 +81,7 @@ class AsyncTierRuntime:
     }
 
     def __init__(self, clock=None, service_models=None,
-                 sim_cfg=None, specs=None, ledger=None,
+                 sim_cfg=None, specs=None, obs=None, ledger=None,
                  label: str = "host0"):
         self.clock = ensure_clock(clock)
         if service_models is None:
@@ -91,11 +101,28 @@ class AsyncTierRuntime:
         self.qstats: Dict[object, QueueStats] = {t: QueueStats()
                                                  for t in lanes}
         self._seq = itertools.count()
-        # the ledger is always on: the conservation law in obs.ledger
-        # depends on no wait bypassing it
-        self.ledger: StallLedger = (ledger if ledger is not None
-                                    else StallLedger())
+        # observability: the ledger is always on (every stalled second
+        # `wait` materializes is attributed — the conservation law in
+        # obs.ledger depends on no wait bypassing it); tracer/metrics
+        # only when an Observability is attached
+        self.obs = obs
+        self.ledger: StallLedger = (
+            ledger if ledger is not None
+            else (obs.ledger if obs is not None else StallLedger()))
         self.label = label
+
+    # ----------------------------------------------------------------- lanes
+    def add_lane(self, lane, model) -> None:
+        """Register a new lane (key + service model) on a live runtime,
+        as a far-memory pool attaches a per-host lane when a host joins
+        the fleet. Re-registering an existing lane key is a
+        programming error (it would silently reset its queue)."""
+        if lane in self.models:
+            raise ValueError(f"lane {lane!r} already registered")
+        self.models[lane] = model
+        self._free[lane] = 0.0
+        self._inflight[lane] = []
+        self.qstats[lane] = QueueStats()
 
     # ----------------------------------------------------------------- time
     def now(self) -> float:
@@ -123,17 +150,38 @@ class AsyncTierRuntime:
         return sum(1 for tr in self._inflight[tier] if tr.kind == "fetch")
 
     # --------------------------------------------------------------- submit
-    def submit(self, tier, key, nbytes: int,
-               kind: str = "fetch") -> Transfer:
+    def submit(self, tier, key, nbytes: int, kind: str = "fetch",
+               not_before: Optional[float] = None,
+               ctx: Optional[dict] = None) -> Transfer:
         now = self.clock.now()
         depth = self.queue_depth(tier)
-        svc: Service = self.models[tier].service(nbytes, depth + 1)
+        # `ctx` carries service context a model may be keyed on beyond
+        # queue depth (the topology-aware NIC model's src/dst/fan_in);
+        # models that don't take it are simply never handed one
+        if ctx:
+            svc: Service = self.models[tier].service(nbytes, depth + 1,
+                                                     **ctx)
+        else:
+            svc = self.models[tier].service(nbytes, depth + 1)
         start = max(now, self._free[tier])
+        if not_before is not None:
+            # gate on an upstream completion (cross-host composition:
+            # the NIC transfer starts when the remote flash read is done)
+            start = max(start, float(not_before))
         done = start + svc.occupancy + svc.latency
         self._free[tier] = start + svc.occupancy
+        # queued behind rebalance/repair traffic already on this lane:
+        # any later stall in the queue window is interference, not the
+        # lane's own service — recorded now, while the culprits are
+        # still observable in flight
+        behind = any(t.kind in ("rebalance", "repair")
+                     for t in self._inflight[tier])
         tr = Transfer(key=key, nbytes=int(nbytes), tier=tier, kind=kind,
                       issue_t=now, start_t=start, done_t=done,
-                      depth_at_issue=depth, seq=next(self._seq))
+                      depth_at_issue=depth, seq=next(self._seq),
+                      gate_t=(None if not_before is None
+                              else float(not_before)),
+                      behind_interference=behind)
         self._inflight[tier].append(tr)
         st = self.qstats[tier]
         st.submitted += 1
@@ -142,7 +190,26 @@ class AsyncTierRuntime:
         if depth > 0:
             st.miss_under_miss += 1
         st.max_depth = max(st.max_depth, depth + 1)
+        if self.obs is not None:
+            self._observe_submit(tr, depth)
         return tr
+
+    def _lane_name(self, tier) -> str:
+        return getattr(tier, "name", str(tier))
+
+    def _observe_submit(self, tr: Transfer, depth: int) -> None:
+        lane = self._lane_name(tr.tier)
+        m = self.obs.metrics
+        if m is not None:
+            m.counter("transfers").inc((self.label, lane, tr.kind))
+            m.counter("bytes_moved").inc((self.label, lane), tr.nbytes)
+        t = self.obs.tracer
+        if t is not None:
+            track = t.track(self.label, lane)
+            t.complete(track, tr.kind, tr.start_t,
+                       tr.done_t - tr.start_t, cat="transfer",
+                       args={"key": str(tr.key), "nbytes": tr.nbytes,
+                             "depth": depth, "issue_t": tr.issue_t})
 
     # ----------------------------------------------------------------- wait
     def wait(self, tr: Transfer) -> float:
@@ -152,33 +219,61 @@ class AsyncTierRuntime:
         stall = max(0.0, tr.done_t - now)
         if stall:
             self.clock.advance_to(tr.done_t)
-            self._attribute_stall(tr, now)
+            self._attribute_stall(tr, now, stall)
         st = self.qstats[tr.tier]
         st.completed_waits += 1
         st.stall_time += stall
         return stall
 
-    def _attribute_stall(self, tr: Transfer, now: float) -> None:
-        """Split the residual wait [now, done_t] into its queue window
-        (waiting for the lane to go free) and its service window, both
-        charged to the lane's Eq. 1 component: a flash restore of a key
-        the economic gate priced out of DRAM is billed to the decision
-        (gate_miss_restore), any other flash second to the media. The cut
-        point is clamped, so the two pieces telescope to exactly the
-        stall."""
-        cut = min(max(tr.start_t, now), tr.done_t)
-        queue_piece = cut - now
-        service_piece = tr.done_t - cut
-        if tr.tier == Tier.FLASH:
-            lane_comp = ("gate_miss_restore" if tr.gate_miss
-                         else "flash_service")
+    def _attribute_stall(self, tr: Transfer, now: float,
+                         stall: float) -> None:
+        """Decompose the residual wait [now, done_t] into Eq. 1 ledger
+        components. The cut points are clamped and monotone, so the
+        three pieces telescope to exactly `stall` — that exactness is
+        what the conservation test leans on."""
+        # gate window: waiting for an upstream horizon (write-shield /
+        # ingest readability, rebalance pacing) — interference. For a
+        # transfer gated on another transfer's completion that was
+        # itself waited first (the remote-fetch NIC leg), the clock is
+        # already at gate_t and this window is empty.
+        c1 = min(max(tr.gate_t, now), tr.done_t) \
+            if tr.gate_t is not None else now
+        # queue window: waiting for the lane to go free
+        c2 = min(max(tr.start_t, c1), tr.done_t)
+        gate_piece = c1 - now
+        queue_piece = c2 - c1
+        service_piece = tr.done_t - c2
+        if isinstance(tr.tier, Tier):
+            if tr.tier == Tier.FLASH:
+                lane_comp = ("gate_miss_restore" if tr.gate_miss
+                             else "flash_service")
+            else:
+                lane_comp = "other"          # DRAM/HBM residuals
         else:
-            lane_comp = "other"
+            lane_comp = "nic_queue"          # NIC (or future) lanes
         tenant = tenant_of_key(tr.key)
+        led = self.ledger
+        if gate_piece:
+            led.add("interference", gate_piece, tenant)
         if queue_piece:
-            self.ledger.add(lane_comp, queue_piece, tenant)
+            led.add("interference" if tr.behind_interference
+                    else lane_comp, queue_piece, tenant)
         if service_piece:
-            self.ledger.add(lane_comp, service_piece, tenant)
+            inc = service_piece * tr.incast_frac
+            if inc:
+                led.add("incast", inc, tenant)
+            led.add(lane_comp, service_piece - inc, tenant)
+        obs = self.obs
+        if obs is not None and obs.tracer is not None:
+            track = obs.tracer.track(self.label, self._lane_name(tr.tier))
+            obs.tracer.instant(
+                track, "stall", now, cat="stall",
+                args={"key": str(tr.key), "stall": stall,
+                      "gate": gate_piece, "queue": queue_piece,
+                      "service": service_piece, "component": lane_comp})
+        if obs is not None and obs.metrics is not None:
+            obs.metrics.histogram("stall_seconds").observe(
+                stall, (self.label, self._lane_name(tr.tier)))
 
     def drain(self, tier=None) -> float:
         """Advance to the completion of all in-flight transfers."""
@@ -198,8 +293,9 @@ class AsyncTierRuntime:
         self.qstats = {t: QueueStats() for t in self.qstats}
 
     def snapshot_stats(self) -> Dict[str, Dict[str, float]]:
-        """Per-lane `QueueStats` as plain dicts."""
-        return {t.name: dataclasses.asdict(st)
+        """Per-lane `QueueStats` as plain dicts (the
+        `MetricsRegistry` snapshot/reset protocol)."""
+        return {self._lane_name(t): dataclasses.asdict(st)
                 for t, st in self.qstats.items()}
 
     # --------------------------------------------------------------- report
@@ -207,8 +303,9 @@ class AsyncTierRuntime:
         lines = []
         for t in self._inflight:
             st = self.qstats[t]
+            name = getattr(t, "name", str(t))
             lines.append(
-                f"{t.name:6s} xfers={st.submitted:6d} "
+                f"{name:6s} xfers={st.submitted:6d} "
                 f"stall={st.stall_time*1e3:9.3f}ms "
                 f"busy={st.busy_time*1e3:9.3f}ms "
                 f"mum={st.miss_under_miss:5d} maxQ={st.max_depth:3d}")

@@ -11,6 +11,10 @@ and interpolates (mean latency, achieved IOPS) between them. A fetch of
 
 The runtime serializes occupancies (deeper queue -> longer waits) while
 latencies pipeline. DRAM/HBM keep the fixed-latency model.
+`NetQueueModel` extends the same occupancy/latency split to the
+cross-host NIC tier of the sharded fabric (`runtime.fabric`): fixed RTT
+latency, wire occupancy at the bandwidth share the link sustains at the
+current in-flight depth.
 
 Calibration is deterministic (fixed sim seed) and cached per SimConfig,
 so tests pay it once per process. Set the `REPRO_SSDSIM_CACHE` env var
@@ -63,6 +67,100 @@ class FixedLatencyModel:
     def service(self, nbytes: int, queue_depth: int) -> Service:
         return Service(occupancy=nbytes / self.read_bw,
                        latency=self.read_latency)
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricTopology:
+    """Rack/spine topology descriptor for the fabric's transfer tier.
+
+    Hosts are packed `hosts_per_rack` to a rack; a pair in the same rack
+    talks through the ToR switch (short RTT, full NIC bandwidth), a pair
+    in different racks crosses the spine (longer RTT, and an
+    oversubscribed share of the uplink). `incast_degree` is the fan-in a
+    destination host absorbs at line rate; beyond it the senders split
+    the receiver's ingress (the classic incast collapse, modeled as a
+    linear bandwidth division so degradation is monotone in fan-in).
+    """
+    hosts_per_rack: int = 4
+    rack_rtt: float = 15e-6
+    spine_rtt: float = 40e-6
+    rack_bandwidth: float = 12.5e9      # 100 Gb/s within the rack
+    spine_bandwidth: float = 6.25e9     # 2:1 oversubscribed uplink share
+    incast_degree: int = 2
+
+    def __post_init__(self):
+        if (self.hosts_per_rack < 1 or self.incast_degree < 1
+                or self.rack_rtt < 0 or self.spine_rtt < self.rack_rtt
+                or self.rack_bandwidth <= 0
+                or self.spine_bandwidth <= 0):
+            raise ValueError("invalid topology parameters")
+
+    def rack_of(self, host: int) -> int:
+        return int(host) // self.hosts_per_rack
+
+    def same_rack(self, src: int, dst: int) -> bool:
+        return self.rack_of(src) == self.rack_of(dst)
+
+    def rtt(self, src: int, dst: int) -> float:
+        return self.rack_rtt if self.same_rack(src, dst) else self.spine_rtt
+
+    def bandwidth(self, src: int, dst: int) -> float:
+        return (self.rack_bandwidth if self.same_rack(src, dst)
+                else self.spine_bandwidth)
+
+    def incast_factor(self, fan_in: int) -> float:
+        """Ingress bandwidth divisor at `fan_in` concurrent senders:
+        1.0 up to `incast_degree`, then linear — monotone in fan-in."""
+        return max(1.0, float(fan_in) / self.incast_degree)
+
+
+class NetQueueModel:
+    """Cross-host NIC link service for the sharded fabric's transfer tier.
+
+    Same occupancy/latency split as `SsdQueueModel`, with the NIC's
+    queueing shape instead of flash's:
+
+      occupancy = nbytes / eff_bw(depth)   # wire time at the bandwidth
+                                           # share `depth` streams sustain
+      latency   = rtt                      # fixed propagation + protocol
+
+    A single stream is window-limited and cannot saturate the link;
+    aggregate effective bandwidth ramps linearly until `sat_depth`
+    concurrent transfers fill the pipe (the NIC analog of flash IOPS
+    rising with queue depth). Occupancies serialize on the link in the
+    runtime's queueing; RTT latencies pipeline. Defaults model a
+    100 Gb/s fleet NIC at ~25us intra-cluster RTT.
+
+    Topology mode: construct with `topology=FabricTopology(...)` and
+    `service` becomes per-pair — the fabric passes `src`/`dst` host ids
+    and the destination's current sender fan-in, so an intra-rack hop
+    gets the short RTT at full bandwidth, a spine hop the longer RTT at
+    the oversubscribed share, and high fan-in into one destination
+    divides its ingress bandwidth (incast). Without a topology the
+    uniform single-link behavior is unchanged (extra context ignored).
+    """
+
+    def __init__(self, rtt: float = 25e-6, bandwidth: float = 12.5e9,
+                 sat_depth: int = 4,
+                 topology: Optional[FabricTopology] = None):
+        if rtt < 0 or bandwidth <= 0 or sat_depth < 1:
+            raise ValueError("invalid NIC parameters")
+        self.rtt = rtt
+        self.bandwidth = bandwidth
+        self.sat_depth = sat_depth
+        self.topology = topology
+
+    def service(self, nbytes: int, queue_depth: int,
+                src: Optional[int] = None, dst: Optional[int] = None,
+                fan_in: int = 1) -> Service:
+        rtt, bw = self.rtt, self.bandwidth
+        topo = self.topology
+        if topo is not None and src is not None and dst is not None:
+            rtt, bw = topo.rtt(src, dst), topo.bandwidth(src, dst)
+            bw /= topo.incast_factor(max(1, int(fan_in)))
+        d = max(1, min(int(queue_depth), self.sat_depth))
+        eff_bw = bw * (d / self.sat_depth)
+        return Service(occupancy=nbytes / eff_bw, latency=rtt)
 
 
 class SsdQueueModel:

@@ -36,9 +36,15 @@ object should land, and a flash fetch of a key the policy reports
 `priced_out` is billed to the gate's decision in the stall ledger. A
 plain `TieringPolicy` has neither hook and keeps the seed behavior.
 
-This is the single-host store of the three classic tiers. The fabric's
-rebalance ingest and readability gating, the GPU-direct flash tier and
-the far-memory pool wait for a later slice of the port.
+Readability gating (conservative rebalance pricing): an `ingest` whose
+bytes are still on the wire (`not_before` = the NIC delivery time)
+records that arrival horizon, and any fetch of the key issued before it
+is gated on it — a mid-rebalance restore pays for the in-flight leg
+instead of being served structurally-now at the destination.
+
+This store holds the three classic tiers. The GPU-direct flash tier and
+the far-memory pool wait for a later slice of the port (ROADMAP Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -67,6 +73,13 @@ class TierSpec:
     capacity_bytes: float
     read_bw: float              # bytes/s (for modeled latency accounting)
     read_latency: float         # seconds per access (fixed part)
+    # write-path bandwidth when asymmetric (flash program vs read, the
+    # pool's ingest lane); None inherits read_bw — the historic behavior
+    write_bw: Optional[float] = None
+
+    @property
+    def effective_write_bw(self) -> float:
+        return self.read_bw if self.write_bw is None else self.write_bw
 
 
 @dataclasses.dataclass
@@ -82,9 +95,7 @@ class TierStats:
     prefetch_hits: int = 0      # async fetch finished before wait
     prefetch_late: int = 0      # wait still had to block
     demotions_deferred: int = 0  # demotion writes parked by write shielding
-    # rebalance ingest writes parked likewise: fabric only, so 0 here (the
-    # field keeps the stats comparable with the reference field by field)
-    rebalance_deferred: int = 0
+    rebalance_deferred: int = 0  # rebalance ingest writes parked likewise
     deferred_bytes: int = 0      # bytes all parked writes will move
 
     @property
@@ -96,15 +107,23 @@ class TierStats:
 @dataclasses.dataclass
 class PendingFetch:
     """Handle for an in-flight `get_async`; `wait()` yields the value and
-    records only the *residual* stall (zero when the fetch overlapped)."""
+    records only the *residual* stall (zero when the fetch overlapped).
+
+    `external_done_t` lets a composing layer (the fabric's remote fetch:
+    flash + NIC) extend the completion horizon so prefetch hit/late
+    classification reflects the full composition, not just this leg."""
     store: "TieredStore"
     key: object
     tier: Tier
     transfer: Transfer
     value: np.ndarray
+    external_done_t: Optional[float] = None
 
     def done(self) -> bool:
-        return self.store.clock.now() >= self.transfer.done_t - 1e-12
+        done_t = self.transfer.done_t
+        if self.external_done_t is not None:
+            done_t = max(done_t, self.external_done_t)
+        return self.store.clock.now() >= done_t - 1e-12
 
     def wait(self) -> np.ndarray:
         self.store._finish_fetch(self)
@@ -118,7 +137,7 @@ class TieredStore:
                  specs: Optional[Dict[Tier, TierSpec]] = None,
                  clock=None, runtime: Optional[AsyncTierRuntime] = None,
                  sim_cfg=None, write_shield_depth: Optional[int] = None,
-                 ledger=None, label: str = "host0"):
+                 obs=None, ledger=None, label: str = "host0"):
         # defaults: the reference package's modeled host (a TPU v5e's HBM,
         # host DRAM, a Storage-Next SSD), kept so the two packages model
         # the same hierarchy; pass `specs` to model another one
@@ -140,10 +159,11 @@ class TieredStore:
             self.clock = ensure_clock(clock)
             self.runtime = AsyncTierRuntime(clock=self.clock,
                                             specs=self.specs,
-                                            sim_cfg=sim_cfg,
+                                            sim_cfg=sim_cfg, obs=obs,
                                             ledger=ledger, label=label)
-        # the store's ledger is its runtime's (the runtime is where
-        # stall materializes)
+        # the store's observability is its runtime's (one ledger, one
+        # label — the runtime is where stall materializes)
+        self.obs = self.runtime.obs
         self.ledger = self.runtime.ledger
         self.label = self.runtime.label
         # iteration order is the *configured* tier set, hot-to-cold
@@ -157,8 +177,13 @@ class TieredStore:
             raise ValueError("write_shield_depth must be >= 1 (a zero "
                              "threshold would shield forever)")
         self.write_shield_depth = write_shield_depth
-        # parked (tier, key, nbytes) demotion writes
-        self._deferred_writes: List[Tuple[Tier, object, int]] = []
+        # parked (tier, key, nbytes, not_before) — the gate keeps a
+        # shielded rebalance write behind its upstream NIC delivery
+        self._deferred_writes: List[
+            Tuple[Tier, object, int, Optional[float]]] = []
+        # key -> wire-arrival horizon of an in-flight rebalance ingest;
+        # reads issued before it are gated on it (readability gating)
+        self._arrival_t: Dict[object, float] = {}
 
     # ----------------------------------------------------------------- util
     def tier_of(self, key) -> Optional[Tier]:
@@ -235,7 +260,8 @@ class TieredStore:
                 # tiers warmer than the serving one record a miss
                 self.stats[t].misses += 1
         value = self._data[cur][key]
-        tr = self.runtime.submit(cur, key, value.nbytes, kind="fetch")
+        tr = self.runtime.submit(cur, key, value.nbytes, kind="fetch",
+                                 not_before=self._arrival_gate(key))
         if cur == Tier.FLASH:
             # a flash restore of a key the gate priced out of DRAM is a
             # *policy* cost, not a media cost
@@ -278,6 +304,76 @@ class TieredStore:
         calls `.wait()` when the value is actually needed."""
         return self._issue_fetch(key)
 
+    def read_for_transfer(self, key, not_before: Optional[float] = None):
+        """Raw outbound read for fabric rebalance streaming: occupies the
+        resident tier's queue and counts bytes, but is neither a cache
+        hit nor a policy observation (rebalance traffic must not promote
+        keys or skew hit rates). `not_before` gates the read start (the
+        fabric's pacing token bucket); a pending wire arrival of the key
+        itself gates it as well. Returns (value, transfer)."""
+        cur = self.tier_of(key)
+        if cur is None:
+            raise KeyError(key)
+        value = self._data[cur][key]
+        gate = self._arrival_gate(key)
+        if not_before is not None:
+            gate = not_before if gate is None else max(gate, not_before)
+        tr = self.runtime.submit(cur, key, value.nbytes, kind="rebalance",
+                                 not_before=gate)
+        self.stats[cur].bytes_read += value.nbytes
+        return value, tr
+
+    def _arrival_gate(self, key) -> Optional[float]:
+        """Readability gate: the NIC-delivery horizon of an in-flight
+        rebalance ingest of `key`, if still in the future (entries are
+        pruned once passed)."""
+        t = self._arrival_t.get(key)
+        if t is None:
+            return None
+        if self.clock.now() >= t - 1e-12:
+            del self._arrival_t[key]
+            return None
+        return t
+
+    def ingest(self, key, value: np.ndarray, tier: Tier = Tier.FLASH,
+               not_before: Optional[float] = None):
+        """Inbound rebalance placement: the object lands structurally at
+        once, but the destination write is subject to write shielding
+        exactly like a demotion — while this tier has a read burst in
+        flight (depth >= `write_shield_depth`) the queue charge parks in
+        the deferred list instead of inflating the burst's tail.
+        `not_before` gates an unshielded write on the upstream NIC
+        delivery, and also records the key's readability horizon: a
+        fetch issued before the bytes arrive is gated on the delivery
+        instead of being served structurally-now. No policy observation:
+        arrival by rebalance is not a reuse event."""
+        value = np.asarray(value)
+        cur = self.tier_of(key)
+        if cur is not None:
+            self._remove(key, cur)
+        tier = self._fit_tier(tier, value.nbytes)
+        self._ensure_room(tier, value.nbytes)
+        if not_before is not None and not_before > self.clock.now():
+            self._arrival_t[key] = float(not_before)
+        self._data[tier][key] = value
+        self._used[tier] += value.nbytes
+        st = self.stats[tier]
+        st.bytes_written += value.nbytes
+        if self._shielded(tier):
+            # parked like a deferred demotion write (same flush path)
+            # but counted separately so the Flashield stat stays pure;
+            # the NIC gate parks with it so a flush after the burst
+            # drains still cannot write bytes that have not arrived
+            st.rebalance_deferred += 1
+            st.deferred_bytes += value.nbytes
+            self._deferred_writes.append((tier, key, value.nbytes,
+                                          not_before))
+            self._trace_deferral("rebalance_write_deferred", tier, key,
+                                 value.nbytes)
+        else:
+            self.runtime.submit(tier, key, value.nbytes, kind="write",
+                                not_before=not_before)
+
     def delete(self, key):
         cur = self.tier_of(key)
         if cur is not None:
@@ -287,6 +383,8 @@ class TieredStore:
     def _remove(self, key, tier: Tier):
         v = self._data[tier].pop(key)
         self._used[tier] -= v.nbytes
+        # a fresh copy supersedes any pending wire arrival of the key
+        self._arrival_t.pop(key, None)
         # a parked deferred write for this key is now stale (the object
         # was deleted, overwritten or moved on): drop it so the shield
         # never submits a phantom write for data that no longer exists
@@ -305,7 +403,12 @@ class TieredStore:
             self._move(key, src, dst)
 
     def _move(self, key, src: Tier, dst: Tier):
+        # a tier move does not materialize in-flight bytes: keep the
+        # readability gate a pending rebalance ingest recorded
+        arrival = self._arrival_t.get(key)
         v = self._remove(key, src)
+        if arrival is not None:
+            self._arrival_t[key] = arrival
         dst = self._fit_tier(dst, v.nbytes)
         if dst == src:
             # an oversized promotion target redirected back onto the
@@ -328,7 +431,9 @@ class TieredStore:
             st = self.stats[dst]
             st.demotions_deferred += 1
             st.deferred_bytes += v.nbytes
-            self._deferred_writes.append((dst, key, v.nbytes))
+            self._deferred_writes.append((dst, key, v.nbytes, None))
+            self._trace_deferral("demotion_write_deferred", dst, key,
+                                 v.nbytes)
         else:
             self.runtime.submit(dst, key, v.nbytes, kind="write")
         if demote:
@@ -341,18 +446,27 @@ class TieredStore:
         return (self.write_shield_depth is not None
                 and self.runtime.read_depth(tier) >= self.write_shield_depth)
 
+    def _trace_deferral(self, name: str, tier: Tier, key,
+                        nbytes: int) -> None:
+        if self.obs is not None and self.obs.tracer is not None:
+            t = self.obs.tracer
+            t.instant(t.track(self.label, tier.name), name,
+                      self.clock.now(), cat="shield",
+                      args={"key": str(key), "nbytes": int(nbytes)})
+
     def flush_deferred_writes(self) -> int:
         """Submit parked demotion writes whose destination read burst has
         drained; returns how many were flushed. Entries for a still-
         shielded tier stay parked (per-tier FIFO order preserved) without
         blocking writes bound for other, unshielded tiers."""
         flushed = 0
-        keep: List[Tuple[Tier, object, int]] = []
-        for dst, key, nbytes in self._deferred_writes:
+        keep: List[Tuple[Tier, object, int, Optional[float]]] = []
+        for dst, key, nbytes, not_before in self._deferred_writes:
             if self._shielded(dst):
-                keep.append((dst, key, nbytes))
+                keep.append((dst, key, nbytes, not_before))
             else:
-                self.runtime.submit(dst, key, nbytes, kind="write")
+                self.runtime.submit(dst, key, nbytes, kind="write",
+                                    not_before=not_before)
                 flushed += 1
         self._deferred_writes = keep
         return flushed

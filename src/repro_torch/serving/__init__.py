@@ -1,1 +1,1 @@
-from .engine import DecodeEngine, Request  # noqa
+from .engine import DecodeEngine, Request, route_session  # noqa

@@ -36,8 +36,19 @@ packages write the same pad-token KV into the slot and pause the same
 blob). The causal mask keeps real positions pad-independent, and
 `prefill(last_index=...)` returns the last *real* token's logits.
 
-The sharded fabric's pieces (`locality_host`, `route_session`, the
-`fabric=` constructor dialect) wait for a later slice of the port.
+Multi-host mode (sharded fabric): pass `store=fabric.host_view(host)`
+(what `repro_torch.platform.Platform.engine` does) and the engine's store
+becomes that host's fabric view — KV blocks shard to their
+consistent-hash owner host, and a session paused on one host can resume
+on another: `export_session`/`import_session` hand the (tiny) session
+metadata between engines while the KV block itself streams cross-host
+through the fabric's NIC + remote-flash composition, behind decode when
+`prefetch` is issued with enough lead. `locality_host` and
+`route_session` send a resume to a host that already holds the blob.
+
+Observability rides in on the store: with a tracer attached, admission,
+pause, prefetch and resume are instants on the engine's track, stitched
+into one causal flow per session.
 """
 from __future__ import annotations
 
@@ -112,8 +123,14 @@ class DecodeEngine:
         self.last_token = np.zeros(max_slots, np.int32)  # decode inputs
         self.slot_req: Dict[int, Request] = {}
         self.policy = policy or TieringPolicy(tau_hot=0.05, tau_be=5.0)
+        # a fabric host view carries its host; a single-host store is host 0
+        self.host = getattr(store, "host", 0)
         self.store = store or TieredStore(self.policy, clock=clock)
         self.clock = self.store.clock
+        # observability rides in on the store (single-host or fabric
+        # view): session lifecycle instants + causal flows join the
+        # transfer spans the runtime already records
+        self.obs = getattr(self.store, "obs", None)
         self.step_time = step_time      # modeled seconds of decode compute
         self.kv_stall_time = 0.0        # decode-visible restore stalls
         self._paused: Dict[str, tuple] = {}
@@ -121,6 +138,26 @@ class DecodeEngine:
         self.checkpoint_interval = int(checkpoint_interval)
         self._checkpoints: Dict[str, tuple] = {}
         self.steps = 0
+
+    # -------------------------------------------------------- observability
+    def _trace_session(self, name: str, rid: str, flow: str = "",
+                       **args) -> None:
+        """Session-lifecycle instant on this engine's track; `flow`
+        ("s"/"t"/"f") stitches the event into the session's causal
+        chain (admission -> prefetch -> fetch spans -> resume)."""
+        if self.obs is None or self.obs.tracer is None:
+            return
+        t = self.obs.tracer
+        track = t.track(f"host{self.host}", "engine")
+        now = self.clock.now()
+        t.instant(track, name, now, cat="session",
+                  args={"rid": rid, **args})
+        if flow == "s":
+            t.flow_start(track, f"session:{rid}", now, ("session", rid))
+        elif flow == "t":
+            t.flow_step(track, f"session:{rid}", now, ("session", rid))
+        elif flow == "f":
+            t.flow_end(track, f"session:{rid}", now, ("session", rid))
 
     # ------------------------------------------------------------ admission
     def _free_slots(self) -> List[int]:
@@ -157,6 +194,8 @@ class DecodeEngine:
         first = int(torch.argmax(logits[0]))
         req.generated.append(first)
         self.last_token[slot] = first
+        self._trace_session("admit", req.rid, flow="s", slot=slot,
+                            prompt_len=S)
         return slot
 
     def _slot_blob(self, slot: int):
@@ -194,7 +233,10 @@ class DecodeEngine:
         self.live[slot] = False
         self.active[slot] = False
         self.lengths[slot] = 0
-        return self.store.tier_of(("kv", rid))
+        tier = self.store.tier_of(("kv", rid))
+        self._trace_session("pause", rid, flow="t", slot=slot,
+                            tier=getattr(tier, "name", str(tier)))
+        return tier
 
     def park(self, rid: str) -> int:
         """Idle a live session in place: the slot and its KV stay
@@ -253,9 +295,10 @@ class DecodeEngine:
         return self.resume(rid)
 
     def export_session(self, rid: str):
-        """Hand a paused session off to another engine on the same store:
-        returns the session metadata (request + KV layout). The KV block
-        itself stays in the tiered store."""
+        """Hand a paused session off to another engine on the same store
+        or fabric: returns the session metadata (request + KV layout). The
+        KV block itself stays in the tiered store/fabric and streams to
+        the resuming host on its `prefetch`/`resume`."""
         # a prefetch issued here is dropped: its transfer completes on
         # its own in the background
         self._pending.pop(rid, None)
@@ -270,11 +313,22 @@ class DecodeEngine:
         return state
 
     def import_session(self, rid: str, state):
-        """Adopt a session exported by another engine on the same store;
-        `prefetch`/`resume` then work as if paused here."""
+        """Adopt a session exported by another engine on the same store
+        or fabric; `prefetch`/`resume` then work as if paused here."""
         if rid in self._paused:
             raise KeyError(f"session {rid!r} already paused here")
         self._paused[rid] = state
+
+    def locality_host(self, rid: str) -> int:
+        """Host a resuming session should be routed to: one already
+        holding its KV replica (the remote NIC + remote-flash restore
+        becomes a plain local read), else this engine's host. Only
+        meaningful in fabric mode — a single-host store is its own
+        locality."""
+        fab = getattr(self.store, "fabric", None)
+        if fab is None:
+            return self.host
+        return fab.preferred_host(("kv", rid), default=self.host)
 
     def prefetch_lead(self, rid: str) -> int:
         """p99-sized prefetch lead for `rid` in decode steps (one step
@@ -291,7 +345,13 @@ class DecodeEngine:
             raise KeyError(rid)
         if rid not in self._pending:
             self._pending[rid] = self.store.get_async(("kv", rid))
+            self._trace_session("prefetch", rid, flow="t")
         return self._pending[rid]
+
+    def prefetch_many(self, rids):
+        """Batched async restore: issue all fetches back-to-back so the
+        flash queue pipelines them (miss-under-miss)."""
+        return [self.prefetch(r) for r in rids]
 
     def resume(self, rid: str):
         """Re-admit a paused session. Blocks only on the unfinished part
@@ -311,7 +371,10 @@ class DecodeEngine:
             pf = self.store.get_async(("kv", rid))
         t0 = self.clock.now()
         blob = pf.wait()
-        self.kv_stall_time += self.clock.now() - t0
+        stall = self.clock.now() - t0
+        self.kv_stall_time += stall
+        self._trace_session("resume", rid, flow="f", slot=slot,
+                            stall=stall)
         flat = torch.from_numpy(blob).to(self.device)
         off = 0
         for path, shape, _dtype in layout:
@@ -382,3 +445,22 @@ class DecodeEngine:
                     done_rids.add(r.rid)
                     done.append(r)
         return done
+
+
+def route_session(engines: Dict[int, "DecodeEngine"], rid: str,
+                  state=None) -> "DecodeEngine":
+    """Locality-aware session routing across a fleet of engines (one per
+    fabric host): pick the engine whose host already holds the session's
+    KV replica, so the restore is a local flash read instead of the NIC
+    + remote-flash composition. Falls back to the first engine when no
+    replica exists (fresh session) or the holder runs no engine. When
+    `state` (from `export_session`) is given, the session is imported
+    into the chosen engine."""
+    if not engines:
+        raise ValueError("no engines to route over")
+    first = next(iter(engines.values()))
+    host = first.locality_host(rid)
+    target = engines.get(host, first)
+    if state is not None:
+        target.import_session(rid, state)
+    return target

@@ -876,6 +876,28 @@ def _advised_pair():
     return store, jstore, pt, jt
 
 
+def _advised_fleets():
+    """The same puts on a 3-host fabric on each side, one of them after a
+    join (so the advice carries the rebalance's cost)."""
+    from repro.runtime.fabric import ShardedTieredStore as JFabric
+    from repro_torch.runtime.fabric import ShardedTieredStore as TFabric
+    out = []
+    for Fabric, Pol, T, Clock in ((TFabric, TieringPolicy, Tier,
+                                   VirtualClock),
+                                  (JFabric, JPolicy, JTier, JClock)):
+        fab = Fabric(3, clock=Clock(), policy_factory=lambda _h: Pol(
+            tau_hot=1e-12, tau_be=1.0, ema_alpha=1.0))
+        blob = np.zeros(1 << 14, np.uint8)
+        for i in range(12):
+            fab.put(("kv", i), blob, tier=T.DRAM if i % 3 else T.FLASH,
+                    from_host=i % 3, replicas=1 + i % 2)
+        fab.clock.advance(0.5)
+        fab.add_host()
+        fab.clock.advance(31.0)
+        out.append(fab)
+    return out
+
+
 @pytest.mark.parametrize("kw", [{}, dict(active_window=2.0),
                                 dict(dram_bytes_per_host=1 << 15,
                                      headroom=2.0)])
@@ -889,10 +911,17 @@ def test_advise_matches_reference(kw):
     assert got.report() == ref.report()
     assert got.bandwidth_limited == ref.bandwidth_limited
     assert "rebalance" not in got.as_dict()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 0"):
-        adv.advise(pt, fabric=object())
+    # the fabric= form: a fleet's census and its rebalance cost
+    fab, jfab = _advised_fleets()
+    got = adv.advise(pt, fabric=fab)
+    ref = jadv.advise(jt, fabric=jfab)
+    _assert_close_tree(got.as_dict(), ref.as_dict())
+    assert got.report() == ref.report()
+    assert got.as_dict()["rebalance"]["events"] == 1.0
     with pytest.raises(ValueError):
         adv.advise(pt)
+    with pytest.raises(ValueError):
+        adv.advise(pt, store=store, fabric=fab)
 
 
 @pytest.mark.parametrize("mttf", [3600.0, 1e6, 1e9])
@@ -905,8 +934,14 @@ def test_advise_availability_matches_reference(mttf):
     ref = jadv.advise_availability(**kw)
     _assert_close_tree(got.as_dict(), ref.as_dict())
     assert got.report() == ref.report()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 0"):
-        adv.advise_availability(fabric=object(), mttf=mttf)
+    # the fabric= form census: resident bytes, hosts and DRAM share
+    fab, jfab = _advised_fleets()
+    got = adv.advise_availability(fabric=fab, mttf=mttf,
+                                  put_bytes_per_second=2e8)
+    ref = jadv.advise_availability(fabric=jfab, mttf=mttf,
+                                   put_bytes_per_second=2e8)
+    _assert_close_tree(got.as_dict(), ref.as_dict())
+    assert got.report() == ref.report()
     with pytest.raises(ValueError):
         adv.advise_availability(mttf=mttf)
 

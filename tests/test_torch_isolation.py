@@ -81,6 +81,32 @@ def test_entry_points_need_a_device_without_cuda(no_cuda):
     assert eng.cache["groups"]["L0S0"]["k"].device.type == "cpu"
 
 
+def test_platform_entry_points_need_a_device_without_cuda(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_tiered_kv
+    from repro_torch.models import model as M
+    from repro_torch.platform import HierarchySpec, Platform, PolicyDecl
+
+    cfg = get_config("gemma-2b", reduced=True)
+    params = M.init_params(cfg, 0, device="cpu")
+    for policy in (PolicyDecl.pinned_dram(), PolicyDecl.economic()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Platform.compile(HierarchySpec(policy=policy))
+    # a platform assembled without a device hands its engines none
+    cpu = Platform.compile(HierarchySpec(policy=PolicyDecl.pinned_dram()),
+                           device="cpu")
+    bare = Platform(cpu.spec, cpu.clock, cpu.fabric)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bare.engine(cfg, params, max_slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_tiered_kv.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main([])
+    # the explicit choice runs, and the engine takes the platform's
+    eng = cpu.engine(cfg, params, max_slots=1, max_len=8)
+    assert eng.device.type == "cpu"
+
+
 def test_engine_rejects_params_on_another_device():
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
