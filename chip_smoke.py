@@ -84,7 +84,21 @@ Drives the port's serving path on the card and checks it, in phases:
      windows each, median and range); tokens/s, kv_stall_time and both
      reports are printed beside the card's name and power limit; then a
      traced kv_session save, think gap and resume (quickstart section 6)
-     whose stall ledger conserves and whose Perfetto export is not empty.
+     whose stall ledger conserves and whose Perfetto export is not empty;
+ 10. continuous batching over a declared workload: three tenants (8
+     premium chat sessions of 384-token prompts, 4 RAG sessions of 640,
+     8 scan sessions of 128) on one host whose DRAM holds 4 KV blobs,
+     the economic policy priced per tenant, through `Platform.compile`
+     -> `Platform.scheduler` -> `run(Platform.jobs())` on phase 4's
+     weights (4 slots, 1024 positions); three runs on fresh platforms
+     give equal tokens and reports; continuous batching gives the
+     lock-step gang's tokens; the stall ledger conserves; pauses reach
+     both DRAM and flash; premium's tau_be is above scan's; rmsnorm,
+     decode and flash attention and reuse_sketch launch in the phase;
+     prints the modeled report, the tenants' cells and ledger, each
+     run's host-clock wall split into decode steps and the rest, and the
+     device-idle share of one decode step with every slot decoding; the
+     reduced model's report is byte-identical on the card and the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -1043,6 +1057,308 @@ def phase_platform(cfg, params, prompts):
           f"{len(chrome)} bytes of Perfetto JSON")
     print(f"  phase 9 wall {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# --------------------------------------------------------------- phase 10
+DRAM_BLOBS = 4                 # phase 10's host DRAM, in paused-KV blobs
+PAUSE_IDLE_STEPS = 8
+WORKLOAD_RUNS = 3
+
+
+def _workload_spec(cfg, tenants=("premium", "rag", "scan"), n_sessions=None,
+                   horizon=256):
+    """Phase 10's declared platform: `_tier_table`'s host with DRAM of
+    DRAM_BLOBS blobs, the economic policy priced at one blob, a 5 ms
+    modeled step, the scheduler's knobs and three tenants in the
+    reference pack's shapes (tests/test_workload.py) at the lengths users
+    send. `tenants`, `n_sessions` and `horizon` cut it for the reduced
+    model's check."""
+    from repro_torch.platform import (ArrivalDecl, HierarchySpec, HostDecl,
+                                      PolicyDecl, SchedulerDecl,
+                                      SessionShapeDecl, SloDecl, TenantDecl,
+                                      TierDecl, WorkloadDecl)
+    blob = _blob_bytes(cfg)
+    tiers = dict(_tier_table(cfg), dram=(DRAM_BLOBS * blob, 45e9, 5e-7))
+    pack = {
+        "premium": TenantDecl(
+            name="premium", n_sessions=8,
+            session=SessionShapeDecl.chat(prompt_len=384,
+                                          tokens_per_turn=48,
+                                          gap_steps=24),
+            arrival=ArrivalDecl(kind="flash_crowd", peak_step=32,
+                                burst_len=16),
+            slo=SloDecl(deadline_steps=4, alpha_stall=4.0)),
+        "rag": TenantDecl(
+            name="rag", n_sessions=4,
+            session=SessionShapeDecl.rag(prompt_len=640,
+                                         tokens_per_turn=64, gap_steps=48),
+            arrival=ArrivalDecl(kind="diurnal", period=96)),
+        "scan": TenantDecl(
+            name="scan", n_sessions=8,
+            session=SessionShapeDecl.scan(prompt_len=128,
+                                          tokens_per_turn=8),
+            arrival=ArrivalDecl(kind="scan_flood", period=48,
+                                burst_len=8)),
+    }
+    chosen = tuple(pack[t] if n_sessions is None else
+                   dataclasses.replace(pack[t], n_sessions=n_sessions)
+                   for t in tenants)
+    return HierarchySpec(
+        hosts=(HostDecl(tiers={name: TierDecl(*t)
+                               for name, t in tiers.items()}),),
+        policy=PolicyDecl.economic(l_blk=blob), step_time=STEP_TIME,
+        scheduler=SchedulerDecl(pause_idle_steps=PAUSE_IDLE_STEPS,
+                                prefetch_lead="p99"),
+        workload=WorkloadDecl(tenants=chosen, horizon_steps=horizon,
+                              seed=SEED, isolation="per-tenant"))
+
+
+ENGINE_CALLS = ("step", "admit", "pause", "resume", "prefetch")
+
+
+def _serve_workload(cfg, params, spec, *, device="cuda", dtype=None):
+    """One run of the declared workload: a fresh Platform.compile (outside
+    the timing), Platform.scheduler, run(Platform.jobs()). Returns the
+    platform, the scheduler, the jobs, the report, the run's wall seconds
+    (host clock, synchronised), the seconds inside each engine call the
+    scheduler makes (ENGINE_CALLS; decode steps, admissions with their
+    prefills, pauses, resumes, prefetches; each synchronised) and the
+    tier the gate gave every pause."""
+    import torch
+    from repro_torch.platform import Platform
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    platform = Platform.compile(spec, device=device)
+    sched = platform.scheduler(
+        cfg, params, max_slots=MAX_SLOTS, max_len=MAX_LEN,
+        compute_dtype=dtype if dtype is not None else torch.float32)
+    jobs = platform.jobs(vocab=cfg.vocab)
+    for j in jobs:
+        assert len(j.prompt) + j.total() < MAX_LEN, (j.sid, len(j.prompt),
+                                                     j.total())
+    eng = sched.engine
+    split = dict.fromkeys(ENGINE_CALLS, 0.0)
+    tiers = []
+
+    def timed(name, fn):
+        def call(*args):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args)
+            sync()
+            split[name] += time.perf_counter() - t
+            if name == "pause":
+                tiers.append(out.name)
+            return out
+        return call
+
+    for name in ENGINE_CALLS:
+        setattr(eng, name, timed(name, getattr(eng, name)))
+    sync()
+    t0 = time.perf_counter()
+    report = sched.run(jobs)
+    sync()
+    wall = time.perf_counter() - t0
+    for name in ENGINE_CALLS:
+        delattr(eng, name)
+    return platform, sched, jobs, report, wall, split, tiers
+
+
+def _profile_step(step, card):
+    """The device-idle share of one decode step (`step`, called once)
+    with every slot decoding, under torch.profiler, as `_profile_split`
+    measures phase 4's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy == 0:
+        print(f"  profile of a decode step inside the run: the profiler saw "
+              f"no device time; device-idle share not measured [{card}]")
+        return None
+    print(f"  profile of a decode step inside the run, {MAX_SLOTS} slots "
+          f"decoding: device kernels {busy:.3f} ms in {wall * 1e3:.3f} ms "
+          f"(profiled wall); device-idle share {1 - busy / (wall * 1e3):.3f}"
+          f" profiled; {sum(e.count for e in kern)} device operations "
+          f"[{card}]")
+    return busy
+
+
+def _tokens(jobs):
+    return {j.sid: list(j.request.generated) for j in jobs}
+
+
+def phase_workload(cfg, params):
+    """Continuous batching over a declared workload on the card: three
+    tenants (premium chat, RAG, scan) of 20 sessions through
+    Platform.compile -> Platform.scheduler -> run(Platform.jobs()) on
+    phase 4's full-width bf16 weights, three times on fresh platforms
+    (equal tokens and reports), against the lock-step gang (equal
+    tokens), with the stall ledger conserved, pauses on both DRAM and
+    flash and premium's tau_be above scan's; then the reduced model's
+    report on the card and on the CPU, byte for byte. Returns the
+    launches of the phase's runs."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import Tier
+    from repro_torch.models import model as M
+    from repro_torch.platform import Platform
+    from repro_torch.serving import compare_scheduling
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    spec = _workload_spec(cfg)
+    print(f"  spec {spec.to_json()}")
+    blob = _blob_bytes(cfg)
+    print(f"  blob {blob} B; DRAM {DRAM_BLOBS} blobs; MAX_SLOTS "
+          f"{MAX_SLOTS}, MAX_LEN {MAX_LEN}")
+
+    kernels.reset_launch_counts()
+    runs = [_serve_workload(cfg, params, spec, dtype=torch.bfloat16)
+            for _ in range(WORKLOAD_RUNS)]
+    counts = kernels.launch_counts()
+    platform, sched, jobs, report, _, _, tiers = runs[0]
+    for other in runs[1:]:
+        assert _tokens(other[2]) == _tokens(jobs), "a run decoded other tokens"
+        assert json.dumps(other[3], sort_keys=True) == json.dumps(
+            report, sort_keys=True), "a run's report differs"
+        assert other[6] == tiers, "a run paused to other tiers"
+    print(f"  {WORKLOAD_RUNS} runs on fresh platforms: equal tokens for "
+          f"all {len(jobs)} sessions, equal report() and pause tiers")
+
+    # stall-ledger conservation (the reference's tests/test_workload.py)
+    led = sched.stall_ledger()
+    rhs = report["kv_stall"] + STEP_TIME * report["slot_idle_steps"]
+    assert abs(led["total"] - rhs) <= 1e-9 * max(rhs, 1e-30), (led, rhs)
+    tenant_slice = sum(c["ledger_stall"]
+                       for c in report["tenants"].values())
+    assert tenant_slice <= led["total"] - led["scheduler_idle"] + 1e-12, \
+        (tenant_slice, led)
+    taus = platform.policy(0).class_tau_be
+    assert taus["premium"] > taus["scan"], taus
+    # both tiers hold paused blobs: the gate admits a pause to DRAM or
+    # sends it to flash, and DRAM's capacity demotes the coldest to flash
+    host = platform.fabric.hosts[0]
+    dram, flash = host.stats[Tier.DRAM], host.stats[Tier.FLASH]
+    print(f"  pauses by the tier the gate gave them: "
+          f"{ {t: tiers.count(t) for t in sorted(set(tiers))} }; store "
+          f"DRAM {dram}; FLASH {flash}")
+    assert dram.bytes_written >= blob and flash.bytes_written >= blob, \
+        (dram, flash)
+    for k in ("pauses", "resumes", "prefetches"):
+        assert report[k] > 0, (k, report[k])
+    for name in ("rmsnorm", "decode_attention", "flash_attention",
+                 "reuse_sketch"):
+        assert counts[name] > 0, f"{name} never launched in phase 10"
+
+    keys = ("tokens", "ticks", "decode_steps", "slot_idle_steps",
+            "admissions", "parks", "unparks", "pauses", "preempt_pauses",
+            "resumes", "prefetches", "deadline_misses", "kv_stall",
+            "per_token_stall", "makespan", "tokens_per_sec")
+    print(f"  report() [{card}]: " + ", ".join(
+        f"{k} {report[k]!r}" for k in keys) + " (kv_stall, per_token_stall"
+        ", makespan and tokens_per_sec are modeled: virtual clock, "
+        f"{STEP_TIME} s a step)")
+    print(f"  tenant_report() [{card}]: "
+          f"{json.dumps(sched.tenant_report(), sort_keys=True)}")
+    print(f"  stall_ledger() [{card}]: {json.dumps(led, sort_keys=True)}")
+    print(f"  compiled tau_be by tenant [{card}]: "
+          f"{json.dumps(taus, sort_keys=True)}")
+    walls = [r[4] for r in runs]
+    print(f"  wall of each run (host clock, synchronised, Platform.compile "
+          f"outside) [{card}]: {walls!r} s; range {min(walls)!r} - "
+          f"{max(walls)!r} s")
+    calls = {"step": report["decode_steps"], "admit": report["admissions"],
+             "pause": report["pauses"], "resume": report["resumes"],
+             "prefetch": report["prefetches"]}
+    for i, (w, split) in enumerate((r[4], r[5]) for r in runs):
+        print(f"    run {i + 1}: " + ", ".join(
+            f"{name} {split[name]!r} s ({calls[name]} calls)"
+            for name in ENGINE_CALLS)
+            + f"; the scheduler's own Python {w - sum(split.values())!r} s")
+
+    # continuous batching against the lock-step gang: equal tokens; the
+    # continuous arm's first decode step with every slot decoding (past
+    # the first few) runs under the profiler, and the arm's other
+    # full-grid steps are timed without it
+    profiled, full_grid, made, made_jobs = [], [], [], []
+
+    def engine():
+        p = Platform.compile(spec, device="cuda")
+        eng = p.engine(cfg, params, max_slots=MAX_SLOTS, max_len=MAX_LEN,
+                       compute_dtype=torch.bfloat16)
+        if not made:
+            step = eng.step
+
+            def watched():
+                if eng.steps < 4 or not (eng.live & eng.active).all():
+                    step()
+                elif not profiled:
+                    profiled.append(_profile_step(step, card))
+                else:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    full_grid.append(time.perf_counter() - t)
+            eng.step = watched
+        made.append(p)
+        return eng
+
+    def job_list():
+        made_jobs.append(platform.jobs(vocab=cfg.vocab))
+        return made_jobs[-1]
+
+    cell = compare_scheduling(engine, job_list,
+                              pause_idle_steps=PAUSE_IDLE_STEPS)
+    cont, lock = cell["continuous"], cell["lockstep"]
+    assert cell["tokens_identical"], ("continuous and lock-step tokens "
+                                      "differ", cell["token_mismatches"])
+    assert _tokens(made_jobs[0]) == _tokens(jobs)
+    assert profiled and full_grid, "no decode step ran with every slot " \
+        "decoding"
+    if profiled[0] is not None:
+        med = sorted(full_grid)[len(full_grid) // 2] * 1e3
+        print(f"  device-idle share of that step against the median wall of "
+              f"the arm's {len(full_grid)} other full-grid steps without "
+              f"the profiler ({med:.3f} ms, host clock, synchronised): "
+              f"{1 - profiled[0] / med:.3f} [{card}]")
+    print(f"  continuous vs lock-step [{card}]: tokens identical; "
+          f"per_token_stall {cont['per_token_stall']!r} vs "
+          f"{lock['per_token_stall']!r} s (modeled); slot_idle_steps "
+          f"{cont['slot_idle_steps']} vs {lock['slot_idle_steps']}; "
+          f"ticks {cont['ticks']} vs {lock['ticks']}; tokens_per_sec "
+          f"{cont['tokens_per_sec']!r} vs {lock['tokens_per_sec']!r} "
+          f"(modeled)")
+
+    # the reduced model's report: modeled, so the card cannot change it
+    small = get_config("gemma-2b", reduced=True)
+    rspec = _workload_spec(small, tenants=("premium", "scan"),
+                           n_sessions=3, horizon=64)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        rp = M.init_params(small, SEED, device=dev)
+        got[dev] = json.dumps(
+            _serve_workload(small, rp, rspec, device=dev)[3],
+            sort_keys=True)
+    assert got["cuda"] == got["cpu"], (got["cuda"], got["cpu"])
+    print(f"  reduced gemma-2b f32, premium + scan x 3 sessions: the "
+          f"report's JSON ({len(got['cpu'])} bytes) is byte-identical on "
+          f"the card and the CPU")
+    print(f"  phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+    return {name: counts[name] for name in
+            SERVING_KERNELS + ("reuse_sketch",)}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2134,10 +2450,19 @@ def main() -> int:
     print("[9] the declared platform: HierarchySpec -> Platform.compile -> "
           "Platform.engine, full-width gemma-2b")
     served = phase_platform(cfg, params, prompts)
-    print(f"  launches of the serving kernels: phase 4 "
-          f"{ {n: counts[n] for n in SERVING_KERNELS} }, phase 9 {served}")
-    counts.update(served)
+    print("[10] continuous batching over a declared workload: "
+          "Platform.scheduler -> run(Platform.jobs()), full-width gemma-2b")
+    workload = phase_workload(cfg, params)
     del params
+    # each path's launches, its counts set to 0 just before it ran; the
+    # kernels line's `launches` is the newest path that runs each kernel
+    by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
+               "phase6": {"cuckoo_probe": counts["cuckoo_probe"]},
+               "phase7": {"ann_topk": counts["ann_topk"]},
+               "phase8": {"reuse_sketch": counts["reuse_sketch"]},
+               "phase9": served, "phase10": workload}
+    print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
+    counts.update(workload)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2154,7 +2479,9 @@ def main() -> int:
              max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"],
-             shape=r["shape"])
+             shape=r["shape"], launches_by_path={
+                 path: c[name] for path, c in by_path.items()
+                 if name in c})
         for name, r in rec.items()]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

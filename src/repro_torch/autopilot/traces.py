@@ -21,8 +21,8 @@ compute; each step touches a small batch of keys):
 Keys are `(class, id)` tuples, so `autopilot.gate.default_classify`
 recovers the class and the per-class sketch learns separate priors.
 The traces are the reference's step for step: the same `default_rng`
-draws in the same order. Rendering a declared workload (`from_workload`)
-waits for the port's platform package.
+draws in the same order. `from_workload` renders a declared workload
+through `platform.workload`.
 """
 from __future__ import annotations
 
@@ -118,3 +118,13 @@ def generate(name: str, *, n_steps: int = 240, step_time: float = 0.25,
             steps.append(step)
 
     return Trace(name=name, step_time=step_time, steps=steps)
+
+
+def from_workload(decl, *, step_time: float = 0.25,
+                  name: str = "workload") -> Trace:
+    """Render a declared multi-tenant scenario (`WorkloadDecl`, see
+    `repro_torch.platform.spec`) as an access trace: keys are `(tenant,
+    id)` tuples, so the per-class sketch learns separate per-tenant
+    priors — the declared counterpart of the hand-coded shapes above."""
+    from ..platform.workload import compile_workload
+    return compile_workload(decl).trace(step_time=step_time, name=name)

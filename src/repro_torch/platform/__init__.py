@@ -14,8 +14,10 @@ sites.
                          policy=PolicyDecl.economic(l_blk=128 << 10))
     platform = Platform.compile(spec)           # device="cpu" without CUDA
 
-The closed provisioning loop (`autoscale`), the workload compiler and
-the failover bench are not ported yet (ROADMAP Queue 1 items 0f and 7).
+A declared `WorkloadDecl` compiles through `compile_workload` into
+tenant-tagged jobs for `Platform.scheduler` (`Platform.jobs`). The
+closed provisioning loop (`autoscale`) and the failover bench are not
+ported yet (ROADMAP Queue 1 items 0f and 7).
 """
 from .compiler import Platform  # noqa: F401
 from .handles import Handle, KvSession  # noqa: F401
@@ -25,11 +27,14 @@ from .spec import (ArrivalDecl, AutoscaleDecl,  # noqa: F401
                    PolicyDecl, PoolDecl, SchedulerDecl, SessionShapeDecl,
                    SloDecl, TenantDecl, TierDecl, TopologyDecl,
                    WorkloadDecl, gpu_flash_tier)
+from .workload import (CompiledWorkload, compile_workload,  # noqa: F401
+                       tenant_classifier)
 
 __all__ = [
-    "ArrivalDecl", "AutoscaleDecl", "Handle", "HierarchySpec", "HostDecl",
-    "KvSession", "NetDecl", "ObservabilityDecl", "Platform",
-    "PolicyDecl", "PoolDecl", "SchedulerDecl",
-    "SessionShapeDecl", "SloDecl", "TenantDecl", "TierDecl",
-    "TopologyDecl", "WorkloadDecl", "gpu_flash_tier", "measured_step_time",
+    "ArrivalDecl", "AutoscaleDecl", "CompiledWorkload", "Handle",
+    "HierarchySpec", "HostDecl", "KvSession", "NetDecl",
+    "ObservabilityDecl", "Platform", "PolicyDecl", "PoolDecl",
+    "SchedulerDecl", "SessionShapeDecl", "SloDecl", "TenantDecl",
+    "TierDecl", "TopologyDecl", "WorkloadDecl", "compile_workload",
+    "gpu_flash_tier", "measured_step_time", "tenant_classifier",
 ]

@@ -14,17 +14,19 @@ The facade hands out uniform capabilities:
     sess = platform.kv_session("user-42", host=1)
     sess.save(blob); h = sess.prefetch(); ...; blob = h.result()
     eng = platform.engine(cfg, params, host=0)
+    sched = platform.scheduler(cfg, params)     # continuous batching
+    sched.run(platform.jobs(vocab=cfg.vocab))   # the declared workload
     advice = platform.advise()
     platform.fail_host(2)                       # unplanned failure
     platform.advise_availability()              # replication pricing
 
 `device` is where the economic gates keep their reuse sketch and where
-`engine` decodes; it resolves to CUDA unless the caller asks for the CPU.
+`engine` and `scheduler` decode; it resolves to CUDA unless the caller
+asks for the CPU.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the far-memory pool (`spec.pool`), `expert_store`, `scheduler` and
-`repair` (Queue 1 item 7); `autoscale`, `workload`/`jobs` and specs with
-workload tenants (item 0f).
+the far-memory pool (`spec.pool`), `expert_store` and `repair` (Queue 1
+item 7); `autoscale` (item 0f).
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ class Platform:
         self.step_time = step_time
         self.obs = obs if obs is not None else Observability()
         self.device = device
+        self._workload = None
 
     # ------------------------------------------------------ observability
     @property
@@ -104,9 +107,6 @@ class Platform:
         if spec.pool is not None:
             raise _not_ported("the far-memory pool (HierarchySpec.pool)",
                               "7")
-        if spec.workload is not None and spec.workload.tenants:
-            raise _not_ported(
-                "compiling workload tenants (HierarchySpec.workload)", "0f")
         clock = VirtualClock(spec.t0) if spec.clock == "virtual" \
             else WallClock()
 
@@ -122,28 +122,61 @@ class Platform:
                                      ema_alpha=_d.ema_alpha)
         else:
             host_cfg, ssd = decl.economics()
+            workload = spec.workload
+            tenants = workload.tenants if workload is not None else ()
             # one fleet-wide tracker: every host's gate feeds it, the
             # advisor reads the whole workload's reuse histograms
-            tracker = ReuseTracker(max_classes=8, device=device)
+            tracker = ReuseTracker(max_classes=max(8, len(tenants) + 4),
+                                   device=device)
             fetch_seconds = 0.0
-            if decl.alpha_stall:
+            if decl.alpha_stall or any(t.slo.alpha_stall
+                                       for t in tenants):
                 # price the miss the way the cost model does: the
                 # modeled demand-fetch time at depth 1
                 fetch_seconds = SsdQueueModel.shared(sim_cfg).service(
                     decl.l_blk, 1).total
-            for cls_name, interval in sorted(spec.class_priors.items()):
+
+            # declared workload -> per-tenant SLO economics: each
+            # tenant's alpha_stall folds into its *own* tau_be, its key
+            # class is the tenant name, and its declared think gap
+            # seeds the tracker prior so the very first offload is
+            # priced by the declaration, not the cold default.
+            # isolation="shared" is the control arm: one fleet-wide
+            # threshold/class, no declared priors
+            classify = None
+            class_tau_be = None
+            priors = dict(spec.class_priors)
+            if tenants and workload.isolation == "per-tenant":
+                from .workload import tenant_classifier
+                classify = tenant_classifier([t.name for t in tenants])
+                class_tau_be = {
+                    t.name: EconomicGate.breakeven_tau(
+                        host_cfg, ssd, decl.l_blk,
+                        gamma_rw=decl.gamma_rw, phi_wa=decl.phi_wa,
+                        alpha_stall=t.slo.alpha_stall,
+                        fetch_seconds=fetch_seconds)
+                    for t in tenants}
+                st = spec.resolved_step_time()
+                if st > 0:
+                    for t in tenants:
+                        priors.setdefault(t.name,
+                                          t.session.gap_steps * st)
+            for cls_name, interval in sorted(priors.items()):
                 tracker.seed_prior(cls_name, interval)
             # a host declaring a "gpu_flash" tier is refused by its store
             # (the fourth tier is ROADMAP Queue 1 item 7), so no gate
             # here routes admissions down the GPU-direct path
 
             def factory(_h, _d=decl, _t=tracker, _f=fetch_seconds,
-                        _host=host_cfg, _ssd=ssd):
+                        _host=host_cfg, _ssd=ssd, _c=classify,
+                        _taus=class_tau_be):
+                kw = {} if _c is None else {"classify": _c}
                 return EconomicGate.from_break_even(
                     _host, _ssd, _d.l_blk, gamma_rw=_d.gamma_rw,
                     phi_wa=_d.phi_wa, alpha_stall=_d.alpha_stall,
                     fetch_seconds=_f, tracker=_t,
-                    prior_quantile=_d.prior_quantile)
+                    prior_quantile=_d.prior_quantile,
+                    class_tau_be=_taus, **kw)
 
         topology = spec.topology.compile() if spec.topology is not None \
             else None
@@ -231,17 +264,53 @@ class Platform:
                                         replicas=self.spec.replicas),
             step_time=st, **kw)
 
-    def scheduler(self, *args, **kw):
-        raise _not_ported("Platform.scheduler (serving/scheduler.py)",
-                          "7")
+    def scheduler(self, cfg, params, *, host: int = 0,
+                  pause_idle_steps: Optional[int] = None,
+                  prefetch_lead=None, **kw):
+        """Continuous-batching scheduler over a fresh engine on `host`
+        (`repro_torch.serving.ContinuousScheduler`): per-step admission,
+        pause-on-idle through the tiered store, prefetch-led resume.
+        Knobs default to the spec's `scheduler` declaration, stall
+        budgets to the declared tenants' SLOs; engine kwargs
+        (`max_slots`, `max_len`, `device`, ...) pass through, and the
+        engine runs on the platform's device unless `device=` names
+        another."""
+        from ..serving.scheduler import ContinuousScheduler
+        eng = self.engine(cfg, params, host=host, **kw)
+        decl = self.spec.scheduler
+        budgets = {}
+        if self.spec.workload is not None:
+            budgets = {t.name: t.slo.p99_stall_budget
+                       for t in self.spec.workload.tenants
+                       if t.slo.p99_stall_budget is not None}
+        return ContinuousScheduler(
+            eng,
+            pause_idle_steps=decl.pause_idle_steps
+            if pause_idle_steps is None else pause_idle_steps,
+            prefetch_lead=decl.prefetch_lead
+            if prefetch_lead is None else prefetch_lead,
+            stall_budgets=budgets)
 
     # ------------------------------------------------------------ workload
     def workload(self):
-        raise _not_ported("Platform.workload (platform/workload.py)",
-                          "0f")
+        """Compiled rendering of `spec.workload`
+        (`repro_torch.platform.workload.CompiledWorkload`): tenant-tagged
+        jobs, access traces, per-tenant thresholds. Cached — every
+        call sees the same deterministic draw."""
+        if self.spec.workload is None:
+            raise ValueError(
+                "spec declares no workload: set HierarchySpec.workload "
+                "(a WorkloadDecl with at least one tenant) to compile "
+                "scenario jobs/traces from the spec")
+        if self._workload is None:
+            from .workload import compile_workload
+            self._workload = compile_workload(self.spec.workload)
+        return self._workload
 
     def jobs(self, *, vocab: int = 64):
-        raise _not_ported("Platform.jobs (platform/workload.py)", "0f")
+        """Declared-scenario `SessionJob` list for `self.scheduler(...)`
+        — tenant-tagged, deterministic in (spec JSON, workload seed)."""
+        return self.workload().jobs(vocab=vocab)
 
     # ---------------------------------------------------------- provision
     def advise(self, horizon: Optional[float] = None) -> ProvisionAdvice:

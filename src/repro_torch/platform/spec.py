@@ -329,9 +329,8 @@ class AutoscaleDecl:
 @dataclasses.dataclass(frozen=True)
 class SchedulerDecl:
     """Continuous-batching scheduler knobs
-    (the reference's `ContinuousScheduler`, built via
-    `Platform.scheduler`; not ported yet, ROADMAP Queue 1 item 7 — the
-    declaration round-trips all the same).
+    (`repro_torch.serving.ContinuousScheduler`, built via
+    `Platform.scheduler`).
 
     `pause_idle_steps`: inter-turn gaps of at most this many decode
     steps keep a session *parked* in its slot (resident, not decoding);
@@ -569,12 +568,10 @@ class TenantDecl:
 @dataclasses.dataclass(frozen=True)
 class WorkloadDecl:
     """A declared multi-tenant scenario: who arrives when, with what
-    session shape, under which SLO. The reference's
-    `platform.workload.compile_workload` compiles it (not ported yet,
-    ROADMAP Queue 1 item 0f; the declaration round-trips) into
-    deterministic `SessionJob` lists for the continuous scheduler, access traces for
-    the autopilot benches, and per-tenant `EconomicGate` thresholds —
-    one JSON artifact end-to-end.
+    session shape, under which SLO. `platform.workload.compile_workload`
+    compiles it into deterministic `SessionJob` lists for the continuous
+    scheduler, access traces for the autopilot benches, and per-tenant
+    `EconomicGate` thresholds — one JSON artifact end-to-end.
 
     `isolation="per-tenant"` gives every tenant its own tau_be (its
     `alpha_stall` folded in) and seeds its declared reuse prior;

@@ -17,8 +17,8 @@ speed. Run `python -m repro_torch.benchmarks.serving_async` for the CLI
 report.
 
 The fleet benchmarks of the reference (`multi_host_session_bench`,
-`compare_churn`, the scheduler and scale replays) wait for ROADMAP
-Queue 1 item 7.
+`compare_churn`) and its scale replay wait for ROADMAP Queue 1 item 7;
+the continuous scheduler is `serving.scheduler`.
 """
 from __future__ import annotations
 

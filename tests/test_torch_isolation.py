@@ -99,12 +99,16 @@ def test_platform_entry_points_need_a_device_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bare.engine(cfg, params, max_slots=1, max_len=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        bare.scheduler(cfg, params, max_slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_tiered_kv.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.main([])
     # the explicit choice runs, and the engine takes the platform's
     eng = cpu.engine(cfg, params, max_slots=1, max_len=8)
     assert eng.device.type == "cpu"
+    sched = cpu.scheduler(cfg, params, max_slots=1, max_len=8)
+    assert sched.engine.device.type == "cpu"
 
 
 def test_engine_rejects_params_on_another_device():
