@@ -99,6 +99,18 @@ Drives the port's serving path on the card and checks it, in phases:
      run's host-clock wall split into decode steps and the rest, and the
      device-idle share of one decode step with every slot decoding; the
      reduced model's report is byte-identical on the card and the CPU.
+ 11. the autopilot's closed loops: the autoscale bench (diurnal trace, 240
+     steps, `Platform.autoscale` growing and shrinking the fleet against a
+     peak-provisioned static fleet) and the failover bench (four hosts, 12
+     checkpointed sessions, the busiest host killed at step 120 under
+     replication 1, 2 and 3, then the repair loop), at the reference's
+     defaults with every fleet tracker's sketch on the card: each
+     byte-identical to the same bench on the CPU, one reuse_sketch launch
+     per flush, the reference's acceptance verdicts; then the autoscale
+     bench with one full-width gemma-2b KV blob (37,748,736 B) a block,
+     byte-identical on both devices, its verdicts printed as measured;
+     each arm's host-clock wall on both devices, its launches and its
+     modeled cost_per_token, per_token_stall and recovery_seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -2398,6 +2410,164 @@ def phase_autopilot():
     return launches, rec
 
 
+# --------------------------------------------------------------- phase 11
+def _peak_rss_mib() -> float:
+    """The process's peak resident set so far (getrusage; Linux gives
+    KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def _bench_on(run, module, arm_fn: str, device: str, **kw):
+    """`run(device=device, **kw)` with the launch counters set to 0 just
+    before it, and each arm (`module.<arm_fn>`) timed: its host-clock
+    wall, its reuse_sketch launches and the flushes of the fleet trackers
+    it built. Returns (report, wall, arms, launches, trackers)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.autopilot import ReuseTracker
+
+    trackers, arms = [], []
+    init, inner = ReuseTracker.__init__, getattr(module, arm_fn)
+    cuda = device == "cuda"
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        trackers.append(self)
+
+    def timed(*a, **k):
+        first = len(trackers)
+        before = kernels.launch_counts()["reuse_sketch"]
+        t = time.perf_counter()
+        out = inner(*a, **k)
+        if cuda:
+            torch.cuda.synchronize()
+        arms.append(dict(
+            wall=time.perf_counter() - t,
+            launches=kernels.launch_counts()["reuse_sketch"] - before,
+            flushes=sum(tr.flushes for tr in trackers[first:])))
+        return out
+
+    ReuseTracker.__init__ = spy
+    setattr(module, arm_fn, timed)
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        report = run(device=device, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()["reuse_sketch"]
+    finally:
+        ReuseTracker.__init__ = init
+        setattr(module, arm_fn, inner)
+    assert trackers and all(tr.device.type == device for tr in trackers)
+    return report, wall, arms, launches, trackers
+
+
+def _both_devices(label, run, module, arm_fn, arm_names, card, **kw):
+    """One bench on the card, then on the CPU: byte-identical
+    `bench_json`, one sketch launch per flush of the fleet trackers on
+    the card and none on the CPU; prints each arm. Returns (report,
+    launches on the card)."""
+    from repro_torch.obs import bench_json
+
+    runs = {d: _bench_on(run, module, arm_fn, d, **kw)
+            for d in ("cuda", "cpu")}
+    report, wall, arms, launches, trackers = runs["cuda"]
+    js = bench_json(report)
+    assert js == bench_json(runs["cpu"][0]), \
+        f"{label}: bench_json differs between cuda and cpu"
+    flushes = sum(tr.flushes for tr in trackers)
+    assert 0 < launches == flushes, (label, launches, flushes)
+    assert runs["cpu"][3] == 0, (label, runs["cpu"][3])
+    assert [a["launches"] for a in arms] == [a["flushes"] for a in arms]
+    print(f"  {label} [{card}]: bench_json identical on cuda and cpu "
+          f"({len(js)} bytes); reuse_sketch launches {launches} == "
+          f"flushes of its {len(trackers)} fleet trackers; wall "
+          f"{wall!r} s on cuda, {runs['cpu'][1]!r} s on cpu (host clock)")
+    for name, a, h in zip(arm_names, arms, runs["cpu"][2]):
+        r = report["arms"][name] if "arms" in report else report[name]
+        rec = r.get("recovery_seconds")
+        print(f"    arm {name}: wall {a['wall']!r} s on cuda, "
+              f"{h['wall']!r} s on cpu; reuse_sketch launches "
+              f"{a['launches']}; cost_per_token {r['cost_per_token']!r}, "
+              f"per_token_stall {r['per_token_stall']!r}, "
+              f"recovery_seconds "
+              f"{'n/a (no failure)' if rec is None else repr(rec)} "
+              f"(modeled)")
+    return report, launches
+
+
+def phase_closed_loops(cfg):
+    """The autopilot's closed loops: the autoscale bench (Platform.autoscale
+    driving add_host / remove_host) and the failover bench (fail_host at
+    the diurnal peak, then the repair loop) at the reference's defaults,
+    their fleet trackers' sketch on the card, each byte-identical to the
+    same bench on the CPU with one reuse_sketch launch per flush; then
+    the autoscale bench at one full-width gemma-2b KV blob a block.
+    Returns the launches of the phase's runs on the card."""
+    from repro_torch.platform import autoscale, failover
+
+    t0 = time.perf_counter()
+    card = _smi()
+    launches = 0
+
+    # (a) both benches at the reference's defaults
+    auto, n = _both_devices(
+        "autoscale bench (diurnal, 240 steps, 128 KiB blocks, seed 0)",
+        autoscale.run_autoscale_bench, autoscale, "_run_arm",
+        ("autoscaled", "static"), card)
+    launches += n
+    assert auto["autoscale_wins"] and auto["final_within_one_of_advice"], \
+        auto
+    a = auto["autoscaled"]
+    print(f"    decisions {json.dumps(a['decisions'])}; hosts "
+          f"{a['hosts_start']:.0f}->{a['hosts_peak']:.0f}->"
+          f"{a['hosts_final']:.0f}; cost_ratio_vs_static "
+          f"{auto['cost_ratio_vs_static']!r}")
+    fail, n = _both_devices(
+        "failover bench (4 hosts, 12 sessions, kill at step 120)",
+        failover.run_failover_bench, failover, "_run_failover_arm",
+        ("1", "2", "3"), card)
+    launches += n
+    for k in ("zero_committed_loss_replicated",
+              "all_sessions_resume_replicated", "recommended_wins"):
+        assert fail[k], (k, fail)
+    print(f"    advisor recommends r={fail['recommended_replicas']:.0f}; "
+          + "; ".join(f"r={r}: committed keys lost "
+                      f"{arm['committed_keys_lost']:.0f}, sessions lost "
+                      f"{arm['sessions_lost']:.0f}, resumed "
+                      f"{arm['sessions_resumed']:.0f}"
+                      for r, arm in fail["arms"].items()))
+
+    # (b) the autoscale bench at one full-width KV blob a block
+    blob = _blob_bytes(cfg)
+    rss_before = _peak_rss_mib()
+    t1 = time.perf_counter()
+    full, n = _both_devices(
+        f"autoscale bench at l_blk {blob} B (one gemma-2b KV blob of "
+        f"{MAX_LEN} positions)", autoscale.run_autoscale_bench, autoscale,
+        "_run_arm", ("autoscaled", "static"), card, l_blk=blob)
+    wall = time.perf_counter() - t1
+    launches += n
+    a = full["autoscaled"]
+    print(f"    decisions {json.dumps(a.get('decisions', []))}; hosts "
+          f"start {a['hosts_start']:.0f}, peak {a['hosts_peak']:.0f}, "
+          f"final {a['hosts_final']:.0f} (advisor's final "
+          f"{a['recommended_final']!r}); autoscale_wins "
+          f"{full['autoscale_wins']}, final_within_one_of_advice "
+          f"{full['final_within_one_of_advice']}, cost_ratio_vs_static "
+          f"{full['cost_ratio_vs_static']!r} (as measured, not asserted); "
+          f"wall of both devices {wall!r} s; the process's peak host RSS "
+          f"{rss_before:.1f} MiB before the run, {_peak_rss_mib():.1f} MiB "
+          f"after it (the stores hold one shared blob by reference)")
+    print(f"  phase 11 wall {time.perf_counter() - t0:.1f} s")
+    return {"reuse_sketch": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2454,15 +2624,20 @@ def main() -> int:
           "Platform.scheduler -> run(Platform.jobs()), full-width gemma-2b")
     workload = phase_workload(cfg, params)
     del params
+    print("[11] the autopilot's closed loops: Platform.autoscale, "
+          "fail_host and Platform.repair through the autoscale and "
+          "failover benches")
+    loops = phase_closed_loops(cfg)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
                "phase6": {"cuckoo_probe": counts["cuckoo_probe"]},
                "phase7": {"ann_topk": counts["ann_topk"]},
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
-               "phase9": served, "phase10": workload}
+               "phase9": served, "phase10": workload, "phase11": loops}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     counts.update(workload)
+    counts.update(loops)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

@@ -17,16 +17,22 @@ The facade hands out uniform capabilities:
     sched = platform.scheduler(cfg, params)     # continuous batching
     sched.run(platform.jobs(vocab=cfg.vocab))   # the declared workload
     advice = platform.advise()
+    platform.autoscale(step)                    # closed provisioning loop
     platform.fail_host(2)                       # unplanned failure
+    platform.repair()                           # paced re-replication
     platform.advise_availability()              # replication pricing
+
+`autoscale` lets the advisor *drive* `add_host`/`remove_host` (under
+the spec's rebalance pacer and autoscale bounds) instead of merely
+advising — see `repro_torch.platform.autoscale`.
 
 `device` is where the economic gates keep their reuse sketch and where
 `engine` and `scheduler` decode; it resolves to CUDA unless the caller
 asks for the CPU.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the far-memory pool (`spec.pool`), `expert_store` and `repair` (Queue 1
-item 7); `autoscale` (item 0f).
+the far-memory pool (`spec.pool`, Queue 1 item 7d) and `expert_store`
+(item 7f).
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ class Platform:
         self.obs = obs if obs is not None else Observability()
         self.device = device
         self._workload = None
+        self._autoscaler = None
 
     # ------------------------------------------------------ observability
     @property
@@ -106,7 +113,7 @@ class Platform:
         device = resolve_device(device)
         if spec.pool is not None:
             raise _not_ported("the far-memory pool (HierarchySpec.pool)",
-                              "7")
+                              "7d")
         clock = VirtualClock(spec.t0) if spec.clock == "virtual" \
             else WallClock()
 
@@ -232,7 +239,7 @@ class Platform:
                          else self.spec.replicas)
 
     def expert_store(self, *args, **kw):
-        raise _not_ported("Platform.expert_store (tiering/)", "7")
+        raise _not_ported("Platform.expert_store (tiering/)", "7f")
 
     def checkpoint_steps(self, step_time: Optional[float] = None) -> int:
         """spec.checkpoint_interval (seconds) -> decode steps for this
@@ -340,7 +347,11 @@ class Platform:
         return self.fabric.fail_host(host)
 
     def repair(self, batch_keys: int = 64):
-        raise _not_ported("Platform.repair (runtime/repair.py)", "7")
+        """Re-replicate everything under-replicated or misplaced after a
+        failure, paced by the spec's `rebalance_rate`. Returns
+        `RepairStats` (its `duration` is the recovery time)."""
+        from ..runtime.repair import RepairLoop
+        return RepairLoop(self.fabric, batch_keys=batch_keys).run()
 
     def advise_availability(self, mttf: Optional[float] = None, **kw):
         """Replication-factor recommendation priced from live fleet
@@ -377,8 +388,14 @@ class Platform:
             resident_bytes=resident_bytes, **kw)
 
     def autoscale(self, step: Optional[int] = None):
-        raise _not_ported("Platform.autoscale (platform/autoscale.py)",
-                          "0f")
+        """One closed-loop provisioning step: the advisor's host-count
+        recommendation drives `add_host`/`remove_host` under the spec's
+        bounds, cooldown and rebalance pacer. Returns the
+        `AutoscaleDecision` (action taken, advice, rebalance stats)."""
+        if self._autoscaler is None:
+            from .autoscale import Autoscaler
+            self._autoscaler = Autoscaler(self)
+        return self._autoscaler.step(step)
 
     # ------------------------------------------------------------- control
     def drain(self) -> float:

@@ -2,6 +2,7 @@ from .async_engine import AsyncTierRuntime, QueueStats, Transfer  # noqa
 from .clock import CallableClock, VirtualClock, WallClock, ensure_clock  # noqa
 from .fabric import (NIC, FailureReport, HostView,  # noqa
                      RebalanceStats, RemoteFetch, ShardedTieredStore)
+from .repair import RepairLoop, RepairStats  # noqa
 from .service import (FabricTopology, FixedLatencyModel,  # noqa
                       GpuDirectQueueModel, NetQueueModel, Service,
                       SsdQueueModel)

@@ -55,9 +55,9 @@ lost; replicated keys survive and reads route around the dead holder
 (`holders()` only ever lists active hosts — degraded reads need no
 special path), with `RemoteFetch.wait()` falling back to a surviving
 holder when the sender died mid-flight. `under_replicated()` lists the
-keys whose copy set no longer matches their target placement; the
-repair loop that streams them back to their declared degree is not
-ported yet (ROADMAP Queue 1 item 7).
+keys whose copy set no longer matches their target placement, and the
+repair loop (`runtime/repair.py`) streams them back to their declared
+degree under the rebalance pacer.
 
 Admission control rides in from `TieredStore`: pass
 `write_shield_depth=k` and each host defers demotion writes while its
@@ -93,7 +93,7 @@ non-template host. The declarative front door for all of this is
 `repro_torch.platform.HierarchySpec` -> `Platform.compile`.
 
 The fleet-shared far-memory pool (`pool=`) waits for ROADMAP Queue 1
-item 7 and raises NotImplementedError.
+item 7d and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -324,7 +324,7 @@ class ShardedTieredStore:
         if pool is not None:
             raise NotImplementedError(
                 "the fleet-shared far-memory pool (runtime/pool.py) is not "
-                "ported yet (ROADMAP Queue 1 item 7)")
+                "ported yet (ROADMAP Queue 1 item 7d)")
         if host_specs is not None:
             if n_hosts is not None and n_hosts != len(host_specs):
                 raise ValueError(
@@ -736,7 +736,7 @@ class ShardedTieredStore:
         durable — once the structural placement exists the bytes are
         committed to the wire. Restoring the declared replication degree
         of the surviving under-replicated keys is the repair loop's job
-        (not ported yet: ROADMAP Queue 1 item 7)."""
+        (`repro_torch.runtime.repair.RepairLoop`)."""
         if host not in self.host_ids:
             raise KeyError(f"host {host} is not active")
         if self.n_hosts == 1:
