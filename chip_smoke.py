@@ -111,6 +111,23 @@ Drives the port's serving path on the card and checks it, in phases:
      byte-identical on both devices, its verdicts printed as measured;
      each arm's host-clock wall on both devices, its launches and its
      modeled cost_per_token, per_token_stall and recovery_seconds.
+ 12. the paper's artifacts on the card: `repro_torch.benchmarks.run
+     --full --device cuda` in the process (ten anchors met; Fig. 10's
+     fails at --full as the reference's own does, its recall@10 within
+     0.005 of the CPU's); the eleven artifacts in quick mode on the card
+     and the CPU, rows and notes equal (numbers at rtol 1e-12, Fig. 10's
+     recall@10 within 0.005); `analytic_iops_grid` over Fig. 3's grid
+     (SLC/pSLC/TLC, storage-next and normal, l_blk 512-4096, gamma 1, 3,
+     9 and inf) and the channel-bandwidth sweep, card == CPU at rtol
+     1e-12; the kvstore_demo, ann_search and provision_advisor twins (the
+     advisor in its three modes) on both devices, every line equal but
+     the host-clock and route parts that TWIN_MASKS names; ann_search
+     over phase 7's corpus (262,144 vectors, 1024 queries) at promote 64
+     and 256 on the card, recall@10 > 0.98 at 256; cuckoo_probe, ann_topk
+     and reuse_sketch each launched in the phase; then, outside the
+     counted run, ann_topk against its plain version at Fig. 10's stage-1
+     shapes ([200,128] x [20,000 | 100,000,128], k = 64) by phase 7's
+     rule (ANN_ATOL, ANN_TIE).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -187,6 +204,47 @@ ANN_ATOL, ANN_TIE = 1e-4, 1e-5
 # control plane fed with it: Zipf ids, the first PLANE_KV of class "kv"
 SKETCH_N_STEP = 50_000
 PLANE_STEPS, PLANE_KEYS, PLANE_KV = 20, 1_000_000, 100_000
+# phase 12: the paper's artifacts. Rows and notes of the host float64
+# analytics and the event simulator on the card equal the CPU's to
+# ARTIFACT_RTOL (the same float64 code on both). Fig. 10's stage 1 ranks
+# by ann_topk on the card and by its plain version on the CPU: float32
+# products summed in another order may swap near-tie ids at the promote
+# boundary, so recall@10 is held within RECALL_TOL (10 of the 2,000 true
+# neighbours of 200 queries) and not to equality
+ARTIFACT_RTOL = 1e-12
+RECALL_TOL = 0.005
+# the reference's own Fig. 10 fails its recall anchor at --full (recall@10
+# 0.916 over 100,000 vectors at promote 64; its `fig10_ann(quick=False)`
+# raises the same): the port reproduces that artifact's outcome, not a pass
+FULL_ANCHOR_FAILS = ("Fig. 10  two-stage progressive ANN",)
+# the example twins' host-clock and device-naming parts (pattern,
+# replacement), blanked on both devices before their lines are compared
+TWIN_MASKS = {
+    "kvstore_demo": (
+        (r"^(\[store\] \d+ items inserted at load [0-9.]+) in [0-9.]+s;",
+         r"\1 in <host clock>;"),
+        (r"^(\[store\] batched GET x\d+: \d+ found, \d+ values correct), "
+         r"\d+ms \((.*); (~1\.5 block reads/GET)\)$",
+         r"\1, <host clock> (<route>; \3)")),
+    "ann_search": (
+        (r"^\[search\] wall: exact [0-9.]+s vs two-stage [0-9.]+s \(.*\)$",
+         "[search] wall: <host clock> (<route>)"),),
+    "provision_advisor": (),
+}
+# ann_search's recall line: compared within RECALL_TOL, as Fig. 10's
+ANN_RECALL_LINE = r"^\[search\] recall@10 = ([0-9.]+) "
+TWIN_RUNS = (("kvstore_demo", ()), ("ann_search", ()),
+             ("provision_advisor", ()),
+             ("provision_advisor", ("--trace", "scan_flood")),
+             ("provision_advisor", ("--advise-tiers", "--trace", "diurnal",
+                                    "--rent-factor", "0.25")))
+# phase 7's corpus through the ann_search twin: the default promote, and
+# the deepest that ann_topk takes
+ANN_TWIN_FULL = ("--n", str(ANN_N), "--queries", str(ANN_Q))
+PHASE12_KERNELS = ("cuckoo_probe", "ann_topk", "reuse_sketch")
+# Fig. 10's stage 1 (quick, also ann_search's default, and --full):
+# FIG10_Q queries against each corpus size, at promote ANN_PROMOTE
+FIG10_N, FIG10_Q = (20_000, 100_000), 200
 
 
 def _prompts(vocab: int, n: int, rng):
@@ -2568,6 +2626,252 @@ def phase_closed_loops(cfg):
     return {"reuse_sketch": launches}
 
 
+# --------------------------------------------------------------- phase 12
+def _captured(main, argv):
+    """(return value, stdout lines) of an entry point's `main(argv)`."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(list(argv))
+    return code, buf.getvalue().splitlines()
+
+
+def _harness_outcome(lines):
+    """{artifact name: its `-->` line} from the harness's output."""
+    out, name = {}, None
+    for ln in lines:
+        if ln.startswith("=== "):
+            name = ln[4:].rstrip("= ").strip()
+        elif ln.startswith("--> ") and name is not None:
+            out[name] = ln[4:]
+            name = None
+    return out
+
+
+def _same_artifact(name, got, want):
+    """Rows and note of one artifact on the card against the CPU's."""
+    import re
+    (rows, note), (want_rows, want_note) = got, want
+    assert len(rows) == len(want_rows), name
+    rows = [dict(r) for r in rows]
+    want_rows = [dict(r) for r in want_rows]
+    gap = None
+    if "Fig. 10" in name:
+        a, b = rows[0].pop("recall@10"), want_rows[0].pop("recall@10")
+        gap = abs(a - b)
+        assert gap <= RECALL_TOL and a > 0.98, (name, a, b)
+        mask = re.compile(r"recall@10=[0-9.]+")
+        note, want_note = mask.sub("", note), mask.sub("", want_note)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(rows, want_rows)):
+        assert list(g) == list(w), (name, i)
+        for k, v in w.items():
+            if isinstance(v, float):
+                assert isinstance(g[k], float), (name, i, k)
+                assert math.isclose(g[k], v, rel_tol=ARTIFACT_RTOL), \
+                    (name, i, k, g[k], v)
+                if v and math.isfinite(v):
+                    worst = max(worst, abs(g[k] - v) / abs(v))
+            else:
+                assert type(g[k]) is type(v) and g[k] == v, \
+                    (name, i, k, g[k], v)
+    assert note == want_note, (name, note, want_note)
+    return worst, gap
+
+
+def _twin_lines(name, lines):
+    """A twin's lines with TWIN_MASKS applied; also the lines it masked
+    and ann_search's recall (None elsewhere)."""
+    import re
+    out, masked, recall = [], [], None
+    for ln in lines:
+        m = ln
+        for pat, rep in TWIN_MASKS[name]:
+            m = re.sub(pat, rep, m)
+        if name == "ann_search":
+            hit = re.match(ANN_RECALL_LINE, m)
+            if hit:
+                recall = float(hit.group(1))
+                m = m.replace(hit.group(1), "<recall>", 1)
+        if m != ln:
+            masked.append(ln)
+        out.append(m)
+    return out, masked, recall
+
+
+def phase_artifacts():
+    """The paper's artifacts on the card: the harness at --full, every
+    artifact in quick mode on the card against the CPU, the analytic IOPS
+    grid on both devices, and the example twins on both devices, then
+    ann_search at phase 7's corpus on the card. Returns the launches of
+    cuckoo_probe, ann_topk and reuse_sketch in the phase."""
+    import re
+    import torch
+    from repro_torch import kernels
+    from repro_torch.ann.corpus import make_corpus, make_queries
+    from repro_torch.benchmarks import paper_figs
+    from repro_torch.benchmarks import run as harness
+    from repro_torch.core import (PSLC, SLC, TLC, normal_ssd,
+                                  storage_next_ssd)
+    from repro_torch.examples import ann_search, kvstore_demo, \
+        provision_advisor
+    from repro_torch.ssdsim import analytic_iops_grid
+    from repro_torch.ssdsim.sweep import analytic_channel_bw_sweep
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    name = torch.cuda.get_device_name(0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # (a) the harness at --full on the card
+    t = time.perf_counter()
+    code, lines = _captured(harness.main, ["--full", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall_full = time.perf_counter() - t
+    outcome = _harness_outcome(lines)
+    assert len(outcome) == 11, outcome
+    failed = tuple(n for n, note in outcome.items()
+                   if note.startswith(("ANCHOR FAILED", "ERROR")))
+    for n, note in outcome.items():
+        print(f"  --full [{card}] {n}: {note}")
+    summary = next(ln for ln in lines if "paper artifacts reproduced" in ln)
+    print(f"  --full: {summary} (exit {code}; harness wall {wall_full!r} s, "
+          f"host clock)")
+    assert failed == FULL_ANCHOR_FAILS and code == 1, (failed, code)
+    fail_note = outcome[FULL_ANCHOR_FAILS[0]]
+    assert fail_note.startswith("ANCHOR FAILED: "), fail_note
+    rec_card = float(fail_note.split(": ", 1)[1])
+    try:
+        paper_figs.fig10_ann(quick=False, device="cpu")
+    except AssertionError as e:
+        rec_cpu = float(str(e))
+    else:
+        raise AssertionError("fig10_ann(quick=False) met its anchor on "
+                             "the CPU but not on the card")
+    assert abs(rec_card - rec_cpu) <= RECALL_TOL, (rec_card, rec_cpu)
+    print(f"  --full Fig. 10: recall@10 {rec_card} over 100,000 vectors at "
+          f"promote 64 on the card, {rec_cpu} on the CPU: the reference's "
+          f"own --full outcome (its anchor fails there too); the other "
+          f"10 anchors met on the card")
+
+    # (b) every artifact in quick mode, card against CPU
+    walls, res = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        res[dev] = [(n, fn(**kw))
+                    for n, fn, kw in harness.artifacts(True, dev)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t
+    worst, gap = 0.0, None
+    for (n, got), (_, want) in zip(res["cuda"], res["cpu"]):
+        w, g = _same_artifact(n, got, want)
+        worst = max(worst, w)
+        gap = g if g is not None else gap
+    print(f"  quick: all 11 artifacts' rows and notes equal on cuda and "
+          f"cpu (largest relative difference {worst!r}; Fig. 10 recall@10 "
+          f"{res['cuda'][8][1][0][0]['recall@10']!r} on the card, "
+          f"{res['cpu'][8][1][0][0]['recall@10']!r} on the cpu, gap {gap!r}"
+          f" <= {RECALL_TOL}); walls {walls['cuda']!r} s on cuda "
+          f"[{card}], {walls['cpu']!r} s on cpu (host clock)")
+
+    # (c) Fig. 3's grid through analytic_iops_grid on both devices
+    l_blks, gammas = (512, 1024, 2048, 4096), (1.0, 3.0, 9.0, math.inf)
+    grid_worst, cells = 0.0, 0
+    for nand in (SLC, PSLC, TLC):
+        for make in (storage_next_ssd, normal_ssd):
+            ssd = make(nand)
+            on = {d: analytic_iops_grid(ssd, l_blks, gammas, device=d)
+                  for d in ("cuda", "cpu")}
+            bw = {d: analytic_channel_bw_sweep(ssd, 512, (3.6e9, 4.8e9,
+                                                          5.6e9), device=d)
+                  for d in ("cuda", "cpu")}
+            for a, b in ((on["cuda"], on["cpu"]), (bw["cuda"], bw["cpu"])):
+                assert a.is_cuda and a.dtype == torch.float64, a
+                a = a.cpu()
+                assert a.shape == b.shape and bool(torch.isfinite(a).all())
+                torch.testing.assert_close(a, b, rtol=ARTIFACT_RTOL, atol=0)
+                grid_worst = max(grid_worst,
+                                 float(((a - b).abs() / b.abs()).max()))
+                cells += a.numel()
+    print(f"  analytic_iops_grid (SLC/pSLC/TLC x storage-next/normal x "
+          f"l_blk 512-4096 x gamma 1/3/9/inf) and the channel-bw sweep: "
+          f"{cells} cells, cuda == cpu within rtol {ARTIFACT_RTOL}; largest "
+          f"relative difference {grid_worst!r}")
+
+    # (d) the example twins on both devices
+    mods = {"kvstore_demo": kvstore_demo, "ann_search": ann_search,
+            "provision_advisor": provision_advisor}
+    for twin, argv in TWIN_RUNS:
+        runs, twalls = {}, {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            runs[dev] = _twin_lines(
+                twin, _captured(mods[twin].main, argv + ("--device", dev))[1])
+            twalls[dev] = time.perf_counter() - t
+        (card_lines, card_masked, r_card), (cpu_lines, _, r_cpu) = \
+            runs["cuda"], runs["cpu"]
+        assert card_lines == cpu_lines, (twin, argv, card_lines, cpu_lines)
+        assert len(card_masked) == len(TWIN_MASKS[twin]) + \
+            (twin == "ann_search"), (twin, card_masked)
+        if twin == "ann_search":
+            assert abs(r_card - r_cpu) <= RECALL_TOL, (r_card, r_cpu)
+        if twin in ("kvstore_demo", "ann_search"):
+            kern = "cuckoo_probe" if twin == "kvstore_demo" else "ann_topk"
+            assert sum(f"{kern} kernel on {name}" in ln
+                       for ln in card_masked) == 1, card_masked
+        print(f"  {twin} {' '.join(argv)}: {len(card_lines)} lines equal "
+              f"on cuda and cpu (masked: host clock and route); walls "
+              f"{twalls['cuda']:.2f} s on cuda [{card}] / "
+              f"{twalls['cpu']:.2f} s on cpu")
+        for ln in card_masked:
+            print(f"    [{card}] {ln}")
+
+    # ann_search at phase 7's corpus, on the card alone
+    recalls = {}
+    for argv in (ANN_TWIN_FULL, ANN_TWIN_FULL + ("--promote", "256")):
+        t = time.perf_counter()
+        _, out = _captured(ann_search.main, argv + ("--device", "cuda"))
+        wall = time.perf_counter() - t
+        rec_ln = next(ln for ln in out if ln.startswith("[search] recall"))
+        wall_ln = next(ln for ln in out if ln.startswith("[search] wall"))
+        promote = argv[-1] if "--promote" in argv else "64"
+        recalls[promote] = float(re.match(ANN_RECALL_LINE, rec_ln).group(1))
+        print(f"  ann_search {' '.join(argv)} [{card}]: {rec_ln}; {wall_ln}; "
+              f"run wall {wall:.1f} s (corpus made on the host)")
+    print(f"  recall@10 over {ANN_N} vectors: {recalls['64']} at the "
+          f"default promote 64 (> 0.98: {recalls['64'] > 0.98}), "
+          f"{recalls['256']} at promote 256 (> 0.98: asserted)")
+    assert recalls["256"] > 0.98, recalls
+
+    # (e) the three kernels launched through the entry points
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches = {n: counts[n] for n in PHASE12_KERNELS}
+    print(f"  launches in phase 12: {json.dumps(launches)}")
+    for n in PHASE12_KERNELS:
+        assert launches[n] > 0, f"{n} never launched in phase 12"
+
+    # (f) ann_topk's ids and distances against its plain version at the
+    # stage-1 shapes that Fig. 10 and ann_search gave it above and phase 7
+    # does not check; the recall lines above only bound what near-tie
+    # swaps cost. ann_search over phase 7's corpus gave it phase 7's own
+    # inputs ([1024,128] x [262144,128], same seeds) at k = 64 and 256,
+    # which phase 7 holds to this rule. After (e): not counted.
+    for n_ in FIG10_N:
+        full_np, red_np, _ = make_corpus(n_, ANN_D_FULL, ANN_D_RED)
+        q_red = make_queries(full_np, FIG10_Q)[:, :ANN_D_RED].copy()
+        del full_np
+        _ann_case(torch.from_numpy(q_red).cuda(),
+                  torch.from_numpy(red_np).cuda(), ANN_PROMOTE,
+                  f"[{FIG10_Q},{ANN_D_RED}] x [{n_},{ANN_D_RED}] "
+                  f"(Fig. 10 stage 1)")
+    print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2628,16 +2932,21 @@ def main() -> int:
           "fail_host and Platform.repair through the autoscale and "
           "failover benches")
     loops = phase_closed_loops(cfg)
+    print("[12] the paper's artifacts on the card: the harness, the "
+          "analytic grid and the example twins")
+    artifacts = phase_artifacts()
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
                "phase6": {"cuckoo_probe": counts["cuckoo_probe"]},
                "phase7": {"ann_topk": counts["ann_topk"]},
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
-               "phase9": served, "phase10": workload, "phase11": loops}
+               "phase9": served, "phase10": workload, "phase11": loops,
+               "phase12": artifacts}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     counts.update(workload)
     counts.update(loops)
+    counts.update(artifacts)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

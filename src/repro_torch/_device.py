@@ -22,3 +22,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         # name the device the tensors will report ("cuda:0", not "cuda")
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """What ran: the card's name, or the host's CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type.upper()
+

@@ -24,18 +24,11 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_name, resolve_device
 from ..configs import PORTED, get_config
 from ..models import model as M
 from ..platform import HierarchySpec, HostDecl, Platform, PolicyDecl
 from ..serving.engine import Request
-
-
-def device_name(dev: torch.device) -> str:
-    """What served: the card's name, or the host's CPU."""
-    if dev.type == "cuda":
-        return torch.cuda.get_device_name(dev)
-    return dev.type.upper()
 
 
 def tier_sessions(eng, clock, r0, r1, step_time):
