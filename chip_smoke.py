@@ -128,6 +128,24 @@ Drives the port's serving path on the card and checks it, in phases:
      counted run, ann_topk against its plain version at Fig. 10's stage-1
      shapes ([200,128] x [20,000 | 100,000,128], k = 64) by phase 7's
      rule (ANN_ATOL, ANN_TIE).
+ 13. full-width deepseek-7b (30 layers, d_model 4096, MHA of 32 heads of
+     128, SwiGLU d_ff 11008, an untied unembed; random bf16 weights from
+     a seed): (a) rmsnorm and add_rmsnorm at [4,4096] and [1023,4096],
+     decode attention at q [4,32,128] and k,v [4,32,1024,128] (one query
+     head a kv head; the step's lengths, ragged ones, 0 and past T;
+     timed over one cache a layer) and flash attention at q,k,v
+     [1,32,S,128] at every prefill bucket (the prefill's strided layout
+     too), each against its plain version in f32 and bf16 and timed
+     against its library call and bound; (b) serve_tiered_kv's spec
+     through `Platform.compile` -> `Platform.engine`: the first step's
+     logits against the plain path by phase 4's rule, phase 4's prompts
+     and the example's flow, greedy tokens across a pause to flash and a
+     prefetched resume equal to a run without a break (the pause's and
+     the restore's host time), DRAM and flash both written, three decode
+     windows, one prefill and one decode step profiled; (c) one run of
+     phase 10's workload through `Platform.scheduler`: its report,
+     tenants, ledger, tau_be, where each pause went, the wall split and
+     peak host RSS; the serving kernels and reuse_sketch launched.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -177,6 +195,9 @@ KERNELS = {
                      "src/repro/kernels/reuse_sketch/kernel.py:54"),
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+# the full-width configs the script serves, by their published parameter
+# count: gemma-2b in phases 4 and 9-10, deepseek-7b in phase 13
+PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
 # the TPU kernel's largest and one that is not a multiple of 8; rows of a
 # step, of a decode step's slots and of the largest prefill bucket
@@ -253,6 +274,19 @@ def _prompts(vocab: int, n: int, rng):
         np.int32) for _ in range(n)]
 
 
+def _path_shapes(prompts):
+    """The kernels' shapes on the serving path of `prompts`: the decode
+    step's lengths of the first slot grid, a few steps in (int32 on the
+    card), and the engine's prefill lengths, prompts padded to powers of
+    two."""
+    import torch
+    lengths = torch.tensor([len(p) + 8 for p in prompts[:MAX_SLOTS]],
+                           dtype=torch.int32, device="cuda")
+    buckets = sorted({min(1 << (len(p) - 1).bit_length(), MAX_LEN - 1)
+                      for p in prompts})
+    return lengths, buckets
+
+
 def _time_ms(calls, iters: int = 40, queued: bool = True) -> float:
     """Mean time of one call over `iters` calls cycling through `calls`
     (distinct inputs, so a call does not find the previous call's inputs
@@ -296,6 +330,88 @@ def _check(name, got, want, dtype_name, label):
                                msg=lambda m: f"{name} {label}: {m}")
     print(f"  check {name:17s} {label:44s} max_abs_err={err:.3e} ok")
     return err
+
+
+def _print_record(name, r):
+    print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
+          f"(with host launch {r['launch_ms']:.4f}) plain_ms="
+          f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+
+
+def _print_timeline(tl, where=""):
+    print(f"  time  decode_attention  timeline{where} (us at "
+          f"{tl['sm_clock_mhz']} MHz): first start to last exit "
+          f"{tl['first_start_to_last_exit_us']}; merging block "
+          f"{tl['critical_block_us']}; partial blocks (median) "
+          f"{tl['partial_blocks_median_us']}")
+
+
+def _decode_record(q, caches, lengths, scale, err) -> dict:
+    """decode_attention's times over `caches`, one (k, v) a layer read in
+    turn as the decode step reads them: kernel (device and with launch),
+    plain version, SDPA with the length mask, and the bound of the filled
+    rows' bytes and products."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+
+    B, H, hd = q.shape
+    KV, T = caches[0][0].shape[1:3]
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    filled = int(lengths.sum())
+    size = q.element_size()
+    nbytes = 2 * filled * KV * hd * size + 2 * q.numel() * size + B * 4
+    b_ms, b_by = _bound_ms(nbytes, 4 * filled * H * hd, q.dtype)
+    dt = str(q.dtype).split(".")[1].replace("bfloat16", "bf16")
+
+    def calls(fn):
+        return [lambda k=k, v=v: fn(q, k, v) for k, v in caches]
+    kern = calls(lambda q, k, v: decode_attention(q, k, v, lengths,
+                                                  scale=scale))
+    return dict(
+        shape=(f"q [{B},{H},{hd}] k,v [{B},{KV},{T},{hd}] {dt}, lengths "
+               f"{lengths.tolist()}"),
+        max_abs_err=err, ms=_time_ms(kern),
+        launch_ms=_time_ms(kern, queued=False),
+        plain_ms=_time_ms(calls(lambda q, k, v: reference_decode_attention(
+            q, k, v, lengths, scale=scale))),
+        library_ms=_time_ms(calls(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=valid, scale=scale,
+                enable_gqa=True))),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def _flash_record(ins, scale, err) -> dict:
+    """flash_attention's times over `ins`, distinct (q, k, v) of one
+    prefill bucket: kernel (device and with launch), plain version,
+    causal SDPA, and the bound of q, k, v and out's bytes and the causal
+    pairs' products."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+
+    _, H, S, hd = ins[0][0].shape
+    KV = ins[0][1].shape[1]
+    size = ins[0][0].element_size()
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * S * H * hd + 2 * S * KV * hd) * size
+    b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, ins[0][0].dtype)
+    kern = [lambda t=t: flash_attention(*t, scale=scale) for t in ins]
+    return dict(
+        shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{S},{hd}] bf16",
+        max_abs_err=err, ms=_time_ms(kern, iters=20),
+        launch_ms=_time_ms(kern, iters=20, queued=False),
+        plain_ms=_time_ms([lambda t=t: reference_attention(
+            *t, scale=scale) for t in ins], iters=10),
+        library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
+            *t, is_causal=True, scale=scale, enable_gqa=True)
+            for t in ins], iters=20),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -631,32 +747,10 @@ def phase_kernels(cfg, lengths_main, buckets):
     print("  check decode_attention  two calls bit-identical; right after a "
           "call with other lengths ok")
     # where a call spends its time, phase by phase (a -DDEC_TIMELINE build)
-    tl = decode_timeline.run(lengths_main.tolist())
-    print(f"  time  decode_attention  timeline (us at {tl['sm_clock_mhz']} "
-          f"MHz): first start to last exit "
-          f"{tl['first_start_to_last_exit_us']}; merging block "
-          f"{tl['critical_block_us']}; partial blocks (median) "
-          f"{tl['partial_blocks_median_us']}")
-    valid = (torch.arange(MAX_LEN, device=dev)[None, :]
-             < lengths_main[:, None])[:, None, None, :]
-    filled = int(lengths_main.sum())
-    nbytes = 2 * filled * KV * hd * 2 + 2 * q.numel() * 2 + MAX_SLOTS * 4
-    b_ms, b_by = _bound_ms(nbytes, 4 * filled * H * hd, torch.bfloat16)
-    rec["decode_attention"] = dict(
-        shape=(f"q [{MAX_SLOTS},{H},{hd}] k,v [{MAX_SLOTS},{KV},{MAX_LEN},"
-               f"{hd}] bf16, lengths {lengths_main.tolist()}"),
-        max_abs_err=errs[(torch.bfloat16, H, KV, "main")],
-        ms=_time_ms([lambda k=k, v=v: decode_attention(
-            q, k, v, lengths_main, scale=scale) for k, v in caches]),
-        launch_ms=_time_ms([lambda k=k, v=v: decode_attention(
-            q, k, v, lengths_main, scale=scale) for k, v in caches],
-            queued=False),
-        plain_ms=_time_ms([lambda k=k, v=v: reference_decode_attention(
-            q, k, v, lengths_main, scale=scale) for k, v in caches]),
-        library_ms=_time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=valid, scale=scale,
-            enable_gqa=True) for k, v in caches]),
-        bound_ms=b_ms, bound_by=b_by)
+    _print_timeline(decode_timeline.run(lengths_main.tolist()))
+    rec["decode_attention"] = _decode_record(
+        q, caches, lengths_main, scale,
+        errs[(torch.bfloat16, H, KV, "main")])
 
     # ---- flash attention: causal prefill, MQA and GQA, ragged S, S < T,
     # and head dims the wrapper pads (16, 32 -> 64 and 112 -> 128 in bf16;
@@ -696,97 +790,28 @@ def phase_kernels(cfg, lengths_main, buckets):
         err = _check("flash_attention", flash_attention(*ins[0], scale=scale),
                      reference_attention(*ins[0], scale=scale), "bfloat16",
                      f"bucket S={S} H={H} KV={KV} hd={hd} bf16")
-        pairs = S * (S + 1) // 2
-        nbytes = (2 * S * H * hd + 2 * S * KV * hd) * 2
-        b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, torch.bfloat16)
-        r = dict(
-            shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{S},{hd}] bf16",
-            max_abs_err=err,
-            ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
-                         for t in ins], iters=20),
-            launch_ms=_time_ms([lambda t=t: flash_attention(*t, scale=scale)
-                                for t in ins], iters=20, queued=False),
-            plain_ms=_time_ms([lambda t=t: reference_attention(
-                *t, scale=scale) for t in ins], iters=10),
-            library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
-                *t, is_causal=True, scale=scale, enable_gqa=True)
-                for t in ins], iters=20),
-            bound_ms=b_ms, bound_by=b_by)
+        r = _flash_record(ins, scale, err)
         if S == S_main:
             rec["flash_attention"] = r
         else:
-            print(f"  time  flash_attention   {r['shape']}: kernel_ms="
-                  f"{r['ms']:.4f} (with host launch {r['launch_ms']:.4f}) "
-                  f"plain_ms={r['plain_ms']:.4f} library_ms="
-                  f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-                  f"({r['bound_by']})")
+            _print_record("flash_attention", r)
     for name, r in rec.items():
-        print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
-              f"(with host launch {r['launch_ms']:.4f}) plain_ms="
-              f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+        _print_record(name, r)
     return rec
 
 
 # ---------------------------------------------------------------- phase 4
 def phase_serving(cfg, prompts):
     """Full-width gemma-2b serving through the kernels and the tiers."""
-    import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
-    from repro_torch.models import model as M
     from repro_torch.serving import Request
 
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in
-                   _tensors(params))
-    assert n_params == cfg.param_count() == 2_506_172_416, n_params
-    print(f"  gemma-2b: {n_params} parameters, bf16, native init in "
-          f"{time.perf_counter() - t0:.1f} s")
-
+    params = _native_params(cfg)
     eng, clock = _direct_engine(cfg, params)
     store = eng.store
-
-    # first-step logits: kernels vs the plain path, same bf16 weights.
-    # Two bf16 computations of an 18-layer stack differ by the rounding
-    # noise of each, so the tolerance is bf16's own error here: twice the
-    # plain bf16 path's distance from the same path in float32.
-    p0 = torch.as_tensor(prompts[0][None].astype(np.int64), device="cuda")
-
-    def first_logits(weights, dtype, plain):
-        cache = M.init_cache(cfg, 1, MAX_LEN, dtype, "cuda")
-        return M.prefill(weights, cfg, p0, cache, compute_dtype=dtype,
-                         plain=plain)[1].float()
-
-    kernels.reset_launch_counts()
-    kern = first_logits(params, torch.bfloat16, False)
-    per_prefill = kernels.launch_counts()
-    kernels.reset_launch_counts()
-    M.decode_step(params, cfg, p0[:, :1], M.init_cache(
-        cfg, 1, MAX_LEN, torch.bfloat16, "cuda"), 0,
-        compute_dtype=torch.bfloat16)
-    per_step = kernels.launch_counts()
-    print(f"  launches per prefill {per_prefill}, per decode step "
-          f"{per_step}")
-    assert per_prefill["rmsnorm"] == per_step["rmsnorm"] == _norms(cfg), \
-        (per_prefill, per_step)
-    plain = first_logits(params, torch.bfloat16, True)
-    params32 = _map(params, lambda t: t.float())
-    truth = first_logits(params32, torch.float32, True)
-    del params32
-    err = float((kern - plain).abs().max())
-    noise = float((plain - truth).abs().max())
-    print(f"  first-step logits [1,{cfg.vocab}]: kernels vs plain bf16 "
-          f"max_abs_err={err:.4e}; plain bf16 vs float32 {noise:.4e}; "
-          f"kernels vs float32 {float((kern - truth).abs().max()):.4e}; "
-          f"argmax {int(kern.argmax())} / {int(plain.argmax())} / "
-          f"{int(truth.argmax())}")
-    assert err <= 2 * noise, (err, noise)
-    del kern, plain, truth
-    torch.cuda.empty_cache()
+    _first_step(cfg, params, prompts[0])
 
     reqs = [Request(rid=f"s{i}", prompt=p, max_new=MAX_NEW)
             for i, p in enumerate(prompts[:N_REQUESTS])]
@@ -848,10 +873,131 @@ def phase_serving(cfg, prompts):
     return counts, params
 
 
+def _native_params(cfg):
+    """`cfg` at full width and depth: bf16 weights from SEED, made on the
+    card by native init; their count must be the config's published one."""
+    import torch
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    assert n_params == cfg.param_count() == PARAMS[cfg.name], n_params
+    print(f"  {cfg.name}: {n_params} parameters, bf16, native init in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _first_step(cfg, params, prompt):
+    """The launches of one prefill and one decode step, and the first
+    step's logits through the kernels against the plain path on the same
+    bf16 weights. Two bf16 computations of a deep stack differ by the
+    rounding noise of each, so the tolerance is bf16's own error here:
+    twice the plain bf16 path's distance from the same path in float32
+    (a float32 copy of the weights, freed right after). Returns the
+    launches per prefill and per decode step."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+
+    p0 = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
+
+    def first_logits(weights, dtype, plain):
+        cache = M.init_cache(cfg, 1, MAX_LEN, dtype, "cuda")
+        return M.prefill(weights, cfg, p0, cache, compute_dtype=dtype,
+                         plain=plain)[1].float()
+
+    kernels.reset_launch_counts()
+    kern = first_logits(params, torch.bfloat16, False)
+    per_prefill = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    M.decode_step(params, cfg, p0[:, :1], M.init_cache(
+        cfg, 1, MAX_LEN, torch.bfloat16, "cuda"), 0,
+        compute_dtype=torch.bfloat16)
+    per_step = kernels.launch_counts()
+    print(f"  launches per prefill {per_prefill}, per decode step "
+          f"{per_step}")
+    assert per_prefill["rmsnorm"] == per_step["rmsnorm"] == _norms(cfg), \
+        (per_prefill, per_step)
+    plain = first_logits(params, torch.bfloat16, True)
+    params32 = _map(params, lambda t: t.float())
+    truth = first_logits(params32, torch.float32, True)
+    del params32
+    err = float((kern - plain).abs().max())
+    noise = float((plain - truth).abs().max())
+    print(f"  first-step logits [1,{cfg.vocab}]: kernels vs plain bf16 "
+          f"max_abs_err={err:.4e}; plain bf16 vs float32 {noise:.4e}; "
+          f"kernels vs float32 {float((kern - truth).abs().max()):.4e}; "
+          f"argmax {int(kern.argmax())} / {int(plain.argmax())} / "
+          f"{int(truth.argmax())}")
+    assert err <= 2 * noise, (err, noise)
+    del kern, plain, truth
+    torch.cuda.empty_cache()
+    return per_prefill, per_step
+
+
 def _norms(cfg) -> int:
     """rmsnorm launches a forward: one before each sublayer and the final
     norm (the residual adds run inside them)."""
     return cfg.n_groups * sum(len(layer) for layer in cfg.pattern) + 1
+
+
+def _timed(fn, *args):
+    """fn(*args) and its seconds on the host clock, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+PROFILE_PAD = 512              # spin kernels on each side of a profiled call
+PAD_CYCLES = 50_000            # each spins ~25 us at 1.98 GHz
+PAD_KERNEL = "spin_kernel"     # torch.cuda._sleep's kernel
+
+
+def _profiled(fn):
+    """fn() under torch.profiler (CPU and CUDA activities): (fn's device
+    operations from `key_averages()`, fn's wall on the host clock,
+    synchronised). Late in a long process a trace loses its first device
+    operations, a count of them and not a span of time: 21-25 late in
+    the run whether they were a deepseek-7b prefill's own or spin
+    kernels of 0.5 us or 0.25 ms, and once a norm of a phase-4 step. So
+    PROFILE_PAD spin kernels of PAD_CYCLES each run on each side of fn
+    inside the trace, each side synchronised; they are left out of what
+    is returned, and the call fails unless the trace kept at least one
+    of them on each side, which shows that neither edge of the trace
+    reached fn's own operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad()
+        wall = _timed(fn)[1]
+        pad()
+    starts = [(e.time_range.start, PAD_KERNEL in e.name)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    work = [t for t, is_pad in starts if not is_pad]
+    pads = [t for t, is_pad in starts if is_pad]
+    before = sum(t < min(work) for t in pads) if work else len(pads)
+    after = sum(t > max(work) for t in pads) if work else 0
+    print(f"  profiler: {before} + {after} of the {PROFILE_PAD} + "
+          f"{PROFILE_PAD} pad kernels before + after the call in the trace")
+    assert not work or (before and after), \
+        f"the trace's window cut into the call ({before}, {after} pads)"
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return [e for e in dev if PAD_KERNEL not in e.key], wall
 
 
 def _profile_split(eng, prompts):
@@ -860,17 +1006,10 @@ def _profile_split(eng, prompts):
     the device-idle share, 1 - kernel time / wall. The profiler slows the
     host, so the share is given against the profiled wall and against the
     same work's wall without the profiler (host clock, synchronised)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Request
 
     def wall(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
+        return _timed(fn)[1]
 
     # prompts 0, 2 and 5 fall in bucket 1023, prompt 1 in 256
     reqs = [Request(rid=f"prof{i}", prompt=prompts[i], max_new=MAX_NEW)
@@ -879,18 +1018,13 @@ def _profile_split(eng, prompts):
     eng.admit(reqs[1])
     eng.step()
     plain_pre = wall(lambda: eng.admit(reqs[2]))
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof_pre:
-        wall_pre = wall(lambda: eng.admit(reqs[3]))
+    prof_pre, wall_pre = _profiled(lambda: eng.admit(reqs[3]))
     plain_step = sorted(wall(eng.step) for _ in range(5))[2]
-    with profile(activities=acts) as prof_step:
-        wall_step = wall(eng.step)
-    for label, prof, w, w0 in (
+    prof_step, wall_step = _profiled(eng.step)
+    for label, kern, w, w0 in (
             ("prefill, bucket 1023", prof_pre, wall_pre, plain_pre),
             (f"decode step, {MAX_SLOTS} live slots", prof_step, wall_step,
              plain_step)):
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kern) / 1e3   # ms
         if busy == 0:
             print(f"  profile {label}: the profiler saw no device time; "
@@ -980,6 +1114,18 @@ def _direct_engine(cfg, params):
                         device="cuda"), clock
 
 
+def _example_spec(cfg):
+    """examples/serve_tiered_kv.py's one-host spec (static tau_hot 0.05 /
+    tau_be 1.0 / ema_alpha 1.0, 5 ms step) with `_tier_table`'s tiers."""
+    from repro_torch.platform import (HierarchySpec, HostDecl, PolicyDecl,
+                                      TierDecl)
+    return HierarchySpec(
+        hosts=(HostDecl(tiers={name: TierDecl(*t) for name, t in
+                               _tier_table(cfg).items()}),),
+        policy=PolicyDecl.static(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0),
+        step_time=STEP_TIME)
+
+
 def _example_flow(eng, clock, prompts):
     """examples/serve_tiered_kv.py's flow at full width: serve phase 4's
     requests, run the example's `tier_sessions` on the first two, then
@@ -1044,17 +1190,11 @@ def phase_platform(cfg, params, prompts):
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
-    from repro_torch.platform import (HierarchySpec, HostDecl,
-                                      ObservabilityDecl, Platform,
-                                      PolicyDecl, TierDecl)
+    from repro_torch.platform import ObservabilityDecl, Platform
 
     t0 = time.perf_counter()
     card = _smi()
-    spec = HierarchySpec(
-        hosts=(HostDecl(tiers={name: TierDecl(*t) for name, t in
-                               _tier_table(cfg).items()}),),
-        policy=PolicyDecl.static(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0),
-        step_time=STEP_TIME)
+    spec = _example_spec(cfg)
     platform = Platform.compile(spec, device="cuda")
     eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
                           max_len=MAX_LEN, compute_dtype=torch.bfloat16)
@@ -1238,19 +1378,7 @@ def _profile_step(step, card):
     """The device-idle share of one decode step (`step`, called once)
     with every slot decoding, under torch.profiler, as `_profile_split`
     measures phase 4's."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern, wall = _profiled(step)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy == 0:
         print(f"  profile of a decode step inside the run: the profiler saw "
@@ -1262,6 +1390,54 @@ def _profile_step(step, card):
           f" profiled; {sum(e.count for e in kern)} device operations "
           f"[{card}]")
     return busy
+
+
+def _workload_report(platform, sched, report, tiers, card):
+    """Hold a workload run's stall ledger to its report (the reference's
+    tests/test_workload.py conservation) and print where its pauses went,
+    the report, the tenants' cells, the ledger and the compiled tau_be by
+    tenant. Returns (tau_be by tenant, the host's DRAM and FLASH stats)."""
+    from repro_torch.core.policy import Tier
+
+    led = sched.stall_ledger()
+    rhs = report["kv_stall"] + STEP_TIME * report["slot_idle_steps"]
+    assert abs(led["total"] - rhs) <= 1e-9 * max(rhs, 1e-30), (led, rhs)
+    tenant_slice = sum(c["ledger_stall"]
+                       for c in report["tenants"].values())
+    assert tenant_slice <= led["total"] - led["scheduler_idle"] + 1e-12, \
+        (tenant_slice, led)
+    taus = platform.policy(0).class_tau_be
+    host = platform.fabric.hosts[0]
+    dram, flash = host.stats[Tier.DRAM], host.stats[Tier.FLASH]
+    print(f"  pauses by the tier the gate gave them: "
+          f"{ {t: tiers.count(t) for t in sorted(set(tiers))} }; store "
+          f"DRAM {dram}; FLASH {flash}")
+    keys = ("tokens", "ticks", "decode_steps", "slot_idle_steps",
+            "admissions", "parks", "unparks", "pauses", "preempt_pauses",
+            "resumes", "prefetches", "deadline_misses", "kv_stall",
+            "per_token_stall", "makespan", "tokens_per_sec")
+    print(f"  report() [{card}]: " + ", ".join(
+        f"{k} {report[k]!r}" for k in keys) + " (kv_stall, per_token_stall"
+        ", makespan and tokens_per_sec are modeled: virtual clock, "
+        f"{STEP_TIME} s a step)")
+    print(f"  tenant_report() [{card}]: "
+          f"{json.dumps(sched.tenant_report(), sort_keys=True)}")
+    print(f"  stall_ledger() [{card}]: {json.dumps(led, sort_keys=True)}")
+    print(f"  compiled tau_be by tenant [{card}]: "
+          f"{json.dumps(taus, sort_keys=True)}")
+    return taus, dram, flash
+
+
+def _print_split(label, report, wall, split):
+    """A workload run's wall split into the engine calls the scheduler
+    made (`_serve_workload`'s split) and the scheduler's own Python."""
+    calls = {"step": report["decode_steps"], "admit": report["admissions"],
+             "pause": report["pauses"], "resume": report["resumes"],
+             "prefetch": report["prefetches"]}
+    print(f"    {label}: " + ", ".join(
+        f"{name} {split[name]!r} s ({calls[name]} calls)"
+        for name in ENGINE_CALLS)
+        + f"; the scheduler's own Python {wall - sum(split.values())!r} s")
 
 
 def _tokens(jobs):
@@ -1281,7 +1457,6 @@ def phase_workload(cfg, params):
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import Tier
     from repro_torch.models import model as M
     from repro_torch.platform import Platform
     from repro_torch.serving import compare_scheduling
@@ -1307,23 +1482,11 @@ def phase_workload(cfg, params):
     print(f"  {WORKLOAD_RUNS} runs on fresh platforms: equal tokens for "
           f"all {len(jobs)} sessions, equal report() and pause tiers")
 
-    # stall-ledger conservation (the reference's tests/test_workload.py)
-    led = sched.stall_ledger()
-    rhs = report["kv_stall"] + STEP_TIME * report["slot_idle_steps"]
-    assert abs(led["total"] - rhs) <= 1e-9 * max(rhs, 1e-30), (led, rhs)
-    tenant_slice = sum(c["ledger_stall"]
-                       for c in report["tenants"].values())
-    assert tenant_slice <= led["total"] - led["scheduler_idle"] + 1e-12, \
-        (tenant_slice, led)
-    taus = platform.policy(0).class_tau_be
+    taus, dram, flash = _workload_report(platform, sched, report, tiers,
+                                         card)
     assert taus["premium"] > taus["scan"], taus
     # both tiers hold paused blobs: the gate admits a pause to DRAM or
     # sends it to flash, and DRAM's capacity demotes the coldest to flash
-    host = platform.fabric.hosts[0]
-    dram, flash = host.stats[Tier.DRAM], host.stats[Tier.FLASH]
-    print(f"  pauses by the tier the gate gave them: "
-          f"{ {t: tiers.count(t) for t in sorted(set(tiers))} }; store "
-          f"DRAM {dram}; FLASH {flash}")
     assert dram.bytes_written >= blob and flash.bytes_written >= blob, \
         (dram, flash)
     for k in ("pauses", "resumes", "prefetches"):
@@ -1331,32 +1494,12 @@ def phase_workload(cfg, params):
     for name in ("rmsnorm", "decode_attention", "flash_attention",
                  "reuse_sketch"):
         assert counts[name] > 0, f"{name} never launched in phase 10"
-
-    keys = ("tokens", "ticks", "decode_steps", "slot_idle_steps",
-            "admissions", "parks", "unparks", "pauses", "preempt_pauses",
-            "resumes", "prefetches", "deadline_misses", "kv_stall",
-            "per_token_stall", "makespan", "tokens_per_sec")
-    print(f"  report() [{card}]: " + ", ".join(
-        f"{k} {report[k]!r}" for k in keys) + " (kv_stall, per_token_stall"
-        ", makespan and tokens_per_sec are modeled: virtual clock, "
-        f"{STEP_TIME} s a step)")
-    print(f"  tenant_report() [{card}]: "
-          f"{json.dumps(sched.tenant_report(), sort_keys=True)}")
-    print(f"  stall_ledger() [{card}]: {json.dumps(led, sort_keys=True)}")
-    print(f"  compiled tau_be by tenant [{card}]: "
-          f"{json.dumps(taus, sort_keys=True)}")
     walls = [r[4] for r in runs]
     print(f"  wall of each run (host clock, synchronised, Platform.compile "
           f"outside) [{card}]: {walls!r} s; range {min(walls)!r} - "
           f"{max(walls)!r} s")
-    calls = {"step": report["decode_steps"], "admit": report["admissions"],
-             "pause": report["pauses"], "resume": report["resumes"],
-             "prefetch": report["prefetches"]}
-    for i, (w, split) in enumerate((r[4], r[5]) for r in runs):
-        print(f"    run {i + 1}: " + ", ".join(
-            f"{name} {split[name]!r} s ({calls[name]} calls)"
-            for name in ENGINE_CALLS)
-            + f"; the scheduler's own Python {w - sum(split.values())!r} s")
+    for i, r in enumerate(runs):
+        _print_split(f"run {i + 1}", report, r[4], r[5])
 
     # continuous batching against the lock-step gang: equal tokens; the
     # continuous arm's first decode step with every slot decoding (past
@@ -1413,7 +1556,7 @@ def phase_workload(cfg, params):
           f"(modeled)")
 
     # the reduced model's report: modeled, so the card cannot change it
-    small = get_config("gemma-2b", reduced=True)
+    small = get_config(cfg.name, reduced=True)
     rspec = _workload_spec(small, tenants=("premium", "scan"),
                            n_sessions=3, horizon=64)
     got = {}
@@ -1423,7 +1566,7 @@ def phase_workload(cfg, params):
             _serve_workload(small, rp, rspec, device=dev)[3],
             sort_keys=True)
     assert got["cuda"] == got["cpu"], (got["cuda"], got["cpu"])
-    print(f"  reduced gemma-2b f32, premium + scan x 3 sessions: the "
+    print(f"  reduced {cfg.name} f32, premium + scan x 3 sessions: the "
           f"report's JSON ({len(got['cpu'])} bytes) is byte-identical on "
           f"the card and the CPU")
     print(f"  phase 10 wall {time.perf_counter() - t_phase:.1f} s")
@@ -2871,6 +3014,257 @@ def phase_artifacts():
     print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
+# --------------------------------------------------------------- phase 13
+DENSE_ARCH = "deepseek-7b"
+WINDOWS = 3                    # phase 13's decode windows
+
+
+def _dense_kernels(cfg, lengths_main, buckets):
+    """The three serving kernels at `cfg`'s shapes against their plain
+    versions on the card (TOL), in float32 and bf16, each timed by phase
+    3's rules: rmsnorm and add_rmsnorm at a decode step's rows and at the
+    largest prefill bucket's; decode_attention at the decode step's
+    lengths, ragged ones and lengths 0 and past T, timed over one cache a
+    layer (one layer's k and v exceed half of L2); flash_attention at
+    every prefill bucket, in the prefill's strided layout too."""
+    import torch
+    from repro_torch.kernels import (add_rmsnorm, decode_attention,
+                                     flash_attention, rmsnorm)
+    from repro_torch.kernels.decode_attention import \
+        timeline as decode_timeline
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.rmsnorm.ref import (reference_add_rmsnorm,
+                                                 reference_rmsnorm)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    attn = cfg.pattern[0][0]
+    D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
+    eps, scale = cfg.norm_eps, 1.0 / math.sqrt(hd)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- rmsnorm and add_rmsnorm ------------------------------------------
+    for dt in (torch.float32, bf16):
+        name = str(dt).split(".")[1]
+        for rows in (MAX_SLOTS, max(buckets)):
+            x, r = randn(rows, D, dtype=dt), randn(rows, D, dtype=dt)
+            s = 1.0 + 0.1 * randn(D, dtype=torch.float32)
+            _check("rmsnorm", rmsnorm(x, s, eps),
+                   reference_rmsnorm(x, s, eps), name, f"[{rows},{D}] {name}")
+            normed, summed = add_rmsnorm(x, r, s, eps)
+            want_n, want_s = reference_add_rmsnorm(x, r, s, eps)
+            _check("add_rmsnorm", normed, want_n, name,
+                   f"[{rows},{D}] {name}")
+            assert torch.equal(summed, want_s), f"sum [{rows},{D}] {name}"
+    for rows in (MAX_SLOTS, max(buckets)):
+        _rmsnorm_times(D, eps, rows)
+
+    # ---- decode attention: MHA, one query head a kv head ------------------
+    ragged = torch.tensor([1, 77, 700, MAX_LEN], dtype=torch.int32,
+                          device=dev)
+    edge = torch.tensor([0, 5, MAX_LEN + 100, 300], dtype=torch.int32,
+                        device=dev)
+    for dt in (torch.float32, bf16):
+        name = str(dt).split(".")[1]
+        q = randn(MAX_SLOTS, H, hd, dtype=dt)
+        k = randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=dt)
+        v = randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=dt)
+        for lens, lab in ((lengths_main, "main"), (ragged, "ragged"),
+                          (edge, "0 and > T")):
+            got = decode_attention(q, k, v, lens, scale=scale)
+            assert bool(torch.isfinite(got).all()), lab
+            _check("decode_attention", got,
+                   reference_decode_attention(q, k, v, lens, scale=scale),
+                   name, f"H={H} KV={KV} hd={hd} {lab} {name}")
+    caches = [(randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=bf16),
+               randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=bf16))
+              for _ in range(cfg.n_groups)]
+    q = randn(MAX_SLOTS, H, hd, dtype=bf16)
+    err = _check("decode_attention",
+                 decode_attention(q, *caches[0], lengths_main, scale=scale),
+                 reference_decode_attention(q, *caches[0], lengths_main,
+                                            scale=scale),
+                 "bfloat16", "the timed inputs, main lengths bf16")
+    _print_record("decode_attention",
+                  _decode_record(q, caches, lengths_main, scale, err))
+    del caches
+    # where a call spends its time at one query head a kv head
+    _print_timeline(decode_timeline.run(lengths_main.tolist(), heads=H,
+                                        kv_heads=KV, head_dim=hd),
+                    f" at H={H} KV={KV} hd={hd}")
+
+    # ---- flash attention at every prefill bucket ---------------------------
+    for dt in (torch.float32, bf16):
+        name = str(dt).split(".")[1]
+        # the prefill's own layout: q a transposed [B,S,H,hd] projection,
+        # k and v the first S rows of a max_len cache
+        kc = randn(1, KV, MAX_LEN, hd, dtype=dt)
+        vc = randn(1, KV, MAX_LEN, hd, dtype=dt)
+        for S in buckets:
+            q, k, v = (randn(1, n, S, hd, dtype=dt) for n in (H, KV, KV))
+            _check("flash_attention", flash_attention(q, k, v, scale=scale),
+                   reference_attention(q, k, v, scale=scale), name,
+                   f"H={H} KV={KV} S={S} hd={hd} {name}")
+            q = randn(1, S, H, hd, dtype=dt).transpose(1, 2)
+            _check("flash_attention",
+                   flash_attention(q, kc[:, :, :S], vc[:, :, :S],
+                                   scale=scale),
+                   reference_attention(q, kc[:, :, :S], vc[:, :, :S],
+                                       scale=scale),
+                   name, f"strided views S={S} {name}")
+    for S in buckets:
+        ins = [tuple(randn(1, n, S, hd, dtype=bf16) for n in (H, KV, KV))
+               for _ in range(4)]
+        err = _check("flash_attention", flash_attention(*ins[0], scale=scale),
+                     reference_attention(*ins[0], scale=scale), "bfloat16",
+                     f"bucket S={S} H={H} KV={KV} hd={hd} bf16")
+        _print_record("flash_attention", _flash_record(ins, scale, err))
+
+
+def _pause_resume(eng, clock, prompts):
+    """Two sessions (the prompts after the six served) decode without a
+    break, then again paused three steps in: DRAM of 1.5 blobs sends the
+    colder to flash, which comes back through a prefetch three steps
+    ahead. The greedy tokens must be those of the run without a break.
+    Returns the tiers of the two pauses, the colder one's after both,
+    and the host-clock seconds of the first pause and of that blob's
+    restore."""
+    from repro_torch.core.policy import Tier
+    from repro_torch.serving import Request
+
+    def requests(tag):
+        return [Request(rid=f"{tag}{i}", prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(prompts[N_REQUESTS:N_REQUESTS + 2],
+                                      start=N_REQUESTS)]
+    whole = requests("whole-s")
+    for r in whole:
+        eng.admit(r)
+    while eng.live.any():
+        eng.step()
+    a, b = requests("paused-s")
+    eng.admit(a)
+    eng.admit(b)
+    for _ in range(3):
+        eng.step()
+    tier_a, t_pause = _timed(eng.pause, a.rid)
+    tier_b = eng.pause(b.rid)
+    demoted = eng.store.tier_of(("kv", a.rid))
+    assert demoted == Tier.FLASH, "the colder session was not demoted"
+    clock.advance(1.2)
+    eng.prefetch(a.rid)
+    clock.advance(3 * STEP_TIME)
+    _, t_restore = _timed(eng.resume, a.rid)
+    eng.resume(b.rid)
+    while eng.live.any():
+        eng.step()
+    assert [a.generated, b.generated] == [r.generated for r in whole], \
+        "pause and resume changed the greedy tokens"
+    return [tier_a.name, tier_b.name, demoted.name], t_pause, t_restore
+
+
+def phase_dense(cfg, prompts):
+    """Full-width deepseek-7b (MHA of 32 heads of 128, d_model 4096,
+    SwiGLU, an untied unembed, no embedding scale) on the card: (a) the
+    three serving kernels at its shapes against their plain versions,
+    timed; (b) serve_tiered_kv's spec through Platform.compile ->
+    Platform.engine on native bf16 weights: the first step's logits
+    against the plain path, phase 4's prompts and the example's flow,
+    greedy tokens across a pause to flash and a prefetched resume equal
+    to a run without a break, decode windows with every slot in use, one
+    prefill and one decode step profiled; (c) one run of phase 10's
+    declared workload through Platform.scheduler -> run(Platform.jobs()).
+    Returns the launches of (b) and (c)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.policy import Tier
+    from repro_torch.platform import Platform
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lengths_main, buckets = _path_shapes(prompts)
+    attn = cfg.pattern[0][0]
+    blob = _blob_bytes(cfg)
+    print(f"  {cfg.name}: {cfg.n_groups} layers, d_model {cfg.d_model}, "
+          f"{attn.n_heads} heads / {attn.n_kv} kv of {attn.head_dim}, "
+          f"{cfg.pattern[0][1].act} d_ff {cfg.pattern[0][1].d_ff}, vocab "
+          f"{cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
+          f"{blob} B; prompts {[len(p) for p in prompts]}, buckets "
+          f"{buckets}, decode lengths {lengths_main.tolist()}")
+
+    print("  (a) the serving kernels at its shapes")
+    _dense_kernels(cfg, lengths_main, buckets)
+
+    print("  (b) Platform.compile -> Platform.engine")
+    params = _native_params(cfg)
+    per_prefill, per_step = _first_step(cfg, params, prompts[0])
+    assert per_prefill["flash_attention"] == cfg.n_groups, per_prefill
+    assert per_step["decode_attention"] == cfg.n_groups, per_step
+    platform = Platform.compile(_example_spec(cfg), device="cuda")
+    eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
+                          max_len=MAX_LEN, compute_dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    _, flow_tiers, wall = _example_flow(eng, platform.clock, prompts)
+    print(f"  served {N_REQUESTS} requests, {N_REQUESTS * MAX_NEW} tokens, "
+          f"in {wall:.3f} s (host clock, synchronised); the example's "
+          f"paused tiers {flow_tiers[:3]}, cold session on {flow_tiers[-1]}"
+          f" before its prefetch; kv_stall_time={eng.kv_stall_time!r} s "
+          f"(modeled)")
+    assert flow_tiers[-1] == Tier.FLASH.name, "the cold session's blob " \
+        "did not reach FLASH"
+    tiers, t_pause, t_restore = _pause_resume(eng, platform.clock, prompts)
+    host = platform.fabric.hosts[0]
+    dram, flash = host.stats[Tier.DRAM], host.stats[Tier.FLASH]
+    assert dram.bytes_written >= blob and flash.bytes_written >= blob, \
+        (dram, flash)
+    print(f"  pause and resume: paused to {tiers[:2]}, the colder then on "
+          f"{tiers[2]} and resumed through a prefetch; greedy tokens of "
+          f"both sessions == a run without a break; one pause of the "
+          f"{blob} B blob {t_pause!r} s, its restore from flash "
+          f"{t_restore!r} s (host clock, synchronised) [{card}]")
+    print(f"  kv_stall_time={eng.kv_stall_time!r} s after both flows "
+          f"(modeled); store DRAM {dram}; FLASH {flash}")
+    tps = sorted(_decode_window(eng, prompts, f"w{i}-")
+                 for i in range(WINDOWS))
+    print(f"  decode windows, {MAX_SLOTS} slots live for {STEADY_NEW - 1} "
+          f"steps each, tokens/s (host clock, synchronised): median "
+          f"{tps[len(tps) // 2]!r}, range {tps[0]!r} - {tps[-1]!r} over "
+          f"{len(tps)} windows [{card}]")
+    _profile_split(eng, prompts)
+    peak_b = torch.cuda.max_memory_allocated()
+    del eng, platform
+    torch.cuda.empty_cache()
+
+    print("  (c) Platform.scheduler -> run(Platform.jobs())")
+    platform, sched, jobs, report, wall, split, pauses = _serve_workload(
+        cfg, params, _workload_spec(cfg), dtype=torch.bfloat16)
+    counts = kernels.launch_counts()
+    _workload_report(platform, sched, report, pauses, card)
+    assert report["tokens"] == sum(len(j.request.generated) for j in jobs)
+    assert report["pauses"] > 0, report["pauses"]
+    print(f"  wall (host clock, synchronised, Platform.compile outside) "
+          f"{wall!r} s [{card}]")
+    _print_split("split", report, wall, split)
+    print(f"  peak host RSS {_peak_rss_mib():.1f} MiB (paused blobs are "
+          f"{blob / 2**20:.0f} MiB each on the host); peak device memory "
+          f"{peak_b / 1e9:.3f} GB in (b), "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB in all")
+    counts = {name: counts[name] for name in
+              SERVING_KERNELS + ("reuse_sketch",)}
+    print(f"  launches in phase 13 (b) and (c): {json.dumps(counts)}")
+    for name, n in counts.items():
+        assert n > 0, f"{name} never launched in phase 13"
+    del platform, sched, jobs, params
+    torch.cuda.empty_cache()
+    print(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts
+
 
 def main() -> int:
     import torch
@@ -2902,16 +3296,11 @@ def main() -> int:
     cfg = get_config("gemma-2b")
     rng = np.random.default_rng(SEED)
     prompts = _prompts(cfg.vocab, N_REQUESTS + 2, rng)
-    # decode-step lengths of the first slot grid, a few steps in
-    lengths_main = torch.tensor([len(p) + 8 for p in prompts[:MAX_SLOTS]],
-                                dtype=torch.int32, device="cuda")
-
-    # the engine's prefill lengths: prompts padded to powers of two
-    buckets = sorted({min(1 << (len(p) - 1).bit_length(), MAX_LEN - 1)
-                      for p in prompts})
+    lengths_main, buckets = _path_shapes(prompts)
     print("[3] kernels vs plain versions on the card")
     rec = phase_kernels(cfg, lengths_main, buckets)
-    print("[4] full-width gemma-2b serving through the kernels and tiers")
+    print(f"[4] full-width {cfg.name} serving through the kernels and "
+          f"tiers")
     counts, params = phase_serving(cfg, prompts)
     print("[5] reduced gemma-2b, float32, kernels vs plain path")
     phase_reduced(rng)
@@ -2921,11 +3310,12 @@ def main() -> int:
     counts["ann_topk"], rec["ann_topk"] = phase_ann()
     print("[8] autopilot: reuse sketch, admission benchmark, control plane")
     counts["reuse_sketch"], rec["reuse_sketch"] = phase_autopilot()
-    print("[9] the declared platform: HierarchySpec -> Platform.compile -> "
-          "Platform.engine, full-width gemma-2b")
+    print(f"[9] the declared platform: HierarchySpec -> Platform.compile "
+          f"-> Platform.engine, full-width {cfg.name}")
     served = phase_platform(cfg, params, prompts)
-    print("[10] continuous batching over a declared workload: "
-          "Platform.scheduler -> run(Platform.jobs()), full-width gemma-2b")
+    print(f"[10] continuous batching over a declared workload: "
+          f"Platform.scheduler -> run(Platform.jobs()), full-width "
+          f"{cfg.name}")
     workload = phase_workload(cfg, params)
     del params
     print("[11] the autopilot's closed loops: Platform.autoscale, "
@@ -2935,6 +3325,11 @@ def main() -> int:
     print("[12] the paper's artifacts on the card: the harness, the "
           "analytic grid and the example twins")
     artifacts = phase_artifacts()
+    dense_cfg = get_config(DENSE_ARCH)
+    print(f"[13] full-width {DENSE_ARCH} through the kernels, the platform "
+          f"and the scheduler")
+    dense = phase_dense(dense_cfg, _prompts(dense_cfg.vocab, N_REQUESTS + 2,
+                                            np.random.default_rng(SEED)))
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -2942,11 +3337,10 @@ def main() -> int:
                "phase7": {"ann_topk": counts["ann_topk"]},
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
-               "phase12": artifacts}
+               "phase12": artifacts, "phase13": dense}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    counts.update(workload)
-    counts.update(loops)
-    counts.update(artifacts)
+    for path in (workload, loops, artifacts, dense):
+        counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

@@ -1,6 +1,7 @@
 """Architecture registry: the reference package's 10 architectures (+
 reduced smoke variants). `get_config` builds those the port can already
-run and raises NotImplementedError for the others."""
+run and raises NotImplementedError for the others. The dense
+attention + FFN family is ported one config at a time."""
 from __future__ import annotations
 
 import importlib
@@ -19,9 +20,10 @@ ARCHS = (
     "zamba2-7b",
 )
 
-# archs with a config module in this package (attention + FFN sublayers
-# without the features models.model does not build yet)
-PORTED = ("gemma-2b",)
+# archs with a config module in this package: the dense attention + FFN
+# family (without the features models.model does not build yet), one
+# config at a time
+PORTED = ("gemma-2b", "deepseek-7b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -1,14 +1,14 @@
 """End-to-end serving example: batched requests through the decode engine
 with five-minute-rule KV-cache tiering.
 
-The twin of the reference's `examples/serve_tiered_kv.py`: serves reduced
-gemma-2b (random weights from a seed) with continuous batching, then
-pauses sessions and shows the tiering policy placing their KV blocks
-across DRAM/flash by observed reuse interval, and resumes them
-transparently — including the async-prefetch restore path overlapping
-the flash fetch with decode on the platform's deterministic virtual
-clock. The modeled lines (tiers, stall, `[tier stats]`, `[runtime
-queues]`) are the reference's.
+The twin of the reference's `examples/serve_tiered_kv.py`: serves the
+reduced `--arch` config (a ported one; random weights from a seed) with
+continuous batching, then pauses sessions and shows the tiering policy
+placing their KV blocks across DRAM/flash by observed reuse interval,
+and resumes them transparently — including the async-prefetch restore
+path overlapping the flash fetch with decode on the platform's
+deterministic virtual clock. The modeled lines (tiers, stall, `[tier
+stats]`, `[runtime queues]`) are the reference's.
 
 The whole hierarchy is *declared*: a `HierarchySpec` (one host, static
 seconds-scale thresholds, virtual clock, 5ms modeled decode step)
@@ -16,7 +16,8 @@ compiles into the platform, and the engine is a capability from its
 facade — no clock/policy/store threading. It decodes on CUDA unless
 `--device` names another device.
 
-  PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv [--device cpu]
+  PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
+      [--arch deepseek-7b] [--device cpu]
 """
 import argparse
 import time

@@ -2,15 +2,16 @@
 
 Builds `csrc/decode_attention.cu` once more with -DDEC_TIMELINE, whose
 thread 0 of every block stamps the SM clock at the end of each phase,
-runs one call at gemma-2b's decode shape (q [B,8,256], k,v
-[B,1,1024,256] bf16, B = len(lengths)) behind a spin kernel, and gives
+runs one call at a decode shape (by default gemma-2b's: q [B,8,256],
+k,v [B,1,1024,256] bf16, B = len(lengths)) behind a spin kernel, and gives
 the phases, in us at the measured SM clock, of the block that exits
 last (it merges the longest row) and the median phases of the blocks
 that only write a partial. It reads clock stamps only and needs no
 profiler.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.decode_attention.timeline \
-        [--lengths 613 148 548 230] [--reps 3]
+        [--lengths 613 148 548 230] [--reps 3] [--heads 8 --kv-heads 1 \
+        --head-dim 256]
 """
 from __future__ import annotations
 
@@ -47,12 +48,14 @@ def _library():
     return fn, read
 
 
-def run(lengths=(613, 148, 548, 230), reps: int = 3) -> dict:
-    """The timeline of `reps` calls (medians); needs a CUDA device."""
+def run(lengths=(613, 148, 548, 230), reps: int = 3, heads: int = 8,
+        kv_heads: int = 1, head_dim: int = 256) -> dict:
+    """The timeline of `reps` calls (medians) at q [B,heads,head_dim],
+    k,v [B,kv_heads,1024,head_dim]; needs a CUDA device."""
     fn, read = _library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, H, KV, T, hd = len(lengths), 8, 1, 1024, 256
+    B, H, KV, T, hd = len(lengths), heads, kv_heads, 1024, head_dim
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
     # distinct caches, so a call finds its cache cold in L2 as a layer does
@@ -100,7 +103,8 @@ def run(lengths=(613, 148, 548, 230), reps: int = 3) -> dict:
                                  for c in np.median(cycles, axis=0))))
 
     return {"device": torch.cuda.get_device_name(0),
-            "lengths": list(lengths), "sm_clock_mhz": round(clock, 1),
+            "lengths": list(lengths), "heads": [H, KV, hd],
+            "sm_clock_mhz": round(clock, 1),
             "first_start_to_last_exit_us": round(float(np.median(span)), 3),
             "critical_block_us": us(critical),
             "partial_blocks_median_us": us(partial) if partial else None}
@@ -111,10 +115,14 @@ def main(argv=None) -> None:
     ap.add_argument("--lengths", type=int, nargs="+",
                     default=[613, 148, 548, 230])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--kv-heads", type=int, default=1)
+    ap.add_argument("--head-dim", type=int, default=256)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("timeline: needs a CUDA device")
-    print(json.dumps(run(args.lengths, args.reps)))
+    print(json.dumps(run(args.lengths, args.reps, args.heads,
+                         args.kv_heads, args.head_dim)))
 
 
 if __name__ == "__main__":

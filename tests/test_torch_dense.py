@@ -1,0 +1,49 @@
+"""deepseek-7b (reduced, float32) through the port's entry points against
+the JAX reference's: the `serve_tiered_kv` twin with `--arch deepseek-7b`
+against the reference script with the same flag, and the declared tenant
+pack through Platform.compile -> Platform.scheduler ->
+run(Platform.jobs()) on both sides. gemma-2b's cases of the same checks
+are in tests/test_torch_platform.py and tests/test_torch_scheduler.py;
+the model and engine parity of both configs in tests/test_torch_model.py
+and tests/test_torch_serving.py.
+
+What must match: the twin's lines from `[tiering]` on (tiers, stall and
+both report tables: modeled, so exact); the scheduler's outcome, trace,
+ledger and tau_be as `_both` holds them (integers and tokens equal,
+floats to 1e-12 relative)."""
+import pathlib
+import runpy
+import sys
+
+import pytest
+
+from test_torch_platform import _capture, _modeled
+from test_torch_scheduler import _declared_workload_matches_reference, \
+    _sides
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCH = "deepseek-7b"
+
+
+def test_serve_example_twin_matches_reference_script(monkeypatch):
+    from repro_torch.examples import serve_tiered_kv as twin
+    got = _capture(lambda: twin.main(["--arch", ARCH, "--device", "cpu"]))
+    monkeypatch.setattr(sys, "argv", ["serve_tiered_kv.py", "--arch", ARCH])
+    want = _capture(lambda: runpy.run_path(
+        str(ROOT / "examples" / "serve_tiered_kv.py"),
+        run_name="__main__"))
+    assert _modeled(got) == _modeled(want)
+    assert got[0].startswith("[serve] 6/6 requests, 72 tokens")
+    assert got[0].split(", ")[-1] == want[0].split(", ")[-1]
+    assert any(ln.startswith("[tier stats]") for ln in _modeled(got))
+
+
+@pytest.fixture(scope="module")
+def sides():
+    return _sides(ARCH)
+
+
+@pytest.mark.parametrize("isolation", ["per-tenant", "shared"])
+def test_platform_scheduler_serves_declared_workload_like_reference(
+        sides, isolation):
+    _declared_workload_matches_reference(sides, isolation)

@@ -1,6 +1,8 @@
-"""gemma-2b (reduced, float32) in the PyTorch port against the JAX
-reference on the same weights, plus the port's own decode-vs-forward
-equivalence.
+"""The ported dense configs (reduced, float32) in the PyTorch port
+against the JAX reference on the same weights, plus the port's own
+decode-vs-forward equivalence: gemma-2b (MQA, GeGLU, tied and scaled
+embeddings) and deepseek-7b (MHA, SwiGLU, an untied unembed, no
+embedding scale).
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -23,23 +25,27 @@ from repro_torch.models.config import AttnSpec
 from repro_torch.models.layers import Ctx
 
 ATOL = 1e-4
+# each ported config with its full-width parameter count
+DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696}
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = j_get_config("gemma-2b", reduced=True)
-    cfg = get_config("gemma-2b", reduced=True)
+@pytest.fixture(scope="module", params=sorted(DENSE))
+def setup(request):
+    jcfg = j_get_config(request.param, reduced=True)
+    cfg = get_config(request.param, reduced=True)
     jparams, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = TM.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                  device="cpu")
     return jcfg, cfg, jparams, tparams, single_device_rules()
 
 
-def test_config_matches_reference():
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_config_matches_reference(arch):
     for reduced in (False, True):
-        assert repr(get_config("gemma-2b", reduced)) == \
-            repr(j_get_config("gemma-2b", reduced))
-    assert get_config("gemma-2b").param_count() == 2_506_172_416
+        assert repr(get_config(arch, reduced)) == \
+            repr(j_get_config(arch, reduced))
+    assert get_config(arch).param_count() == DENSE[arch]
+    assert arch in PORTED
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
@@ -108,9 +114,12 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
     the compute dtype, bf16, as it does on the card. The test follows the
     port's side: every product is bf16 on both, and BF16_ATOL (at a logit
     scale of ~0.5, where one bf16 rounding is ~2e-3) covers the residual
-    stream's extra roundings (observed <= 5.5e-3). The port's greedy token
-    equals the reference's at every step whose top-2 margin exceeds twice
-    the tolerance; a closer pair is a tie at bf16's resolution."""
+    stream's extra roundings (observed <= 5.5e-3). deepseek-7b has no
+    embedding scale, so both sides keep its stream and logits in bf16 and
+    differ only in where they round (observed <= 6.4e-3). The port's
+    greedy token equals the reference's at every step whose top-2 margin
+    exceeds twice the tolerance; a closer pair is a tie at bf16's
+    resolution."""
     jcfg, cfg, jp, tp, rules = setup
     B, S, steps = 2, 12, 8
     toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))

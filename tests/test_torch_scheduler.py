@@ -70,12 +70,11 @@ def _close(got, want, path="$"):
         assert got == want, (path, got, want)
 
 
-@pytest.fixture(scope="module")
-def sides():
+def _sides(arch):
     """(reference, port): each a namespace of its package's pieces and
-    engine/platform builders over the same reduced gemma-2b weights."""
-    jcfg = j_get_config("gemma-2b", reduced=True)
-    cfg = get_config("gemma-2b", reduced=True)
+    engine/platform builders over the same reduced `arch` weights."""
+    jcfg = j_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
     jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                             device="cpu")
@@ -94,6 +93,11 @@ def sides():
             TP.HierarchySpec.from_json(spec.to_json()), device="cpu"),
         scheduler=lambda plat, **kw: plat.scheduler(cfg, tp, **kw))
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def sides():
+    return _sides("gemma-2b")
 
 
 def _both(sides, fn):
@@ -488,6 +492,13 @@ def test_paused_kv_blob_matches_reference_blob_bytes(sides):
 @pytest.mark.parametrize("isolation", ["per-tenant", "shared"])
 def test_platform_scheduler_serves_declared_workload_like_reference(
         sides, isolation):
+    _declared_workload_matches_reference(sides, isolation)
+
+
+def _declared_workload_matches_reference(sides, isolation):
+    """The reference tests' tenant pack through Platform.compile ->
+    Platform.scheduler -> run(Platform.jobs()) on both sides: outcome,
+    trace, ledger, summary and tau_be equal, and the pack's invariants."""
     spec = JP.HierarchySpec(
         policy=JP.PolicyDecl.economic(l_blk=64 << 10), step_time=2e-3,
         scheduler=JP.SchedulerDecl(pause_idle_steps=4, prefetch_lead="p99"),

@@ -1,7 +1,8 @@
 """The PyTorch port's DecodeEngine against the JAX reference engine on the
-same weights (gemma-2b reduced, float32), in the tiered-KV serving
-scenario of examples/serve_tiered_kv.py with a DRAM tier that holds only
-1.5 KV blobs, so paused sessions really reach flash.
+same weights (each ported dense config, reduced, float32: gemma-2b and
+deepseek-7b), in the tiered-KV serving scenario of
+examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
+blobs, so paused sessions really reach flash.
 
 Tokens, tiers, stalls and every counter of the store and its runtime
 must be identical: the modeled path is the same Python on both sides,
@@ -33,17 +34,18 @@ MAX_LEN = 64
 STEP = 5e-3
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jcfg = j_get_config("gemma-2b", reduced=True)
-    cfg = get_config("gemma-2b", reduced=True)
+@pytest.fixture(scope="module", params=["deepseek-7b", "gemma-2b"])
+def weights(request):
+    jcfg = j_get_config(request.param, reduced=True)
+    cfg = get_config(request.param, reduced=True)
     jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return jcfg, cfg, jp, tp
 
 
 def _scenario(make_engine, Req, Policy, Tier, Clock, Store, Spec, cfg):
-    blob = 2 * cfg.n_groups * 1 * MAX_LEN * 32 * 4     # f32 K and V
+    attn = cfg.pattern[0][0]
+    blob = 2 * cfg.n_groups * attn.n_kv * MAX_LEN * attn.head_dim * 4
     clock = Clock()
     policy = Policy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
     store = Store(policy, clock=clock, specs={
