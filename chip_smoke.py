@@ -146,6 +146,26 @@ Drives the port's serving path on the card and checks it, in phases:
      phase 10's workload through `Platform.scheduler`: its report,
      tenants, ledger, tau_be, where each pause went, the wall split and
      peak host RSS; the serving kernels and reuse_sketch launched.
+ 14. the fleet at scale: (a) the fleet bench through the serving_fleet
+     twin on the card and on the CPU, JSON byte-identical: --smoke,
+     --smoke --churn, the default sweep (hosts 2, 4 and 8 by skew 0.0 and
+     1.2) at one full-width gemma-2b KV blob a session (37,748,736 B),
+     the heterogeneous 2:1 DRAM spec (kv_tier DRAM) under capacity and
+     uniform ring weighting, and a four-host economic spec whose gates
+     keep their reuse sketch on the card; each cell's sync and async
+     stall per token, stall_speedup, remote fetches, the churn's moved
+     fraction, walls and peak host RSS; (b) serving/scale.py's replay at
+     the reference's defaults (1,000,000 keys, 100,000 sessions, 120
+     steps of ~51,700 accesses, 8 hosts, metrics on) on the card, its
+     record byte-identical to the CPU's and equal to the reference's
+     modeled values, one reuse_sketch launch a step, its timing sections
+     and keys/s, tracking split into the host ghost and the kernel's
+     device time; (c) the serving_scale twin's run_compare on reduced
+     gemma-2b in float32 (card == CPU), then on full-width gemma-2b in
+     bf16 (native seed-0 weights, built again: phase 10 freed its own) at
+     the bench's jobs (10 jobs, horizon 96, zipf and diurnal), verdicts
+     as measured; rmsnorm, decode and flash attention and reuse_sketch
+     launched in the phase.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -889,32 +909,37 @@ def _native_params(cfg):
     return params
 
 
-def _first_step(cfg, params, prompt):
+def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     """The launches of one prefill and one decode step, and the first
     step's logits through the kernels against the plain path on the same
-    bf16 weights. Two bf16 computations of a deep stack differ by the
-    rounding noise of each, so the tolerance is bf16's own error here:
-    twice the plain bf16 path's distance from the same path in float32
-    (a float32 copy of the weights, freed right after). Returns the
-    launches per prefill and per decode step."""
+    bf16 weights, in caches of `max_len` rows, the prompt right-padded to
+    `bucket` tokens as the engine pads it (None: not padded). Two bf16
+    computations of a deep stack differ by the rounding noise of each, so
+    the tolerance is bf16's own error here: twice the plain bf16 path's
+    distance from the same path in float32 (a float32 copy of the
+    weights, freed right after). Returns the launches per prefill and per
+    decode step."""
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.models import model as M
 
-    p0 = torch.as_tensor(prompt[None].astype(np.int64), device="cuda")
+    S = len(prompt)
+    tokens = np.zeros(bucket or S, np.int64)
+    tokens[:S] = prompt
+    p0 = torch.as_tensor(tokens[None], device="cuda")
 
     def first_logits(weights, dtype, plain):
-        cache = M.init_cache(cfg, 1, MAX_LEN, dtype, "cuda")
+        cache = M.init_cache(cfg, 1, max_len, dtype, "cuda")
         return M.prefill(weights, cfg, p0, cache, compute_dtype=dtype,
-                         plain=plain)[1].float()
+                         last_index=S - 1, plain=plain)[1].float()
 
     kernels.reset_launch_counts()
     kern = first_logits(params, torch.bfloat16, False)
     per_prefill = kernels.launch_counts()
     kernels.reset_launch_counts()
     M.decode_step(params, cfg, p0[:, :1], M.init_cache(
-        cfg, 1, MAX_LEN, torch.bfloat16, "cuda"), 0,
+        cfg, 1, max_len, torch.bfloat16, "cuda"), 0,
         compute_dtype=torch.bfloat16)
     per_step = kernels.launch_counts()
     print(f"  launches per prefill {per_prefill}, per decode step "
@@ -927,7 +952,8 @@ def _first_step(cfg, params, prompt):
     del params32
     err = float((kern - plain).abs().max())
     noise = float((plain - truth).abs().max())
-    print(f"  first-step logits [1,{cfg.vocab}]: kernels vs plain bf16 "
+    print(f"  first-step logits [1,{cfg.vocab}] (prompt {S}, tokens "
+          f"{len(tokens)}, max_len {max_len}): kernels vs plain bf16 "
           f"max_abs_err={err:.4e}; plain bf16 vs float32 {noise:.4e}; "
           f"kernels vs float32 {float((kern - truth).abs().max()):.4e}; "
           f"argmax {int(kern.argmax())} / {int(plain.argmax())} / "
@@ -3266,6 +3292,500 @@ def phase_dense(cfg, prompts):
     return counts
 
 
+# --------------------------------------------------------------- phase 14
+# the replay at the reference's defaults (benchmarks/serving_scale.py), and
+# what the reference's run printed there (12 significant digits) beside
+# the counts it printed exactly
+SCALE_DEFAULTS = dict(n_keys=1_000_000, n_sessions=100_000, n_steps=120,
+                      accesses_per_step=50_000, n_hosts=8)
+SCALE_MODELED = {"accesses": 6_207_181.0, "ghost_size": 965_935.0,
+                 "ops_sketch_updates": 120.0}
+SCALE_MODELED_12 = {"hit_rate": 0.368545399272,
+                    "total_stall": 67.5326785811,
+                    "owner_imbalance": 1.21774699336}
+SCALE_SECTIONS = ("digest", "routing", "tracking", "admission",
+                  "stall_pricing", "metrics")
+
+
+RACE_MAX_LEN = 64              # serving_scale's race: run_compare's engines
+
+
+def _fleet_argv_run(fleet, argv):
+    """The fleet twin's `main(argv)` once. The keyword fleet is host
+    Python on a virtual clock and holds nothing on a device, so `--device`
+    changes nothing there. Returns (report, wall)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        fleet.main(list(argv))
+    return json.loads(buf.getvalue()), time.perf_counter() - t
+
+
+def _print_fleet_cells(label, trajectory, wall, card):
+    print(f"  {label}: wall {wall} (host clock); peak host RSS "
+          f"{_peak_rss_mib():.1f} MiB [{card}]")
+    for rec in trajectory:
+        s, a = rec["sync"], rec["async"]
+        line = (f"    hosts {rec['hosts']} skew {rec['skew']}: stall per "
+                f"token sync {s['per_token_stall'] * 1e6!r} us, async "
+                f"{a['per_token_stall'] * 1e6!r} us, stall_speedup "
+                f"{rec['stall_speedup']!r}, remote_fetches "
+                f"{a['remote_fetches']:.0f} (modeled)")
+        if "churn" in rec:
+            ch = rec["churn"]
+            line += (f"; churn moved {ch['rebalance_bytes']:.0f} B, "
+                     f"{ch['rebalance_fraction']!r} of resident (ideal "
+                     f"{1 / (rec['hosts'] + 1)!r}), stall x"
+                     f"{ch['stall_ratio']!r}")
+        print(line)
+
+
+def _fleet_spec_runs(fleet, label, spec, card, **kw):
+    """`run_sweep` over a declared fleet on the card and on the CPU (the
+    platform's gates keep their sketch on `device`): byte-identical; the
+    card run's reuse_sketch launches and wall."""
+    from repro_torch import kernels
+    from repro_torch.obs import bench_json
+
+    js, walls, launches = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        before = kernels.launch_counts()["reuse_sketch"]
+        t = time.perf_counter()
+        traj = fleet.run_sweep([spec.n_hosts], [0.0, 1.2], spec=spec,
+                               device=dev, **kw)
+        walls[dev] = time.perf_counter() - t
+        launches[dev] = kernels.launch_counts()["reuse_sketch"] - before
+        js[dev] = bench_json(traj)
+    assert js["cuda"] == js["cpu"], f"{label}: cuda and cpu differ"
+    assert launches["cpu"] == 0, launches
+    _print_fleet_cells(
+        f"{label}, reuse_sketch launches on cuda {launches['cuda']}: JSON "
+        f"identical on cuda and cpu", traj,
+        f"{walls['cuda']!r} s on cuda, {walls['cpu']!r} s on cpu", card)
+    return traj, launches["cuda"]
+
+
+def _replay_on(scale, device, capture=False, **kw):
+    """`scale_replay(device=device, obs=on, **kw)` with the ghost's host
+    time a step, the same spy on either device. With `capture` (on the
+    card) the run is instrumented inside its window: each step's sketch
+    inputs are cloned and its call is bracketed by CUDA events (from the
+    call to the kernel's end; the stream is idle when the call starts, so
+    the wrapper's host time shows). After that run the kernel is timed on
+    each step's own inputs (device time, queued, not counted) and held bit
+    for bit against its plain version on every tenth step's, where the
+    plain version is timed. Returns (record, timings, ghost seconds,
+    launches, wall, sketch): sketch is None without capture, else the
+    in-run and kernel ms a step, the plain version's ms, each step's bound
+    and N."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.autopilot import ReuseTracker, reuse
+    from repro_torch.kernels.reuse_sketch import reference_reuse_sketch
+    from repro_torch.obs import Observability
+
+    ghost_s, events, inputs = [], [], []
+    init, update = ReuseTracker.__init__, reuse.reuse_sketch_update
+    cuda = device == "cuda"
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        touch = self._last_seen.touch_batch
+
+        def timed_touch(keys, now):
+            t = time.perf_counter()
+            out = touch(keys, now)
+            ghost_s.append(time.perf_counter() - t)
+            return out
+        self._last_seen.touch_batch = timed_touch
+
+    def captured_update(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        inputs.append(([t.clone() for t in a], k))
+        ev[0].record()
+        out = update(*a, **k)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    ReuseTracker.__init__ = spy
+    if capture:
+        reuse.reuse_sketch_update = captured_update
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        record, timings = scale.scale_replay(obs=Observability(),
+                                             device=device, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()["reuse_sketch"]
+    finally:
+        ReuseTracker.__init__ = init
+        reuse.reuse_sketch_update = update
+    if not capture:
+        return record, timings, ghost_s, launches, wall, None
+    sample = inputs[::10]
+    for a, k in sample:
+        assert torch.equal(update(*a, **k).view(torch.int32),
+                           reference_reuse_sketch(*a, **k).view(torch.int32))
+    sketch = dict(
+        in_run_ms=[a.elapsed_time(b) for a, b in events],
+        kernel_ms=[_time_ms([lambda a=a, k=k: update(*a, **k)], iters=10)
+                   for a, k in inputs],
+        plain_ms=_time_ms([lambda a=a, k=k: reference_reuse_sketch(*a, **k)
+                           for a, k in sample], iters=len(sample)),
+        bound=[_bound_ms(8 * a[1].numel() + 8 * a[0].numel(), 0,
+                         torch.float32) for a, _ in inputs],
+        n=[a[1].numel() for a, _ in inputs])
+    return record, timings, ghost_s, launches, wall, sketch
+
+
+def _print_replay(label, timings, ghost_s, wall, card):
+    import numpy as np
+    secs = ", ".join(f"{k} {timings[k]!r}" for k in SCALE_SECTIONS)
+    print(f"  {label}: wall {wall!r} s; sections (s, host clock) {secs}; "
+          f"steady state {timings['keys_per_sec']!r} keys/s [{card}]")
+    print(f"    tracking {timings['tracking']!r} s = host ghost "
+          f"{sum(ghost_s)!r} s (median {np.median(ghost_s) * 1e3:.3f} ms "
+          f"a step, range {min(ghost_s) * 1e3:.3f}-"
+          f"{max(ghost_s) * 1e3:.3f}) + the sketch's upload and launch "
+          f"(or its plain version on the CPU; its class reads are in "
+          f"admission)")
+
+
+def _print_sketch(sketch):
+    import numpy as np
+    k, r = sketch["kernel_ms"], sketch["in_run_ms"]
+    bounds = [b for b, _ in sketch["bound"]]
+    print(f"    sketch a step (the instrumented run): kernel (device time, "
+          f"queued, on each step's inputs) {sum(k)!r} ms in all, median "
+          f"{np.median(k):.6f} ms, range {min(k):.6f}-{max(k):.6f}; from "
+          f"the call to the kernel's end {sum(r)!r} ms, median "
+          f"{np.median(r):.6f}; N {min(sketch['n'])}-{max(sketch['n'])} "
+          f"(mean {float(np.mean(sketch['n']))!r}); bound_ms median "
+          f"{np.median(bounds):.8f} ({sketch['bound'][0][1]}); plain "
+          f"version {sketch['plain_ms']:.6f} ms (device, queued, on every "
+          f"tenth step's inputs, where the kernel equals it bit for bit)")
+
+
+def _session_jobs(run):
+    """`run()` with every job list that `jobs_from_trace` makes noted (the
+    race makes one a scenario and arm). Returns (result, job lists)."""
+    from repro_torch import serving
+    made, inner = [], serving.jobs_from_trace
+
+    def noted(*a, **k):
+        made.append(inner(*a, **k))
+        return made[-1]
+    serving.jobs_from_trace = noted
+    try:
+        return run(), made
+    finally:
+        serving.jobs_from_trace = inner
+
+
+def _race(cfg, params, scenarios, *, n_jobs, horizon):
+    """serving_scale's race at `cfg`'s width on the card: run_compare's
+    engines (4 slots, max_len 64, a pinned-flash store, 2 ms steps) and
+    jobs (two turns of 5 tokens, pause_idle_steps 4) over `params`,
+    computing in their dtype. Each engine notes on the host, before it
+    runs them, the lengths a decode step hands decode_attention and the
+    bucket a prefill hands flash_attention (no device work). Returns
+    (report, buckets, length vectors)."""
+    from repro_torch import serving
+    from repro_torch.core.policy import TieringPolicy
+    from repro_torch.runtime.clock import VirtualClock
+    from repro_torch.runtime.tiers import TieredStore
+    from repro_torch.serving.engine import _next_pow2
+
+    buckets, lengths = set(), set()
+
+    class Noted(serving.DecodeEngine):
+        def admit(self, req):
+            buckets.add(min(_next_pow2(len(req.prompt)), self.max_len - 1))
+            return super().admit(req)
+
+        def step(self):
+            if (self.live & self.active).any():
+                lengths.add(tuple(self.lengths.tolist()))
+            return super().step()
+
+    def engine_factory():
+        store = TieredStore(
+            TieringPolicy(tau_hot=1e-12, tau_be=1e-9, ema_alpha=1.0),
+            clock=VirtualClock())
+        return Noted(cfg, params, max_slots=MAX_SLOTS, max_len=RACE_MAX_LEN,
+                     store=store, step_time=2e-3,
+                     compute_dtype=params["embed"].dtype, device="cuda")
+
+    report = {scen: serving.compare_scheduling(
+        engine_factory,
+        lambda scen=scen: serving.jobs_from_trace(
+            scen, n_jobs=n_jobs, n_turns=2, tokens_per_turn=5,
+            vocab=cfg.vocab, horizon=horizon, seed=SEED),
+        pause_idle_steps=4) for scen in scenarios}
+    return report, sorted(buckets), sorted(lengths)
+
+
+def _race_kernels(cfg, buckets, lengths):
+    """The serving kernels at the race's own shapes, bf16 as it ran,
+    against their plain versions (TOL) on seeded inputs: rmsnorm and
+    add_rmsnorm at a decode step's rows and each prefill bucket's;
+    decode_attention over a max_len cache at every length vector a decode
+    step of the race held; flash_attention at each bucket, contiguous and
+    in the prefill's strided layout."""
+    import torch
+    from repro_torch.kernels import (add_rmsnorm, decode_attention,
+                                     flash_attention, rmsnorm)
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.rmsnorm.ref import (reference_add_rmsnorm,
+                                                 reference_rmsnorm)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    attn = cfg.pattern[0][0]
+    D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
+    eps, scale = cfg.norm_eps, 1.0 / math.sqrt(hd)
+    errs = {n: 0.0 for n in ("rmsnorm", "add_rmsnorm", "decode_attention",
+                             "flash_attention")}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def hold(name, got, want, label):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL["bfloat16"],
+                                   msg=lambda m: f"{name} {label}: {m}")
+        errs[name] = max(errs[name],
+                         float((got.float() - want.float()).abs().max()))
+
+    rows = sorted({MAX_SLOTS, *buckets})
+    for n in rows:
+        x, r = randn(n, D), randn(n, D)
+        s = 1.0 + 0.1 * randn(D, dtype=torch.float32)
+        hold("rmsnorm", rmsnorm(x, s, eps), reference_rmsnorm(x, s, eps),
+             f"[{n},{D}]")
+        normed, summed = add_rmsnorm(x, r, s, eps)
+        want_n, want_s = reference_add_rmsnorm(x, r, s, eps)
+        hold("add_rmsnorm", normed, want_n, f"[{n},{D}]")
+        assert torch.equal(summed, want_s), f"sum [{n},{D}]"
+    q = randn(MAX_SLOTS, H, hd)
+    k, v = (randn(MAX_SLOTS, KV, RACE_MAX_LEN, hd) for _ in range(2))
+    for lens in lengths:
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        hold("decode_attention", decode_attention(q, k, v, lt, scale=scale),
+             reference_decode_attention(q, k, v, lt, scale=scale),
+             f"lengths {list(lens)}")
+    kc, vc = (randn(1, KV, RACE_MAX_LEN, hd) for _ in range(2))
+    for S in buckets:
+        for q, k, v in ((randn(1, H, S, hd), randn(1, KV, S, hd),
+                         randn(1, KV, S, hd)),
+                        (randn(1, S, H, hd).transpose(1, 2), kc[:, :, :S],
+                         vc[:, :, :S])):
+            hold("flash_attention", flash_attention(q, k, v, scale=scale),
+                 reference_attention(q, k, v, scale=scale), f"S={S}")
+    flat = [n for lens in lengths for n in lens]
+    print(f"  check at the race's shapes, bf16 (TOL): rmsnorm and "
+          f"add_rmsnorm at rows {rows} x {D}; decode_attention q "
+          f"[{MAX_SLOTS},{H},{hd}] k,v [{MAX_SLOTS},{KV},{RACE_MAX_LEN},"
+          f"{hd}] at the run's {len(lengths)} length vectors (lengths "
+          f"{min(flat)}-{max(flat)}); flash_attention q [1,{H},S,{hd}] k,v "
+          f"[1,{KV},S,{hd}] at S {buckets}, contiguous and strided; "
+          f"max_abs_err {json.dumps(errs)} ok")
+
+
+def _compare_cells(report, wall, card, label):
+    for scen, cell in report.items():
+        c, lk = cell["continuous"], cell["lockstep"]
+        print(f"    {label} {scen}: tokens_identical "
+              f"{cell['tokens_identical']}, continuous_wins "
+              f"{cell['continuous_wins']}; tokens_per_sec {c['tokens_per_sec']!r}"
+              f" vs lock-step {lk['tokens_per_sec']!r}, per_token_stall "
+              f"{c['per_token_stall']!r} vs {lk['per_token_stall']!r} s "
+              f"(modeled); ticks {c['ticks']} vs {lk['ticks']}")
+    print(f"    {label} wall {wall!r} s (host clock, synchronised) [{card}]")
+
+
+def phase_fleet_scale(cfg):
+    """The fleet at scale: (a) the fleet bench through the serving_fleet
+    twin: the keyword cells (--smoke, --smoke --churn, the default sweep at
+    one full-width gemma-2b KV blob a session) once each, host Python on a
+    virtual clock; the heterogeneous 2:1 DRAM spec under capacity and
+    uniform weighting and a four-host economic spec, whose gates keep
+    their sketch on the card, on the card and the CPU, byte-identical;
+    (b) the control-plane replay at the reference's defaults (1M keys,
+    100k sessions, 120 steps, 8 hosts, metrics on) on the card, timed as
+    the CPU run is, its record byte-identical to the CPU's and equal to
+    the reference's modeled values, one reuse_sketch launch a step; then
+    again, instrumented, for the sketch's device time beside the host
+    ghost's; (c) the serving_scale twin's run_compare on reduced gemma-2b
+    in float32 on one set of weights, its report and every session's
+    tokens equal on the card and the CPU, and the same race on full-width gemma-2b in bf16 (native
+    seed-0 weights, built again here: phase 10 freed its own), held to the
+    plain path by phase 4's first-step logits rule and by each serving
+    kernel at the shapes the race gave it. Returns the launches of the
+    phase's runs on the card."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchmarks import serving_fleet as fleet
+    from repro_torch.benchmarks import serving_scale
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import Tier
+    from repro_torch.models import model as M
+    from repro_torch.obs import bench_json
+    from repro_torch.platform import (HierarchySpec, HostDecl, PolicyDecl,
+                                      TierDecl)
+    from repro_torch.serving import scale
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    blob = _blob_bytes(cfg)
+    assert blob == 36 << 20, blob
+    total = {n: 0 for n in SERVING_KERNELS + ("reuse_sketch",)}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts[n]
+
+    # (a) the fleet bench
+    print("  (a) the fleet bench (serving_fleet twin)")
+    kernels.reset_launch_counts()
+    for label, argv in (
+            ("--smoke", ["--smoke"]),
+            ("--smoke --churn", ["--smoke", "--churn"]),
+            (f"default sweep at --kv-mib 36 ({blob} B, one {cfg.name} "
+             f"blob a session)", ["--kv-mib", "36"])):
+        report, wall = _fleet_argv_run(fleet, argv)
+        _print_fleet_cells(f"{label} (keyword fleet: host only, virtual "
+                           f"clock)", report["trajectory"], f"{wall!r} s",
+                           card)
+    small = 3 * (1 << 19)
+    het = {w: HierarchySpec(
+        hosts=(HostDecl(tiers={"dram": TierDecl(2 * small, 45e9, 5e-7)}),
+               HostDecl(tiers={"dram": TierDecl(small, 45e9, 5e-7)},
+                        count=3)),
+        policy=PolicyDecl.pinned_dram(), weighting=w, vnodes=128)
+        for w in ("capacity", "uniform")}
+    het_kw = dict(n_sessions=14, rounds=3, kv_bytes=1 << 19, decode_steps=8,
+                  step_time=2e-3, lead=6, seed=0, kv_tier=Tier.DRAM)
+    stall = {}
+    for w, spec in het.items():
+        traj, _ = _fleet_spec_runs(
+            fleet, f"2:1 DRAM spec, weighting {w!r}, kv_tier DRAM", spec,
+            card, **het_kw)
+        stall[w] = traj[0]["sync"]["per_token_stall"]
+    print(f"    capacity-weighted ring's sync stall per token "
+          f"{stall['capacity']!r} s against uniform {stall['uniform']!r} s "
+          f"(modeled)")
+    assert stall["capacity"] < stall["uniform"], stall
+    econ = HierarchySpec(hosts=(HostDecl(count=4),),
+                         policy=PolicyDecl.economic(l_blk=1 << 20))
+    traj, econ_launches = _fleet_spec_runs(
+        fleet, "four-host economic spec (l_blk 1 MiB), 8 sessions of 1 MiB",
+        econ, card, n_sessions=8, rounds=2, kv_bytes=1 << 20,
+        decode_steps=16, step_time=2e-3, lead=8, seed=0)
+    add(kernels.launch_counts())
+
+    # (b) the control-plane replay at the reference's defaults
+    print("  (b) scale_replay at the reference's defaults, metrics on")
+    rss = _peak_rss_mib()
+    rec, timings, ghost_s, launches, wall, _ = _replay_on(
+        scale, "cuda", **SCALE_DEFAULTS)
+    add({**{n: 0 for n in SERVING_KERNELS}, "reuse_sketch": launches})
+    print(f"  record {json.dumps(rec)}")
+    assert launches == SCALE_DEFAULTS["n_steps"], launches
+    for k, v in SCALE_MODELED.items():
+        assert rec[k] == v, (k, rec[k], v)
+    for k, v in SCALE_MODELED_12.items():
+        assert math.isclose(rec[k], v, rel_tol=1e-11), (k, rec[k], v)
+    _print_replay("on cuda", timings, ghost_s, wall, card)
+    rec_cpu, t_cpu, ghost_cpu, launches_cpu, wall_cpu, _ = _replay_on(
+        scale, "cpu", **SCALE_DEFAULTS)
+    assert launches_cpu == 0, launches_cpu
+    assert json.dumps(rec_cpu) == json.dumps(rec), "replay: cuda != cpu"
+    _print_replay("on cpu (the sketch's plain version)", t_cpu, ghost_cpu,
+                  wall_cpu, card)
+    rec_i, _, _, launches_i, _, sketch = _replay_on(
+        scale, "cuda", capture=True, **SCALE_DEFAULTS)
+    assert json.dumps(rec_i) == json.dumps(rec), "replay: instrumented"
+    assert launches_i == launches == len(sketch["kernel_ms"]), launches_i
+    _print_sketch(sketch)
+    print(f"    record byte-identical on cuda and cpu and equal to the "
+          f"reference's modeled values; reuse_sketch launches {launches} "
+          f"== n_steps; {rec['accesses'] / rec['n_steps']:.1f} accesses a "
+          f"step (each one launch on the large path); peak host RSS "
+          f"{rss:.1f} MiB before, {_peak_rss_mib():.1f} MiB after")
+
+    # (c) run_compare: reduced on both devices, then full width on the card
+    print("  (c) serving_scale's run_compare")
+    # one set of weights on both devices: native init draws from each
+    # device's own generator, so its seed alone gives the card and the CPU
+    # different weights (and the report, which holds no token, the same)
+    small = M.init_params(get_config(cfg.name, reduced=True), SEED,
+                          device="cpu")
+    weights = {"cpu": small, "cuda": _map(small, lambda t: t.to("cuda"))}
+    got, walls, toks = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            kernels.reset_launch_counts()
+        t = time.perf_counter()
+        got[dev], jobs = _session_jobs(lambda: serving_scale.run_compare(
+            ["zipf"], smoke=True, seed=SEED, device=dev,
+            params=weights[dev]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            add(kernels.launch_counts())
+        walls[dev] = time.perf_counter() - t
+        toks[dev] = [_tokens(js) for js in jobs]
+    assert bench_json(got["cuda"]) == bench_json(got["cpu"]), \
+        "run_compare (reduced): cuda != cpu"
+    assert toks["cuda"] == toks["cpu"], "run_compare (reduced): tokens"
+    n_tok = sum(len(t) for arm in toks["cpu"] for t in arm.values())
+    print(f"    reduced {cfg.name} f32 (seed-{SEED} weights made on the "
+          f"CPU, copied to the card), zipf, 6 jobs, horizon 48: the JSON "
+          f"({len(bench_json(got['cpu']))} bytes) and every session's "
+          f"tokens ({len(toks['cpu'])} arms, {n_tok} tokens) are identical "
+          f"on the card (kernels) and the CPU (plain versions); wall "
+          f"{walls['cuda']!r} s on cuda, {walls['cpu']!r} s on cpu")
+    _compare_cells(got["cuda"], walls["cuda"], card, "reduced")
+    del small, weights
+    params = _native_params(cfg)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (full, buckets, lengths), jobs = _session_jobs(lambda: _race(
+        cfg, params, ["zipf", "diurnal"], n_jobs=10, horizon=96))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    add(kernels.launch_counts())
+    print(f"    full-width {cfg.name} bf16, 10 jobs, horizon 96 (verdicts "
+          f"as measured):")
+    _compare_cells(full, wall, card, "full-width")
+    prompt = jobs[0][0].prompt
+    bucket = min(1 << (len(prompt) - 1).bit_length(), RACE_MAX_LEN - 1)
+    assert bucket in buckets, (bucket, buckets)
+    _first_step(cfg, params, prompt, max_len=RACE_MAX_LEN, bucket=bucket)
+    _race_kernels(cfg, buckets, lengths)
+    del params, full
+    torch.cuda.empty_cache()
+
+    print(f"  launches in phase 14: {json.dumps(total)} (the economic "
+          f"spec's fleet: {econ_launches})")
+    for name, n in total.items():
+        assert n > 0, f"{name} never launched in phase 14"
+    print(f"  phase 14 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3330,6 +3850,9 @@ def main() -> int:
           f"and the scheduler")
     dense = phase_dense(dense_cfg, _prompts(dense_cfg.vocab, N_REQUESTS + 2,
                                             np.random.default_rng(SEED)))
+    print(f"[14] the fleet at scale: the fleet bench and the control-plane "
+          f"replay, then run_compare on {cfg.name}")
+    at_scale = phase_fleet_scale(cfg)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -3337,9 +3860,9 @@ def main() -> int:
                "phase7": {"ann_topk": counts["ann_topk"]},
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
-               "phase12": artifacts, "phase13": dense}
+               "phase12": artifacts, "phase13": dense, "phase14": at_scale}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    for path in (workload, loops, artifacts, dense):
+    for path in (workload, loops, artifacts, dense, at_scale):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

@@ -307,6 +307,23 @@ class SsdQueueModel:
         pages = max(1, math.ceil(nbytes / self.PAGE))
         return Service(occupancy=pages / iops, latency=lat)
 
+    def service_total_batch(self, nbytes: int, depths) -> np.ndarray:
+        """Vectorized `service(nbytes, d).total` over an array of queue
+        depths — one interp over the calibrated ladder instead of a
+        Python call per access. Matches the scalar path value-for-value;
+        this is how a control plane prices thousands of queued fetches
+        per step without re-entering the model per key. Float64 numpy on
+        the host, as the scalar path."""
+        if self._iops is None:
+            self._calibrate()
+        d = np.clip(np.asarray(depths, float),
+                    self.DEPTHS[0], self.DEPTHS[-1])
+        x = np.log2(d)
+        iops = np.interp(x, self._xs, self._iops)
+        lat = np.interp(x, self._xs, self._lat)
+        pages = max(1, math.ceil(nbytes / self.PAGE))
+        return pages / iops + lat
+
 
 class GpuDirectQueueModel:
     """BaM-style GPU-direct flash path over the calibrated flash ladder.
