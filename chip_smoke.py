@@ -98,7 +98,9 @@ Drives the port's serving path on the card and checks it, in phases:
      prints the modeled report, the tenants' cells and ledger, each
      run's host-clock wall split into decode steps and the rest, and the
      device-idle share of one decode step with every slot decoding; the
-     reduced model's report is byte-identical on the card and the CPU.
+     reduced model, on one weight set made on the CPU and copied to the
+     card, gives a byte-identical report and every session's tokens equal
+     on the card and the CPU.
  11. the autopilot's closed loops: the autoscale bench (diurnal trace, 240
      steps, `Platform.autoscale` growing and shrinking the fleet against a
      peak-provisioned static fleet) and the failover bench (four hosts, 12
@@ -166,6 +168,25 @@ Drives the port's serving path on the card and checks it, in phases:
      the bench's jobs (10 jobs, horizon 96, zipf and diurnal), verdicts
      as measured; rmsnorm, decode and flash attention and reuse_sketch
      launched in the phase.
+ 15. declared tenants and the fourth tier: serving/tenants.py's
+     tenant-isolation bench (premium + batch + scan-flood, three arms)
+     and serving/tiers.py's fourth-tier bench (the smoke packs moe_scan
+     and diurnal, four arms: baseline, the GPU-direct flash lane, the
+     far-memory pool, both) through Platform.compile ->
+     Platform.scheduler; (a) at the reference's geometry (reduced
+     gemma-2b, max_len 64, 4 slots) on the card and on the CPU over one
+     weight set made on the CPU: the JSON byte-identical and every
+     session's tokens equal, and the reference tests' verdicts
+     (isolation_effective, gpu_flash and pool each winning somewhere,
+     each scenario's advice_agreement) held on the card; (b) full-width
+     gemma-2b in bf16 at max_len 64, each pack's blob-unit sizes (host
+     DRAM, l_blk, the pool's capacity) rescaled to the engine's blob of
+     2,359,296 B, verdicts printed as measured, the run held to the
+     plain path by the first-step logits and by each serving kernel at
+     the prefill buckets and length vectors it launched; each arm's wall,
+     decode steps and ms a step beside its modeled per_token_stall,
+     $/token, tau_be and tau_pool; rmsnorm, decode and flash attention
+     and reuse_sketch launched in the phase.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -1103,10 +1124,10 @@ def _smi() -> str:
                           text=True, check=True).stdout.strip()
 
 
-def _blob_bytes(cfg) -> int:
+def _blob_bytes(cfg, max_len=MAX_LEN) -> int:
     """A paused session's blob: every K/V leaf of one slot, as float32."""
     attn = cfg.pattern[0][0]
-    return 2 * cfg.n_groups * attn.n_kv * MAX_LEN * attn.head_dim * 4
+    return 2 * cfg.n_groups * attn.n_kv * max_len * attn.head_dim * 4
 
 
 def _tier_table(cfg) -> dict:
@@ -1581,20 +1602,30 @@ def phase_workload(cfg, params):
           f"{cont['tokens_per_sec']!r} vs {lock['tokens_per_sec']!r} "
           f"(modeled)")
 
-    # the reduced model's report: modeled, so the card cannot change it
+    # the reduced model on one set of weights, made on the CPU and copied
+    # to the card (native init draws from each device's own generator):
+    # the report is modeled, so the card cannot change it, and the greedy
+    # tokens of the kernels (card) and the plain versions (CPU) agree
     small = get_config(cfg.name, reduced=True)
     rspec = _workload_spec(small, tenants=("premium", "scan"),
                            n_sessions=3, horizon=64)
-    got = {}
+    rp = M.init_params(small, SEED, device="cpu")
+    weights = {"cpu": rp, "cuda": _map(rp, lambda t: t.to("cuda"))}
+    got, toks = {}, {}
     for dev in ("cuda", "cpu"):
-        rp = M.init_params(small, SEED, device=dev)
-        got[dev] = json.dumps(
-            _serve_workload(small, rp, rspec, device=dev)[3],
-            sort_keys=True)
+        run = _serve_workload(small, weights[dev], rspec, device=dev)
+        got[dev] = json.dumps(run[3], sort_keys=True)
+        toks[dev] = _tokens(run[2])
     assert got["cuda"] == got["cpu"], (got["cuda"], got["cpu"])
-    print(f"  reduced {cfg.name} f32, premium + scan x 3 sessions: the "
-          f"report's JSON ({len(got['cpu'])} bytes) is byte-identical on "
-          f"the card and the CPU")
+    assert toks["cuda"] == toks["cpu"], "reduced workload: tokens differ"
+    n_tok = sum(len(t) for t in toks["cpu"].values())
+    assert all(toks["cpu"].values()), "a reduced session decoded nothing"
+    print(f"  reduced {cfg.name} f32 (seed-{SEED} weights made on the CPU, "
+          f"copied to the card), premium + scan x 3 sessions: the report's "
+          f"JSON ({len(got['cpu'])} bytes) and every session's tokens "
+          f"({len(toks['cpu'])} sessions, {n_tok} tokens) are identical on "
+          f"the card (kernels) and the CPU (plain versions)")
+    del rp, weights
     print(f"  phase 10 wall {time.perf_counter() - t_phase:.1f} s")
     return {name: counts[name] for name in
             SERVING_KERNELS + ("reuse_sketch",)}
@@ -3534,7 +3565,7 @@ def _race(cfg, params, scenarios, *, n_jobs, horizon):
     return report, sorted(buckets), sorted(lengths)
 
 
-def _race_kernels(cfg, buckets, lengths):
+def _race_kernels(cfg, buckets, lengths, what="the race's"):
     """The serving kernels at the race's own shapes, bf16 as it ran,
     against their plain versions (TOL) on seeded inputs: rmsnorm and
     add_rmsnorm at a decode step's rows and each prefill bucket's;
@@ -3594,7 +3625,7 @@ def _race_kernels(cfg, buckets, lengths):
             hold("flash_attention", flash_attention(q, k, v, scale=scale),
                  reference_attention(q, k, v, scale=scale), f"S={S}")
     flat = [n for lens in lengths for n in lens]
-    print(f"  check at the race's shapes, bf16 (TOL): rmsnorm and "
+    print(f"  check at {what} shapes, bf16 (TOL): rmsnorm and "
           f"add_rmsnorm at rows {rows} x {D}; decode_attention q "
           f"[{MAX_SLOTS},{H},{hd}] k,v [{MAX_SLOTS},{KV},{RACE_MAX_LEN},"
           f"{hd}] at the run's {len(lengths)} length vectors (lengths "
@@ -3785,6 +3816,258 @@ def phase_fleet_scale(cfg):
     print(f"  phase 14 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return total
 
+# --------------------------------------------------------------- phase 15
+BENCH_MAX_LEN = 64             # the tenant and tiers benches' engines
+TENANT_ARMS = ("gated", "shared", "no_adversary")
+TIERS_SCENARIOS = ("moe_scan", "diurnal")
+
+
+class _Noting:
+    """Notes, at the class level of the port's platform, scheduler and
+    engine, what a bench's runs do inside it, with no device work: every
+    Platform.jobs list, each ContinuousScheduler.run's wall (host clock,
+    `sync`ed) and decode steps, the bucket a prefill hands
+    flash_attention and the lengths a decode step hands
+    decode_attention."""
+
+    def __init__(self, sync):
+        from repro_torch.platform.compiler import Platform
+        from repro_torch.serving.engine import DecodeEngine, _next_pow2
+        from repro_torch.serving.scheduler import ContinuousScheduler
+        self.jobs, self.runs, self.buckets, self.lengths = [], [], set(), set()
+        jobs, run = Platform.jobs, ContinuousScheduler.run
+        admit, step = DecodeEngine.admit, DecodeEngine.step
+        note = self
+
+        def noted_jobs(plat, *a, **k):
+            note.jobs.append(jobs(plat, *a, **k))
+            return note.jobs[-1]
+
+        def noted_run(sched, *a, **k):
+            sync()
+            t = time.perf_counter()
+            report = run(sched, *a, **k)
+            sync()
+            note.runs.append((time.perf_counter() - t,
+                              report["decode_steps"]))
+            return report
+
+        def noted_admit(eng, req):
+            note.buckets.add(min(_next_pow2(len(req.prompt)),
+                                 eng.max_len - 1))
+            return admit(eng, req)
+
+        def noted_step(eng):
+            if (eng.live & eng.active).any():
+                note.lengths.add(tuple(eng.lengths.tolist()))
+            return step(eng)
+
+        self._patches = [(Platform, "jobs", jobs, noted_jobs),
+                         (ContinuousScheduler, "run", run, noted_run),
+                         (DecodeEngine, "admit", admit, noted_admit),
+                         (DecodeEngine, "step", step, noted_step)]
+
+    def __enter__(self):
+        for cls, name, _, new in self._patches:
+            setattr(cls, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, old, _ in self._patches:
+            setattr(cls, name, old)
+
+    def tokens(self):
+        """Every session's generated tokens, one dict a run."""
+        return [{j.sid: None if j.request is None else
+                 list(j.request.generated) for j in jobs}
+                for jobs in self.jobs]
+
+
+def _rescaled(spec, blob, unit):
+    """`spec` with its sizes in blob units (host DRAM and the policy's
+    l_blk) moved from `unit` bytes a blob to `blob`."""
+    hosts = tuple(dataclasses.replace(h, tiers={
+        name: dataclasses.replace(t, capacity_bytes=t.capacity_bytes
+                                  / unit * blob) if name == "dram" else t
+        for name, t in h.tiers.items()}) for h in spec.hosts)
+    return dataclasses.replace(
+        spec, hosts=hosts, policy=dataclasses.replace(spec.policy,
+                                                      l_blk=blob))
+
+
+def _bench_arms(kind, out):
+    """(label, cell) of each arm of a tenant (`kind` "tenants") or tiers
+    bench's result, in the order the bench runs them."""
+    from repro_torch.serving.tiers import ARM_ORDER
+    if kind == "tenants":
+        return [(arm, out[arm]) for arm in TENANT_ARMS]
+    return [(f"{scen}/{arm}", out[scen][arm]) for scen in TIERS_SCENARIOS
+            for arm in ARM_ORDER]
+
+
+def _print_bench(kind, out, note, card):
+    """Each arm's wall, decode steps and ms a step beside its modeled
+    per_token_stall, $/token, tau_be and tau_pool; then the verdicts."""
+    arms = _bench_arms(kind, out)
+    assert len(arms) == len(note.runs), (len(arms), len(note.runs))
+    for (label, cell), (wall, steps) in zip(arms, note.runs):
+        rep = cell["report"]
+        assert rep["decode_steps"] == steps, (label, steps)
+        if kind == "tenants":
+            priced = f"tau_be {json.dumps(cell['tau_be'], sort_keys=True)}"
+        else:
+            priced = (f"$/token {cell['costs']['per_token']!r}; tau_be "
+                      f"{cell['tau_be']!r} s; tau_pool "
+                      f"{cell.get('tau_pool')!r} s")
+        print(f"    {label}: wall {wall!r} s (host clock, synchronised) "
+              f"[{card}], {steps} decode steps, "
+              f"{wall / max(steps, 1) * 1e3:.3f} ms of wall a decode step "
+              f"(prefills, pauses and resumes inside); tokens "
+              f"{rep['tokens']}, per_token_stall {rep['per_token_stall']!r}"
+              f" s (modeled); {priced} (modeled)")
+    if kind == "tenants":
+        print(f"    verdicts: {json.dumps(out['verdicts'], sort_keys=True)}"
+              f"; isolation_effective {out['isolation_effective']}")
+    else:
+        for scen in TIERS_SCENARIOS:
+            cell = out[scen]
+            print(f"    {scen}: wins {json.dumps(cell['wins'])}; advisor "
+                  f"recommends {cell['advice']['recommended_arm']} "
+                  f"(advice_agreement {cell['advice_agreement']})")
+        print(f"    gpu_flash_wins_somewhere "
+              f"{out['gpu_flash_wins_somewhere']}, pool_wins_somewhere "
+              f"{out['pool_wins_somewhere']}")
+
+
+def phase_tenants_tiers(cfg):
+    """Declared tenants and the fourth tier: the tenant-isolation bench
+    (serving/tenants.py, its default pack in three arms) and the
+    fourth-tier bench (serving/tiers.py, the smoke packs in four arms,
+    the pool and the GPU-direct lane) through Platform.compile ->
+    Platform.scheduler. (a) the reference's geometry (reduced `cfg`,
+    max_len 64, 4 slots) on the card and on the CPU over one weight set
+    made on the CPU: each bench's JSON byte-identical and every session's
+    tokens equal, and the reference tests' verdicts held on the card;
+    (b) full-width `cfg` in bf16 (native seed-0 weights) on the card at
+    max_len 64, each pack's blob-unit sizes (host DRAM, l_blk, the
+    pool's capacity) rescaled to the engine's own blob at that width,
+    verdicts printed as measured, the run held to the plain path by
+    phase 4's first-step logits rule and by each serving kernel at the
+    prefill buckets and length vectors the run launched. Returns the
+    launches of the phase's bench runs on the card."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.obs import bench_json
+    from repro_torch.serving import tenants, tiers
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    total = {n: 0 for n in SERVING_KERNELS + ("reuse_sketch",)}
+
+    def bench(fn, device, **kw):
+        """fn(device=device, **kw), noted; its launches added on the card.
+        Returns (result, notes, wall)."""
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        if device == "cuda":
+            kernels.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        with _Noting(sync) as note:
+            out = fn(device=device, **kw)
+        sync()
+        wall = time.perf_counter() - t
+        if device == "cuda":
+            for n, c in kernels.launch_counts().items():
+                if n in total:
+                    total[n] += c
+        return out, note, wall
+
+    runs = {"tenants": (tenants.run_tenant_bench, {}),
+            "tiers": (tiers.run_tiers_bench, {"smoke": True})}
+
+    # (a) the reference's geometry on both devices
+    small_cfg = get_config(cfg.name, reduced=True)
+    small = tenants.bench_weights(small_cfg, "cpu")
+    weights = {"cpu": small, "cuda": _map(small, lambda t: t.to("cuda"))}
+    reduced = {}
+    for kind, (fn, kw) in runs.items():
+        got = {dev: bench(fn, dev, params=weights[dev], **kw)
+               for dev in ("cuda", "cpu")}
+        js = {dev: bench_json(got[dev][0]) for dev in got}
+        assert js["cuda"] == js["cpu"], f"{kind} (reduced): cuda != cpu"
+        toks = {dev: got[dev][1].tokens() for dev in got}
+        assert toks["cuda"] == toks["cpu"], f"{kind} (reduced): tokens"
+        n_tok = sum(len(t) for arm in toks["cpu"] for t in arm.values()
+                    if t is not None)
+        assert n_tok > 0 and all(t for arm in toks["cpu"]
+                                 for t in arm.values()), kind
+        print(f"  (a) {kind} bench, reduced {cfg.name} f32 (seed-0 weights "
+              f"made on the CPU, copied to the card), max_len "
+              f"{BENCH_MAX_LEN}, {MAX_SLOTS} slots: the JSON "
+              f"({len(js['cpu'])} bytes) and every session's tokens "
+              f"({len(toks['cpu'])} runs, {n_tok} tokens) are identical on "
+              f"the card (kernels) and the CPU (plain versions); wall "
+              f"{got['cuda'][2]!r} s on cuda, {got['cpu'][2]!r} s on cpu")
+        _print_bench(kind, got["cuda"][0], got["cuda"][1], card)
+        reduced[kind] = got["cuda"][0]
+    # the reference tests' verdicts (tests/test_workload.py,
+    # tests/test_fourth_tier.py): modeled, held on the card
+    assert reduced["tenants"]["isolation_effective"], \
+        reduced["tenants"]["verdicts"]
+    r = reduced["tiers"]
+    assert r["gpu_flash_wins_somewhere"] and r["pool_wins_somewhere"], r
+    for scen in TIERS_SCENARIOS:
+        assert r[scen]["advice_agreement"], (scen, r[scen]["advice"])
+    del small, weights
+
+    # (b) full width, the packs rescaled to the engine's blob
+    blob = _blob_bytes(cfg, max_len=BENCH_MAX_LEN)
+    assert blob == 2_359_296, blob
+    unit = tenants.KV_BLOB_BYTES
+    pool = tiers.default_pool_decl()
+    pool = dataclasses.replace(
+        pool, capacity_bytes=pool.capacity_bytes / unit * blob)
+    full_kw = {
+        "tenants": {"spec": _rescaled(tenants.tenant_pack(), blob, unit)},
+        "tiers": {"packs": {k: _rescaled(v, blob, unit) for k, v in
+                            tiers.scenario_packs(smoke=True).items()},
+                  "pool": pool}}
+    print(f"  (b) full-width {cfg.name} bf16, max_len {BENCH_MAX_LEN}, "
+          f"{MAX_SLOTS} slots; blob-unit sizes rescaled from {unit} B to "
+          f"the engine's blob {blob} B (host DRAM, l_blk, pool capacity "
+          f"{pool.capacity_bytes!r} B); verdicts as measured")
+    params = _native_params(cfg)
+    buckets, lengths, first_jobs = set(), set(), None
+    for kind, (fn, _) in runs.items():
+        out, note, wall = bench(fn, "cuda", params=params, cfg=cfg,
+                                **full_kw[kind])
+        specs = full_kw[kind].get("packs") or {kind: full_kw[kind]["spec"]}
+        print(f"  {kind} bench: " + "; ".join(
+            f"{name} DRAM {sp.hosts[0].dram_capacity()!r} B "
+            f"({sp.hosts[0].dram_capacity() / blob:g} blobs), l_blk "
+            f"{sp.policy.l_blk}" for name, sp in specs.items())
+            + f"; wall {wall!r} s (host clock, synchronised) [{card}]")
+        _print_bench(kind, out, note, card)
+        buckets |= note.buckets
+        lengths |= note.lengths
+        first_jobs = first_jobs or note.jobs[0]
+    buckets, lengths = sorted(buckets), sorted(lengths)
+    prompt = first_jobs[0].prompt
+    bucket = min(1 << (len(prompt) - 1).bit_length(), BENCH_MAX_LEN - 1)
+    assert bucket in buckets, (bucket, buckets)
+    _first_step(cfg, params, prompt, max_len=BENCH_MAX_LEN, bucket=bucket)
+    assert BENCH_MAX_LEN == RACE_MAX_LEN       # _race_kernels' cache rows
+    _race_kernels(cfg, buckets, lengths, what="the benches'")
+    del params
+    torch.cuda.empty_cache()
+
+    print(f"  launches in phase 15: {json.dumps(total)}")
+    for name, n in total.items():
+        assert n > 0, f"{name} never launched in phase 15"
+    print(f"  phase 15 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
 
 def main() -> int:
     import torch
@@ -3853,6 +4136,10 @@ def main() -> int:
     print(f"[14] the fleet at scale: the fleet bench and the control-plane "
           f"replay, then run_compare on {cfg.name}")
     at_scale = phase_fleet_scale(cfg)
+    print(f"[15] declared tenants and the fourth tier: the tenant and "
+          f"tiers benches through Platform.scheduler, reduced and "
+          f"full-width {cfg.name}")
+    tiered = phase_tenants_tiers(cfg)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -3860,9 +4147,10 @@ def main() -> int:
                "phase7": {"ann_topk": counts["ann_topk"]},
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
-               "phase12": artifacts, "phase13": dense, "phase14": at_scale}
+               "phase12": artifacts, "phase13": dense, "phase14": at_scale,
+               "phase15": tiered}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    for path in (workload, loops, artifacts, dense, at_scale):
+    for path in (workload, loops, artifacts, dense, at_scale, tiered):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

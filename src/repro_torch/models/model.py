@@ -97,7 +97,12 @@ def init_params(cfg: ModelConfig,
 
     Matrices are stored in `dtype`; norm scales stay float32, as the
     kernels take them. `generator` is a torch.Generator on `device` or an
-    int seed. Runs on CUDA unless `device` says otherwise."""
+    int seed. Runs on CUDA unless `device` says otherwise.
+
+    The weights depend on the device: an int seed seeds that device's own
+    generator, and the CUDA and CPU generators draw different numbers
+    from one seed. A caller that compares devices draws once (on the CPU,
+    say) and copies the weights to the other device."""
     dev = resolve_device(device)
     if generator is None or isinstance(generator, int):
         seed = 0 if generator is None else generator

@@ -30,9 +30,11 @@ advising — see `repro_torch.platform.autoscale`.
 `engine` and `scheduler` decode; it resolves to CUDA unless the caller
 asks for the CPU.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the far-memory pool (`spec.pool`, Queue 1 item 7d) and `expert_store`
-(item 7f).
+A spec with `pool=` compiles the fleet-shared far-memory pool
+(`runtime.pool.PooledStore`) into the fabric, and a host declaring a
+"gpu_flash" tier gets a gate that routes gate-cold admissions down the
+GPU-direct path. Not ported yet, and raising NotImplementedError with its
+ROADMAP item: `expert_store` (Queue 1 item 7f).
 """
 from __future__ import annotations
 
@@ -111,15 +113,13 @@ class Platform:
         CPU."""
         spec.validate()
         device = resolve_device(device)
-        if spec.pool is not None:
-            raise _not_ported("the far-memory pool (HierarchySpec.pool)",
-                              "7d")
         clock = VirtualClock(spec.t0) if spec.clock == "virtual" \
             else WallClock()
 
         tracker: Optional[ReuseTracker] = None
         advisor: Optional[ProvisionAdvisor] = None
         decl = spec.policy
+        hosts = spec.expanded_hosts()
         if callable(decl) and not isinstance(decl, PolicyDecl):
             factory = decl
         elif decl.kind == "static":
@@ -170,20 +170,44 @@ class Platform:
                                           t.session.gap_steps * st)
             for cls_name, interval in sorted(priors.items()):
                 tracker.seed_prior(cls_name, interval)
-            # a host declaring a "gpu_flash" tier is refused by its store
-            # (the fourth tier is ROADMAP Queue 1 item 7), so no gate
-            # here routes admissions down the GPU-direct path
+            # fourth-tier thresholds: the pool band's upper edge (pool
+            # column vs a flash re-read) gates fleet-pool admission;
+            # hosts that declare a "gpu_flash" tier route gate-cold
+            # admissions down the BaM path. An empty band (crossover at
+            # or under tau_be) compiles to no pooling — the economics
+            # say the pool's own access cost exceeds a flash IO
+            tau_pool = None
+            if spec.pool is not None:
+                from ..core.economics import pool_flash_crossover
+                base_tau = EconomicGate.breakeven_tau(
+                    host_cfg, ssd, decl.l_blk, gamma_rw=decl.gamma_rw,
+                    phi_wa=decl.phi_wa, alpha_stall=decl.alpha_stall,
+                    fetch_seconds=fetch_seconds)
+                cross = float(pool_flash_crossover(
+                    host_cfg, decl.l_blk, base_tau,
+                    pool_bw=spec.pool.read_bw, pool_rtt=spec.pool.rtt,
+                    rent_factor=spec.pool.rent_factor,
+                    alpha_net=spec.pool.alpha_net))
+                if cross > base_tau:
+                    tau_pool = cross
+            gpu_hosts = {i for i, h in enumerate(hosts)
+                         if "gpu_flash" in h.tiers}
+            template_gpu = "gpu_flash" in \
+                spec.hosts[spec.autoscale.template].tiers
 
             def factory(_h, _d=decl, _t=tracker, _f=fetch_seconds,
                         _host=host_cfg, _ssd=ssd, _c=classify,
-                        _taus=class_tau_be):
+                        _taus=class_tau_be, _tp=tau_pool,
+                        _g=gpu_hosts, _n=len(hosts), _tg=template_gpu):
                 kw = {} if _c is None else {"classify": _c}
+                gpu = _h in _g or (_h >= _n and _tg)
                 return EconomicGate.from_break_even(
                     _host, _ssd, _d.l_blk, gamma_rw=_d.gamma_rw,
                     phi_wa=_d.phi_wa, alpha_stall=_d.alpha_stall,
                     fetch_seconds=_f, tracker=_t,
                     prior_quantile=_d.prior_quantile,
-                    class_tau_be=_taus, **kw)
+                    class_tau_be=_taus, tau_pool=_tp,
+                    gpu_direct=gpu, **kw)
 
         topology = spec.topology.compile() if spec.topology is not None \
             else None
@@ -200,14 +224,22 @@ class Platform:
                             metrics=obs_decl.metrics,
                             max_events=obs_decl.max_events)
 
+        pool = None
+        if spec.pool is not None:
+            from ..runtime.pool import PooledStore
+            p = spec.pool
+            pool = PooledStore(
+                p.capacity_bytes, read_bw=p.read_bw,
+                write_bw=p.write_bw, rtt=p.rtt, sat_depth=p.sat_depth,
+                rent_factor=p.rent_factor, clock=clock, obs=obs)
         fabric = ShardedTieredStore(
-            host_specs=[h.tier_specs() for h in spec.expanded_hosts()],
+            host_specs=[h.tier_specs() for h in hosts],
             weights=spec.resolved_weights(),
             policy_factory=factory, clock=clock, sim_cfg=sim_cfg,
             net_model=net_model, topology=topology,
             write_shield_depth=spec.write_shield_depth,
             vnodes=spec.vnodes, rebalance_rate=spec.rebalance_rate,
-            obs=obs)
+            obs=obs, pool=pool)
         if obs.metrics is not None:
             obs.metrics.register("fabric", fabric)
 
@@ -371,17 +403,28 @@ class Platform:
                      resident_bytes: Optional[float] = None, **kw):
         """Four-arm hierarchy-shape recommendation (3-tier baseline vs
         +pool vs +gpu_flash vs both) priced from the fleet's tracked
-        reuse distribution; `resident_bytes` defaults to a live census
-        across hosts."""
+        reuse distribution. Pool parameters default to the spec's
+        `PoolDecl` when one is declared; `resident_bytes` defaults to a
+        live census across hosts and pool."""
         if self.advisor is None or self.tracker is None:
             raise ValueError(
                 "platform has no advisor: tier-shape pricing needs "
                 "the economic policy (PolicyDecl(kind='economic'))")
+        p = self.spec.pool
+        if p is not None:
+            kw.setdefault("pool_bw", p.read_bw)
+            kw.setdefault("pool_rtt", p.rtt)
+            kw.setdefault("rent_factor", p.rent_factor)
+            kw.setdefault("alpha_net", p.alpha_net)
         if resident_bytes is None:
             seen: Dict[object, int] = {}
             for s in self.fabric.hosts.values():
                 for key in s.keys():
                     seen.setdefault(key, s.nbytes_of(key))
+            if self.fabric.pool is not None:
+                for key in self.fabric.pool.keys():
+                    seen.setdefault(key,
+                                    self.fabric.pool.nbytes_of(key))
             resident_bytes = float(sum(seen.values()))
         return self.advisor.advise_tiers(
             self.tracker, access_rate=access_rate,

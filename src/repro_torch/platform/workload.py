@@ -9,8 +9,7 @@ every tenant's arrival process, session shape and SLO compile into
   * `trace()`    — an `autopilot.traces.Trace` whose keys are
                    `(tenant, id)` tuples for the economics benches,
   * `id_steps()` — dense per-step int-id arrays for a vectorized
-                   control-plane replay (the reference's `serving.scale`,
-                   not ported yet),
+                   control-plane replay (`serving.scale`),
   * `tenant_taus()` / `declared_priors()` — per-tenant `tau_be` (each
                    tenant's `alpha_stall` folded in via the same Eq. 1
                    correction `EconomicGate.from_break_even` applies)

@@ -26,8 +26,10 @@ same engine. `submit(..., not_before=t)` lets a transfer's start be
 gated on an upstream completion, which is how a remote fetch composes
 the remote host's flash service with the network service (the NIC
 transfer cannot start before the flash read delivers the bytes).
-The far-memory pool's lanes and the GPU-direct flash lane wait for a
-later slice of the port (ROADMAP Queue 1 item 7).
+The far-memory pool (`runtime.pool`) keys its per-host lanes
+``("POOL", host)`` with a `PoolLaneModel`, and a store that configures
+the GPU_FLASH tier gets a `GpuDirectQueueModel` lane over the same
+calibrated NAND; each bills its own stall-ledger component.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from typing import Dict, List, Optional
 from ..core.policy import Tier
 from ..obs.ledger import StallLedger, tenant_of_key
 from .clock import ensure_clock
-from .service import FixedLatencyModel, Service, SsdQueueModel
+from .service import (FixedLatencyModel, GpuDirectQueueModel, Service,
+                      SsdQueueModel)
 
 
 @dataclasses.dataclass
@@ -93,6 +96,13 @@ class AsyncTierRuntime:
             # flash service always derives from the ssdsim queueing
             # engine unless the caller explicitly injected a model
             service_models[Tier.FLASH] = SsdQueueModel.shared(sim_cfg)
+            if specs and Tier.GPU_FLASH in specs:
+                # the BaM-style path reuses the same calibrated NAND
+                # ladder behind an accelerator submission queue — a
+                # different lane on the same engine, never contending
+                # with the host-flash lane's queue
+                service_models[Tier.GPU_FLASH] = GpuDirectQueueModel(
+                    SsdQueueModel.shared(sim_cfg))
         self.models = service_models
         lanes = list(self.models)
         self._free: Dict[object, float] = {t: 0.0 for t in lanes}
@@ -247,8 +257,16 @@ class AsyncTierRuntime:
             if tr.tier == Tier.FLASH:
                 lane_comp = ("gate_miss_restore" if tr.gate_miss
                              else "flash_service")
+            elif tr.tier == Tier.GPU_FLASH:
+                # the accelerator-direct path never rides the host
+                # flash lane, so none of its seconds may land under
+                # flash_service — its own Eq. 1 column
+                lane_comp = "gpu_direct_service"
             else:
                 lane_comp = "other"          # DRAM/HBM residuals
+        elif isinstance(tr.tier, tuple) and tr.tier \
+                and tr.tier[0] == "POOL":
+            lane_comp = "pool_rtt"           # per-host far-memory lanes
         else:
             lane_comp = "nic_queue"          # NIC (or future) lanes
         tenant = tenant_of_key(tr.key)

@@ -91,9 +91,6 @@ keys. Equal weights reproduce the unweighted ring bit-for-bit (the same
 `add_host(specs=, weight=)` extends an elastic fleet with a
 non-template host. The declarative front door for all of this is
 `repro_torch.platform.HierarchySpec` -> `Platform.compile`.
-
-The fleet-shared far-memory pool (`pool=`) waits for ROADMAP Queue 1
-item 7d and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -108,6 +105,7 @@ from ..core.policy import Tier, TieringPolicy
 from ..obs.ledger import StallLedger
 from .async_engine import AsyncTierRuntime, Transfer
 from .clock import ensure_clock
+from .pool import PooledFetch, PooledStore
 from .service import NetQueueModel
 from .tiers import (PendingFetch, TierSpec, TieredStore,
                     lead_steps_from_estimate)
@@ -320,11 +318,7 @@ class ShardedTieredStore:
                  write_shield_depth: Optional[int] = None,
                  vnodes: int = 64, topology=None,
                  rebalance_rate: Optional[float] = None,
-                 obs=None, pool=None):
-        if pool is not None:
-            raise NotImplementedError(
-                "the fleet-shared far-memory pool (runtime/pool.py) is not "
-                "ported yet (ROADMAP Queue 1 item 7d)")
+                 obs=None, pool: Optional[PooledStore] = None):
         if host_specs is not None:
             if n_hosts is not None and n_hosts != len(host_specs):
                 raise ValueError(
@@ -368,6 +362,13 @@ class ShardedTieredStore:
         self.obs = obs
         self.ledger: StallLedger = (obs.ledger if obs is not None
                                     else StallLedger())
+        # the fleet-shared far-memory pool (None = the 3-tier fleet):
+        # lanes attach per host in _new_host, capacity pressure spills
+        # back to the owner's flash, and failure semantics are split —
+        # the pool survives fail_host, the host's lane does not
+        self.pool = pool
+        if pool is not None:
+            pool.on_evict = self._pool_evict
         self.hosts: Dict[int, TieredStore] = {}
         self.nic: Dict[int, AsyncTierRuntime] = {}
         self.host_ids: List[int] = []
@@ -404,6 +405,8 @@ class ShardedTieredStore:
         self.local_fetches = 0
         self.remote_fetches = 0
         self.remote_puts = 0
+        self.pool_fetches = 0
+        self.pool_puts = 0
 
     @property
     def n_hosts(self) -> int:
@@ -432,6 +435,8 @@ class ShardedTieredStore:
         policy = self.hosts[h].policy
         if hasattr(policy, "obs"):
             policy.obs = self.obs
+        if self.pool is not None:
+            self.pool.attach_host(h)
         self.host_ids.append(h)
         return h
 
@@ -598,6 +603,19 @@ class ShardedTieredStore:
         writer's egress NIC (non-blocking, like tier writes)."""
         value = np.asarray(value)
         self._key_replicas[key] = max(1, int(replicas))
+        if self._pool_admit(key, tier, from_host):
+            # the gate priced the object into the pool: one fleet copy
+            # behind the writer's pool lane, no per-host residency (the
+            # pool is infrastructure — host replication does not apply)
+            for h in self.holders(key):
+                self.hosts[h].delete(key)
+            self.pool.put(key, value, from_host=from_host)
+            self.pool_puts += 1
+            # same admit-then-observe order as TieredStore.put: the
+            # write is a reuse event even though no host placed bytes
+            self.hosts[from_host].policy.observe(
+                key, now=self.clock.now())
+            return
         targets = self._targets(key)
         # drop stale copies on hosts that are no longer targets
         for h in self.holders(key):
@@ -609,6 +627,9 @@ class ShardedTieredStore:
                 self._nic_submit(from_host, h, key, value.nbytes,
                                  kind="write")
                 self.remote_puts += 1
+        if self.pool is not None:
+            # a host placement supersedes any stale pooled copy
+            self.pool.delete(key)
 
     def get_async(self, key, from_host: int = 0):
         """Issue a non-blocking fetch. Local replica -> the plain
@@ -617,6 +638,14 @@ class ShardedTieredStore:
         if self.hosts[from_host].tier_of(key) is not None:
             self.local_fetches += 1
             return self.hosts[from_host].get_async(key)
+        if self.pool is not None and self.pool.has(key):
+            # pooled copy: one hop over this host's pool lane — checked
+            # between the local-DRAM miss and the remote-flash
+            # composition, which is exactly where the tier sits
+            self.pool_fetches += 1
+            return self.pool.get_async(
+                key, from_host=from_host,
+                on_wait=lambda pf: self._after_pool_fetch(pf, from_host))
         held = self.holders(key)
         if not held:
             raise KeyError(key)
@@ -635,11 +664,46 @@ class ShardedTieredStore:
     def get(self, key, from_host: int = 0) -> np.ndarray:
         return self.get_async(key, from_host=from_host).wait()
 
+    # ----------------------------------------------------------- pool hooks
+    def _pool_admit(self, key, tier: Tier, from_host: int) -> bool:
+        """Ask the writing host's gate whether `key` belongs in the
+        fleet pool. Plain policies have no `pool_admit` hook and never
+        pool; the decision is economic (tracked reuse vs the pool
+        column's tau_be), not structural."""
+        if self.pool is None:
+            return False
+        hook = getattr(self.hosts[from_host].policy, "pool_admit", None)
+        if hook is None:
+            return False
+        return bool(hook(key, tier, now=self.clock.now()))
+
+    def _pool_evict(self, key, value, owner: int) -> None:
+        """Pool capacity pressure spills the LRU victim back to flash
+        on its pooling host (or the ring owner when that host has since
+        failed) — the pool never drops committed bytes."""
+        h = owner if owner in self.hosts else self.owner(key)
+        self.hosts[h].ingest(key, value, tier=Tier.FLASH)
+
+    def _after_pool_fetch(self, pf: PooledFetch, from_host: int) -> None:
+        """Post-wait hook on a pool read: the access is a reuse event
+        (one policy observation), and an object the policy now wants
+        warm is promoted into the reading host's hierarchy — placed via
+        `ingest` (no re-admission round-trip) with the pooled copy
+        retired."""
+        policy = self.hosts[from_host].policy
+        want = policy.observe(pf.key, now=self.clock.now())
+        if want < Tier.FLASH:
+            self.hosts[from_host].ingest(pf.key, pf.value, tier=want)
+            self.pool.delete(pf.key)
+            self.pool.stats.promotions += 1
+
     def tier_of(self, key) -> Optional[Tier]:
         for h in self.ring_hosts(key):
             t = self.hosts[h].tier_of(key)
             if t is not None:
                 return t
+        if self.pool is not None and self.pool.has(key):
+            return Tier.POOL
         return None
 
     def move(self, key, dst: Tier):
@@ -649,6 +713,8 @@ class ShardedTieredStore:
     def delete(self, key):
         for h in self.holders(key):
             self.hosts[h].delete(key)
+        if self.pool is not None:
+            self.pool.delete(key)
         self._key_replicas.pop(key, None)
         # a deleted key must leave the reuse bookkeeping too: a later
         # re-put is a first touch, not a measured "reuse" across the gap
@@ -665,6 +731,14 @@ class ShardedTieredStore:
         top of the owner's flash estimate."""
         if self.hosts[from_host].tier_of(key) is not None:
             return self.hosts[from_host].estimate_fetch_seconds(key)
+        if self.pool is not None and self.pool.has(key):
+            lane = self.pool.lanes.get(from_host)
+            if lane is None:
+                raise KeyError(key)
+            nbytes = self.pool.nbytes_of(key)
+            depth = self.pool.runtime.queue_depth(lane) + 1
+            svc = self.pool.lane_model.service(nbytes, depth)
+            return svc.occupancy + svc.latency
         held = self.holders(key)
         if not held:
             raise KeyError(key)
@@ -719,6 +793,8 @@ class ShardedTieredStore:
         self._policy_instant("autoscale_remove_host", {"host": host})
         rb = self._rebalance("leave", host, extra_sources=(host,))
         self.retired[host] = (self.hosts.pop(host), self.nic.pop(host))
+        if self.pool is not None:
+            self.pool.detach_host(host)
         return rb
 
     def fail_host(self, host: int) -> FailureReport:
@@ -747,6 +823,10 @@ class ShardedTieredStore:
         self.host_ids.remove(host)
         self._rebuild_ring()
         self.failed[host] = t_fail
+        if self.pool is not None:
+            # the pool is fleet infrastructure and survives; only the
+            # dead host's lane (and any bytes on it) dies
+            self.pool.detach_host(host)
         # in-flight flows from the dead sender never arrive; stop
         # counting them toward any destination's incast fan-in
         self._nic_flows = [f for f in self._nic_flows if f[1] != host]
@@ -876,6 +956,8 @@ class ShardedTieredStore:
                 t = max(t, store.runtime.drain())
             for nic in nics:
                 t = max(t, nic.drain())
+            if self.pool is not None:
+                t = max(t, self.pool.drain())
             if not any(store.flush_deferred_writes()
                        or store.deferred_writes_pending
                        for store in stores):
@@ -890,9 +972,13 @@ class ShardedTieredStore:
             store.reset_stats()
         for nic in self._all_nics():
             nic.reset_stats()
+        if self.pool is not None:
+            self.pool.reset_stats()
         self.local_fetches = 0
         self.remote_fetches = 0
         self.remote_puts = 0
+        self.pool_fetches = 0
+        self.pool_puts = 0
 
     def snapshot_stats(self) -> Dict[str, object]:
         """Fleet-wide stats as plain dicts: per-host stores (retired
@@ -910,6 +996,10 @@ class ShardedTieredStore:
                          "remote_fetches": self.remote_fetches,
                          "remote_puts": self.remote_puts},
         }
+        if self.pool is not None:
+            out["pool"] = self.pool.snapshot_stats()
+            out["counters"]["pool_fetches"] = self.pool_fetches
+            out["counters"]["pool_puts"] = self.pool_puts
         return out
 
     def resident_bytes(self) -> int:
@@ -954,6 +1044,14 @@ class ShardedTieredStore:
         out["failed_hosts"] = float(len(self.failed))
         out["keys_lost"] = float(
             sum(r.keys_lost for r in self.failures))
+        if self.pool is not None:
+            ps = self.pool.stats
+            out["pool_fetches"] = float(self.pool_fetches)
+            out["pool_puts"] = float(self.pool_puts)
+            out["pool_used_bytes"] = float(self.pool.used_bytes)
+            out["pool_stall"] = float(ps.stall_time)
+            out["pool_evictions"] = float(ps.evictions)
+            out["pool_promotions"] = float(ps.promotions)
         return out
 
     def report(self) -> str:

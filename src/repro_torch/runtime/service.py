@@ -163,6 +163,38 @@ class NetQueueModel:
         return Service(occupancy=nbytes / eff_bw, latency=rtt)
 
 
+class PoolLaneModel:
+    """Per-host lane to the fleet-shared far-memory pool.
+
+    Same occupancy/latency split as `NetQueueModel` — fixed RTT, a
+    bandwidth share that ramps with in-flight depth — plus the write
+    asymmetry the pool's ingest path needs: pooled DRAM is behind a
+    fabric port whose egress (host reads) and ingress (host writes /
+    demotions into the pool) can be provisioned differently. Each
+    attached host owns one lane; occupancies serialize per lane in the
+    runtime while the RTT pipelines, so one host's demotion burst
+    queues on *its* lane without touching its neighbors'.
+    """
+
+    def __init__(self, rtt: float = 2e-6, read_bw: float = 40e9,
+                 write_bw: Optional[float] = None, sat_depth: int = 4):
+        if rtt < 0 or read_bw <= 0 or sat_depth < 1:
+            raise ValueError("invalid pool-lane parameters")
+        if write_bw is not None and write_bw <= 0:
+            raise ValueError("invalid pool-lane write bandwidth")
+        self.rtt = rtt
+        self.read_bw = read_bw
+        self.write_bw = read_bw if write_bw is None else write_bw
+        self.sat_depth = sat_depth
+
+    def service(self, nbytes: int, queue_depth: int,
+                write: bool = False) -> Service:
+        bw = self.write_bw if write else self.read_bw
+        d = max(1, min(int(queue_depth), self.sat_depth))
+        eff_bw = bw * (d / self.sat_depth)
+        return Service(occupancy=nbytes / eff_bw, latency=self.rtt)
+
+
 class SsdQueueModel:
     """Queue-depth-dependent flash service times from the ssdsim DES."""
 
@@ -342,8 +374,8 @@ class GpuDirectQueueModel:
 
     The economics mirror: `break_even_components_gpu_direct` drops the
     host-CPU and host-DRAM-wire terms from Eq. 1 for the same reason
-    this model never touches a host lane. The provisioning advisor
-    prices this path; the runtime's GPU-direct lane is not ported yet.
+    this model never touches a host lane. `AsyncTierRuntime` serves a
+    store's GPU_FLASH lane with this model.
     """
 
     def __init__(self, ssd: SsdQueueModel, *, boost_depth: int = 32,

@@ -42,9 +42,13 @@ records that arrival horizon, and any fetch of the key issued before it
 is gated on it — a mid-rebalance restore pays for the in-flight leg
 instead of being served structurally-now at the destination.
 
-This store holds the three classic tiers. The GPU-direct flash tier and
-the far-memory pool wait for a later slice of the port (ROADMAP Queue 1
-item 7).
+A store whose specs configure the fourth tier, GPU_FLASH (the BaM-style
+GPU-direct flash path: the same NAND behind an accelerator submission
+queue), serves it on its own `GpuDirectQueueModel` lane. GPU_FLASH is an
+explicit destination only: warm-tier overflow falls to FLASH, never
+sideways, and neither FLASH nor GPU_FLASH evicts. The fleet-shared
+far-memory pool is not a tier of this store: `runtime.pool.PooledStore`
+sits beside the hosts in the sharded fabric.
 """
 from __future__ import annotations
 
@@ -146,11 +150,6 @@ class TieredStore:
             Tier.DRAM: TierSpec(128e9, 45e9, 5e-7),
             Tier.FLASH: TierSpec(4e12, 7e9, 2e-5),
         }
-        extra = set(self.specs) - {Tier.HBM, Tier.DRAM, Tier.FLASH}
-        if extra:
-            raise NotImplementedError(
-                f"tiers {sorted(t.name for t in extra)} are not ported "
-                f"yet; this store takes HBM, DRAM and FLASH")
         self.policy = policy
         if runtime is not None:
             self.runtime = runtime
@@ -166,7 +165,10 @@ class TieredStore:
         self.obs = self.runtime.obs
         self.ledger = self.runtime.ledger
         self.label = self.runtime.label
-        # iteration order is the *configured* tier set, hot-to-cold
+        # iteration order is the *configured* tier set, hot-to-cold —
+        # never `for t in Tier`: a store compiled without the fourth
+        # tier must behave bit-identically whether or not the enum has
+        # grown new members
         self.tiers: Tuple[Tier, ...] = tuple(sorted(self.specs))
         self._data: Dict[Tier, Dict[object, np.ndarray]] = {
             t: {} for t in self.tiers}
@@ -193,7 +195,8 @@ class TieredStore:
         return None
 
     def used_bytes(self, tier: Tier) -> int:
-        # .get: a tier this store does not configure holds nothing
+        # .get: fleet-level callers sum over all Tier members; a tier
+        # this store does not configure (gpu_flash, pool) holds nothing
         return self._used.get(tier, 0)
 
     def keys(self) -> List[object]:
@@ -256,8 +259,12 @@ class TieredStore:
         for t in self.tiers:
             if t == cur:
                 self.stats[t].hits += 1
-            elif t < cur:
-                # tiers warmer than the serving one record a miss
+            elif t < min(cur, Tier.FLASH):
+                # tiers warmer than the serving one record a miss; the
+                # min() keeps GPU_FLASH from charging FLASH a miss —
+                # they are parallel paths to the same NAND, not a
+                # warmer/colder pair (no-op for 3-tier stores, where
+                # cur never exceeds FLASH)
                 self.stats[t].misses += 1
         value = self._data[cur][key]
         tr = self.runtime.submit(cur, key, value.nbytes, kind="fetch",
@@ -288,7 +295,11 @@ class TieredStore:
         now = self.clock.now() if now is None else now
         want = self.policy.observe(pf.key, now=now)
         cur = self.tier_of(pf.key)
-        if cur is not None and want != cur:
+        if cur is not None and want != cur and not (
+                want == Tier.FLASH and cur == Tier.GPU_FLASH):
+            # a FLASH want is satisfied by GPU_FLASH residency: both are
+            # the same NAND, and shuttling between the two paths is
+            # never what the reuse interval asked for
             self._move(pf.key, cur, want)
         self.flush_deferred_writes()
 
@@ -478,11 +489,13 @@ class TieredStore:
     # ------------------------------------------------------------- capacity
     def _fit_tier(self, tier: Tier, nbytes: int) -> Tier:
         """First tier at or below `tier` whose capacity can hold the
-        object; raises if even the capacity tier cannot. A GPU_FLASH ask
-        (a gate with `gpu_direct`) lands on FLASH, the same NAND: this
-        store has no accelerator-direct tier."""
+        object; raises if even the capacity tier cannot. GPU_FLASH is
+        only ever an *explicit* destination — capacity overflow from
+        the warm tiers falls through to FLASH, never sideways into the
+        accelerator-direct namespace. A GPU_FLASH ask on a store without
+        that tier lands on FLASH, the same NAND."""
         for t in self.tiers:
-            if t < tier:
+            if t < tier or (t == Tier.GPU_FLASH and tier != Tier.GPU_FLASH):
                 continue
             if nbytes <= self.specs[t].capacity_bytes:
                 return t
@@ -499,7 +512,7 @@ class TieredStore:
         makes progress; the guard raise is defensive."""
         spec = self.specs[tier]
         while self._used[tier] + nbytes > spec.capacity_bytes \
-                and tier != Tier.FLASH:
+                and tier not in (Tier.FLASH, Tier.GPU_FLASH):
             victims = [k for k in self.policy.evict_candidates(
                            tier, now=self.clock.now())
                        if k in self._data[tier]]

@@ -26,7 +26,7 @@ REF = types.SimpleNamespace(Tier=j_policy.Tier,
                                     "ShardedTieredStore", "VirtualClock",
                                     "NetQueueModel", "FabricTopology",
                                     "TieredStore", "TierSpec",
-                                    "AsyncTierRuntime")})
+                                    "AsyncTierRuntime", "PooledStore")})
 PORT = types.SimpleNamespace(Tier=t_policy.Tier,
                              TieringPolicy=t_policy.TieringPolicy,
                              Observability=t_obs.Observability, **{
@@ -34,7 +34,7 @@ PORT = types.SimpleNamespace(Tier=t_policy.Tier,
                                      "ShardedTieredStore", "VirtualClock",
                                      "NetQueueModel", "FabricTopology",
                                      "TieredStore", "TierSpec",
-                                     "AsyncTierRuntime")})
+                                     "AsyncTierRuntime", "PooledStore")})
 SIDES = (REF, PORT)
 
 
@@ -288,8 +288,21 @@ def test_constructor_errors_match_reference(kw, match):
 
 
 def test_pool_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PORT.ShardedTieredStore(2, pool=object())
+    """The refusal this test held is lifted: the fabric takes the pool
+    (runtime/pool.py) as the reference's does, one lane a host, spilling
+    through the fabric's hook. tests/test_torch_fourth_tier.py holds the
+    pool's records to the reference's."""
+    got = []
+    for ns in SIDES:
+        pool = ns.PooledStore(1 << 20, clock=ns.VirtualClock())
+        fab = ns.ShardedTieredStore(2, pool=pool, clock=pool.clock,
+                                    policy_factory=_pinned(ns))
+        assert fab.pool is pool and pool.on_evict == fab._pool_evict
+        fab.add_host()
+        got.append((sorted(pool.lanes), fab.summary()["pool_puts"],
+                    fab.snapshot_stats()["pool"]))
+    assert got[0] == got[1]
+    assert got[1][0] == [0, 1, 2]
 
 
 # ---------------------------------------------------------------------------

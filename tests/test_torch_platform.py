@@ -41,6 +41,7 @@ from repro.serving.engine import route_session as j_route
 import repro_torch.platform as TP
 import repro_torch.serving.bench as t_sbench
 from repro_torch.configs import get_config
+from repro_torch.core.policy import Tier as TTier
 from repro_torch.core.policy import TieringPolicy as TPolicy
 from repro_torch.models import model as TM
 from repro_torch.runtime import ShardedTieredStore as TFabric
@@ -336,8 +337,19 @@ def test_unported_capabilities_raise_with_their_roadmap_item():
                                    device="cpu")
     with pytest.raises(NotImplementedError, match="item 7f"):
         platform.expert_store()
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        TP.Platform.compile(_specs(TP)["pool"], device="cpu")
+    # the pool and the GPU-direct tier are ported (item 7d): the spec
+    # compiles to the reference's gates, pool and tiers
+    # (tests/test_torch_fourth_tier.py holds them to it on live fleets)
+    pooled = {P: P.Platform.compile(_specs(P)["pool"], **kw)
+              for P, kw in ((TP, {"device": "cpu"}), (JP, {}))}
+    for P, plat in pooled.items():
+        gate, pool = plat.policy(0), plat.fabric.pool
+        pooled[P] = (gate.tau_be, gate.tau_pool, gate.gpu_direct,
+                     pool.capacity_bytes, pool.lane_model.write_bw,
+                     sorted(pool.lanes),
+                     sorted(int(t) for t in plat.fabric.hosts[0].specs))
+    assert pooled[TP] == pooled[JP]
+    assert pooled[TP][2] and int(TTier.GPU_FLASH) in pooled[TP][-1]
     # repair and autoscale are ported: each returns the reference's
     # result (tests/test_torch_failover.py and test_torch_autoscale.py
     # hold them to it on live fleets)
@@ -355,8 +367,9 @@ def test_unported_capabilities_raise_with_their_roadmap_item():
         platform.jobs()
     gpu = TP.HierarchySpec(hosts=(TP.HostDecl(
         tiers={"gpu_flash": TP.gpu_flash_tier()}),))
-    with pytest.raises(NotImplementedError, match="GPU_FLASH"):
-        TP.Platform.compile(gpu, device="cpu")
+    store = TP.Platform.compile(gpu, device="cpu").fabric.hosts[0]
+    assert type(store.runtime.models[TTier.GPU_FLASH]).__name__ \
+        == "GpuDirectQueueModel"
 
 
 def test_platform_device_goes_to_gates_and_engines(weights):
