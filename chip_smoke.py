@@ -187,6 +187,25 @@ Drives the port's serving path on the card and checks it, in phases:
      decode steps and ms a step beside its modeled per_token_stall,
      $/token, tau_be and tau_pool; rmsnorm, decode and flash attention
      and reuse_sketch launched in the phase.
+ 16. full-width mistral-nemo-12b (40 layers, d_model 5120, GQA of 32
+     query heads on 8 kv heads of 128, so a query width of 4096 against
+     d_model 5120, SwiGLU d_ff 14336, vocab 131072, rope theta 1e6, an
+     untied unembed; random bf16 weights from a seed) through phase 13's
+     path: (a) its serving kernels at its shapes (rmsnorm at
+     [4,5120] and [1023,5120], decode attention at q [4,32,128] and k,v
+     [4,8,1024,128], flash attention at q [1,32,S,128] and k,v
+     [1,8,S,128]), then decode attention at the config's own context,
+     k,v [4,8,131072,128] at lengths 131072, 100003, 32769 and 1,
+     against its plain version in f32 and bf16, timed beside masked
+     SDPA and its bound, with its timeline there; (b) and (c) as phase
+     13; peak device memory of native init, of the first-step check, of
+     (b) and of (c).
+
+The first-step check (phases 4 and 13-16) holds the kernels to the plain
+path in bf16 within twice the plain path's distance from the float32
+path, which runs on the bf16 weights themselves (each cast to float32
+only while it is used), so no phase holds a float32 copy of a model's
+weights.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -237,8 +256,10 @@ KERNELS = {
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 # the full-width configs the script serves, by their published parameter
-# count: gemma-2b in phases 4 and 9-10, deepseek-7b in phase 13
-PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696}
+# count: gemma-2b in phases 4 and 9-10, deepseek-7b in phase 13,
+# mistral-nemo-12b in phase 16
+PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
+          "mistral-nemo-12b": 12_247_782_400}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
 # the TPU kernel's largest and one that is not a multiple of 8; rows of a
 # step, of a decode step's slots and of the largest prefill bucket
@@ -381,8 +402,11 @@ def _print_record(name, r):
 
 
 def _print_timeline(tl, where=""):
+    recorded = ("" if tl["blocks_recorded"] == tl["blocks"] else
+                f"; the first {tl['blocks_recorded']} of {tl['blocks']} "
+                f"blocks recorded, rows (b, kv head) in order")
     print(f"  time  decode_attention  timeline{where} (us at "
-          f"{tl['sm_clock_mhz']} MHz): first start to last exit "
+          f"{tl['sm_clock_mhz']} MHz{recorded}): first start to last exit "
           f"{tl['first_start_to_last_exit_us']}; merging block "
           f"{tl['critical_block_us']}; partial blocks (median) "
           f"{tl['partial_blocks_median_us']}")
@@ -937,9 +961,12 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     `bucket` tokens as the engine pads it (None: not padded). Two bf16
     computations of a deep stack differ by the rounding noise of each, so
     the tolerance is bf16's own error here: twice the plain bf16 path's
-    distance from the same path in float32 (a float32 copy of the
-    weights, freed right after). Returns the launches per prefill and per
-    decode step."""
+    distance from the same path in float32 on the same bf16 weights
+    (every weight reaches the compute through `.to(compute_dtype)`, so
+    each matrix is float32 only while it is used; bf16 -> float32 is
+    exact, so this is the float32 path on a float32 copy, without the
+    copy). Prints the peak device memory of the check. Returns the
+    launches per prefill and per decode step."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -955,6 +982,9 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
         return M.prefill(weights, cfg, p0, cache, compute_dtype=dtype,
                          last_index=S - 1, plain=plain)[1].float()
 
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     kern = first_logits(params, torch.bfloat16, False)
     per_prefill = kernels.launch_counts()
@@ -968,9 +998,8 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     assert per_prefill["rmsnorm"] == per_step["rmsnorm"] == _norms(cfg), \
         (per_prefill, per_step)
     plain = first_logits(params, torch.bfloat16, True)
-    params32 = _map(params, lambda t: t.float())
-    truth = first_logits(params32, torch.float32, True)
-    del params32
+    truth = first_logits(params, torch.float32, True)
+    peak = torch.cuda.max_memory_allocated()
     err = float((kern - plain).abs().max())
     noise = float((plain - truth).abs().max())
     print(f"  first-step logits [1,{cfg.vocab}] (prompt {S}, tokens "
@@ -979,6 +1008,8 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
           f"kernels vs float32 {float((kern - truth).abs().max()):.4e}; "
           f"argmax {int(kern.argmax())} / {int(plain.argmax())} / "
           f"{int(truth.argmax())}")
+    print(f"  peak device memory in the check {peak / 1e9:.3f} GB "
+          f"({held / 1e9:.3f} GB held before it)")
     assert err <= 2 * noise, (err, noise)
     del kern, plain, truth
     torch.cuda.empty_cache()
@@ -3071,9 +3102,13 @@ def phase_artifacts():
     print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
-# --------------------------------------------------------------- phase 13
+# ---------------------------------------------------------- phases 13, 16
 DENSE_ARCH = "deepseek-7b"
-WINDOWS = 3                    # phase 13's decode windows
+LONG_ARCH = "mistral-nemo-12b"
+WINDOWS = 3                    # phases 13 and 16's decode windows
+# phase 16's decode attention at the config's own context (max_seq): a
+# full row, two ragged ones and one of a single position
+LONG_LENGTHS = (100_003, 32_769, 1)
 
 
 def _dense_kernels(cfg, lengths_main, buckets):
@@ -3082,8 +3117,9 @@ def _dense_kernels(cfg, lengths_main, buckets):
     3's rules: rmsnorm and add_rmsnorm at a decode step's rows and at the
     largest prefill bucket's; decode_attention at the decode step's
     lengths, ragged ones and lengths 0 and past T, timed over one cache a
-    layer (one layer's k and v exceed half of L2); flash_attention at
-    every prefill bucket, in the prefill's strided layout too."""
+    layer (distinct caches, so each call finds its own cold in L2 as a
+    layer does); flash_attention at every prefill bucket, in the
+    prefill's strided layout too."""
     import torch
     from repro_torch.kernels import (add_rmsnorm, decode_attention,
                                      flash_attention, rmsnorm)
@@ -3121,7 +3157,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
     for rows in (MAX_SLOTS, max(buckets)):
         _rmsnorm_times(D, eps, rows)
 
-    # ---- decode attention: MHA, one query head a kv head ------------------
+    # ---- decode attention: H / KV query heads a kv head -------------------
     ragged = torch.tensor([1, 77, 700, MAX_LEN], dtype=torch.int32,
                           device=dev)
     edge = torch.tensor([0, 5, MAX_LEN + 100, 300], dtype=torch.int32,
@@ -3150,7 +3186,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
     _print_record("decode_attention",
                   _decode_record(q, caches, lengths_main, scale, err))
     del caches
-    # where a call spends its time at one query head a kv head
+    # where a call spends its time at this head grouping
     _print_timeline(decode_timeline.run(lengths_main.tolist(), heads=H,
                                         kv_heads=KV, head_dim=hd),
                     f" at H={H} KV={KV} hd={hd}")
@@ -3181,6 +3217,63 @@ def _dense_kernels(cfg, lengths_main, buckets):
                      reference_attention(*ins[0], scale=scale), "bfloat16",
                      f"bucket S={S} H={H} KV={KV} hd={hd} bf16")
         _print_record("flash_attention", _flash_record(ins, scale, err))
+
+
+def _long_decode(cfg):
+    """decode_attention at `cfg`'s own context, max_seq positions a slot
+    (at mistral-nemo-12b's 131,072, 4,096 chunks of 32 a row, whose
+    partials the row's last block merges): lengths max_seq and
+    LONG_LENGTHS, in float32 and bf16 against the plain version (TOL),
+    then timed in bf16 (one cache: it is far past L2) beside the plain
+    version, masked SDPA and the filled bytes' bound, and the per-phase
+    timeline there. The inputs' bytes are reckoned before they are
+    made."""
+    import torch
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention import \
+        timeline as decode_timeline
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    attn = cfg.pattern[0][0]
+    B, T = MAX_SLOTS, cfg.max_seq
+    H, KV, hd = attn.n_heads, attn.n_kv, attn.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    lengths = torch.tensor((T,) + LONG_LENGTHS, dtype=torch.int32,
+                           device=dev)
+    kv = 2 * B * KV * T * hd
+    scratch = 4 * ops.scratch_numel(B, KV, T, H // KV, hd)
+    print(f"  decode_attention at max_seq {T}: k, v [{B},{KV},{T},{hd}] "
+          f"take {2 * kv / 1e9:.3f} GB in bf16, {4 * kv / 1e9:.3f} GB in "
+          f"float32; the kernel's float32 scratch {scratch / 1e6:.1f} MB "
+          f"({-(-T // ops.CHUNK)} chunks a row); lengths "
+          f"{lengths.tolist()}")
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        q = randn(B, H, hd, dtype=dt)
+        k, v = randn(B, KV, T, hd, dtype=dt), randn(B, KV, T, hd, dtype=dt)
+        got = decode_attention(q, k, v, lengths, scale=scale)
+        assert bool(torch.isfinite(got).all()), name
+        err = _check("decode_attention", got, reference_decode_attention(
+            q, k, v, lengths, scale=scale), name,
+            f"H={H} KV={KV} hd={hd} T={T} {name}")
+        del got
+    _print_record("decode_attention",
+                  _decode_record(q, [(k, v)], lengths, scale, err))
+    del q, k, v
+    torch.cuda.empty_cache()
+    _print_timeline(decode_timeline.run(lengths.tolist(), heads=H,
+                                        kv_heads=KV, head_dim=hd,
+                                        max_len=T),
+                    f" at H={H} KV={KV} hd={hd} T={T}")
+    torch.cuda.empty_cache()
 
 
 def _pause_resume(eng, clock, prompts):
@@ -3224,18 +3317,23 @@ def _pause_resume(eng, clock, prompts):
     return [tier_a.name, tier_b.name, demoted.name], t_pause, t_restore
 
 
-def phase_dense(cfg, prompts):
-    """Full-width deepseek-7b (MHA of 32 heads of 128, d_model 4096,
-    SwiGLU, an untied unembed, no embedding scale) on the card: (a) the
-    three serving kernels at its shapes against their plain versions,
-    timed; (b) serve_tiered_kv's spec through Platform.compile ->
-    Platform.engine on native bf16 weights: the first step's logits
-    against the plain path, phase 4's prompts and the example's flow,
-    greedy tokens across a pause to flash and a prefetched resume equal
-    to a run without a break, decode windows with every slot in use, one
-    prefill and one decode step profiled; (c) one run of phase 10's
-    declared workload through Platform.scheduler -> run(Platform.jobs()).
-    Returns the launches of (b) and (c)."""
+def phase_dense(cfg, prompts, label, long_context=False):
+    """A full-width dense config on the card (phase 13: deepseek-7b, MHA
+    of 32 heads of 128 at d_model 4096; phase 16: mistral-nemo-12b, GQA
+    of 32 query heads on 8 kv heads of 128 at d_model 5120; both SwiGLU,
+    an untied unembed, no embedding scale), `label` naming the phase in
+    its prints: (a) the three serving kernels at its shapes against their
+    plain versions, timed, and with `long_context` decode attention at
+    the config's own max_seq; (b) serve_tiered_kv's spec through
+    Platform.compile -> Platform.engine on native bf16 weights: the
+    first step's logits against the plain path, phase 4's prompts and
+    the example's flow, greedy tokens across a pause to flash and a
+    prefetched resume equal to a run without a break, decode windows
+    with every slot in use, one prefill and one decode step profiled;
+    (c) one run of phase 10's declared workload through
+    Platform.scheduler -> run(Platform.jobs()). Peak device memory by
+    part (native init apart from (b)). Returns the launches of (b) and
+    (c)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -3255,11 +3353,17 @@ def phase_dense(cfg, prompts):
           f"{blob} B; prompts {[len(p) for p in prompts]}, buckets "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
 
-    print("  (a) the serving kernels at its shapes")
+    print(f"  (a) the serving kernels at its shapes [{card}]")
     _dense_kernels(cfg, lengths_main, buckets)
+    if long_context:
+        _long_decode(cfg)
+    peaks = {"(a)": torch.cuda.max_memory_allocated()}
 
-    print("  (b) Platform.compile -> Platform.engine")
+    print(f"  (b) Platform.compile -> Platform.engine [{card}]")
+    torch.cuda.reset_peak_memory_stats()
     params = _native_params(cfg)
+    peaks["native init"] = torch.cuda.max_memory_allocated()
+    # resets the peak: (b) from here is the check and the serving
     per_prefill, per_step = _first_step(cfg, params, prompts[0])
     assert per_prefill["flash_attention"] == cfg.n_groups, per_prefill
     assert per_step["decode_attention"] == cfg.n_groups, per_step
@@ -3272,7 +3376,7 @@ def phase_dense(cfg, prompts):
           f"in {wall:.3f} s (host clock, synchronised); the example's "
           f"paused tiers {flow_tiers[:3]}, cold session on {flow_tiers[-1]}"
           f" before its prefetch; kv_stall_time={eng.kv_stall_time!r} s "
-          f"(modeled)")
+          f"(modeled) [{card}]")
     assert flow_tiers[-1] == Tier.FLASH.name, "the cold session's blob " \
         "did not reach FLASH"
     tiers, t_pause, t_restore = _pause_resume(eng, platform.clock, prompts)
@@ -3294,11 +3398,12 @@ def phase_dense(cfg, prompts):
           f"{tps[len(tps) // 2]!r}, range {tps[0]!r} - {tps[-1]!r} over "
           f"{len(tps)} windows [{card}]")
     _profile_split(eng, prompts)
-    peak_b = torch.cuda.max_memory_allocated()
+    peaks["(b)"] = torch.cuda.max_memory_allocated()
     del eng, platform
     torch.cuda.empty_cache()
 
-    print("  (c) Platform.scheduler -> run(Platform.jobs())")
+    print(f"  (c) Platform.scheduler -> run(Platform.jobs()) [{card}]")
+    torch.cuda.reset_peak_memory_stats()
     platform, sched, jobs, report, wall, split, pauses = _serve_workload(
         cfg, params, _workload_spec(cfg), dtype=torch.bfloat16)
     counts = kernels.launch_counts()
@@ -3308,18 +3413,19 @@ def phase_dense(cfg, prompts):
     print(f"  wall (host clock, synchronised, Platform.compile outside) "
           f"{wall!r} s [{card}]")
     _print_split("split", report, wall, split)
+    peaks["(c)"] = torch.cuda.max_memory_allocated()
     print(f"  peak host RSS {_peak_rss_mib():.1f} MiB (paused blobs are "
           f"{blob / 2**20:.0f} MiB each on the host); peak device memory "
-          f"{peak_b / 1e9:.3f} GB in (b), "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB in all")
+          + ", ".join(f"{v / 1e9:.3f} GB in {k}" for k, v in peaks.items())
+          + f", {max(peaks.values()) / 1e9:.3f} GB in all [{card}]")
     counts = {name: counts[name] for name in
               SERVING_KERNELS + ("reuse_sketch",)}
-    print(f"  launches in phase 13 (b) and (c): {json.dumps(counts)}")
+    print(f"  launches in {label} (b) and (c): {json.dumps(counts)}")
     for name, n in counts.items():
-        assert n > 0, f"{name} never launched in phase 13"
+        assert n > 0, f"{name} never launched in {label}"
     del platform, sched, jobs, params
     torch.cuda.empty_cache()
-    print(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    print(f"  {label} wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return counts
 
 
@@ -4132,7 +4238,8 @@ def main() -> int:
     print(f"[13] full-width {DENSE_ARCH} through the kernels, the platform "
           f"and the scheduler")
     dense = phase_dense(dense_cfg, _prompts(dense_cfg.vocab, N_REQUESTS + 2,
-                                            np.random.default_rng(SEED)))
+                                            np.random.default_rng(SEED)),
+                        "phase 13")
     print(f"[14] the fleet at scale: the fleet bench and the control-plane "
           f"replay, then run_compare on {cfg.name}")
     at_scale = phase_fleet_scale(cfg)
@@ -4140,6 +4247,13 @@ def main() -> int:
           f"tiers benches through Platform.scheduler, reduced and "
           f"full-width {cfg.name}")
     tiered = phase_tenants_tiers(cfg)
+    long_cfg = get_config(LONG_ARCH)
+    print(f"[16] full-width {LONG_ARCH} through the kernels, the platform "
+          f"and the scheduler, and decode attention at its "
+          f"{long_cfg.max_seq}-position context")
+    nemo = phase_dense(long_cfg, _prompts(long_cfg.vocab, N_REQUESTS + 2,
+                                          np.random.default_rng(SEED)),
+                       "phase 16", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4148,9 +4262,9 @@ def main() -> int:
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
-               "phase15": tiered}
+               "phase15": tiered, "phase16": nemo}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    for path in (workload, loops, artifacts, dense, at_scale, tiered):
+    for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

@@ -7,11 +7,13 @@ k,v [B,1,1024,256] bf16, B = len(lengths)) behind a spin kernel, and gives
 the phases, in us at the measured SM clock, of the block that exits
 last (it merges the longest row) and the median phases of the blocks
 that only write a partial. It reads clock stamps only and needs no
-profiler.
+profiler. The build records the first RECORDED blocks of the grid
+(kDecTimelineBlocks), rows (b, kv head) in order, all chunks of each:
+past that, at a long cache, the timeline is that of the first rows.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.decode_attention.timeline \
         [--lengths 613 148 548 230] [--reps 3] [--heads 8 --kv-heads 1 \
-        --head-dim 256]
+        --head-dim 256] [--max-len 1024]
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from . import ops
 
 PHASES = ("load", "scores", "softmax", "pv", "ticket", "weights", "merge")
 STAMPS = 12          # kDecStamps in the source
+RECORDED = 8192      # kDecTimelineBlocks in the source
 
 
 def _library():
@@ -49,18 +52,21 @@ def _library():
 
 
 def run(lengths=(613, 148, 548, 230), reps: int = 3, heads: int = 8,
-        kv_heads: int = 1, head_dim: int = 256) -> dict:
+        kv_heads: int = 1, head_dim: int = 256, max_len: int = 1024) -> dict:
     """The timeline of `reps` calls (medians) at q [B,heads,head_dim],
-    k,v [B,kv_heads,1024,head_dim]; needs a CUDA device."""
+    k,v [B,kv_heads,max_len,head_dim]; needs a CUDA device."""
     fn, read = _library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, H, KV, T, hd = len(lengths), heads, kv_heads, 1024, head_dim
+    B, H, KV, T, hd = len(lengths), heads, kv_heads, max_len, head_dim
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q = torch.randn(B, H, hd, generator=gen, device=dev).to(torch.bfloat16)
-    # distinct caches, so a call finds its cache cold in L2 as a layer does
+    # distinct caches, so a call finds its cache cold in L2 as a layer
+    # does; one of a GB or more leaves under 5% of itself in the 50 MB L2
+    n_caches = 8 if 4 * B * KV * T * hd < 1e9 else 1
     caches = [tuple(torch.randn(B, KV, T, hd, generator=gen, device=dev)
-                    .to(torch.bfloat16) for _ in range(2)) for _ in range(8)]
+                    .to(torch.bfloat16) for _ in range(2))
+              for _ in range(n_caches)]
     stream = torch.cuda.current_stream().cuda_stream
     tickets = torch.zeros(B * KV, dtype=torch.int32, device=dev)
     n = B * KV * -(-T // ops.CHUNK)
@@ -82,7 +88,7 @@ def run(lengths=(613, 148, 548, 230), reps: int = 3, heads: int = 8,
         torch.cuda.synchronize()
         _build.check("timeline", read(None, n))
         torch.cuda._sleep(20_000_000)
-        call(*caches[3 + rep % 5])
+        call(*caches[(3 + rep % 5) % n_caches])
         torch.cuda.synchronize()
         buf = np.zeros((n, STAMPS), np.int64)
         _build.check("timeline", read(buf.ctypes.data, n))
@@ -103,7 +109,8 @@ def run(lengths=(613, 148, 548, 230), reps: int = 3, heads: int = 8,
                                  for c in np.median(cycles, axis=0))))
 
     return {"device": torch.cuda.get_device_name(0),
-            "lengths": list(lengths), "heads": [H, KV, hd],
+            "lengths": list(lengths), "heads": [H, KV, hd], "max_len": T,
+            "blocks": n, "blocks_recorded": min(n, RECORDED),
             "sm_clock_mhz": round(clock, 1),
             "first_start_to_last_exit_us": round(float(np.median(span)), 3),
             "critical_block_us": us(critical),
@@ -118,11 +125,12 @@ def main(argv=None) -> None:
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--kv-heads", type=int, default=1)
     ap.add_argument("--head-dim", type=int, default=256)
+    ap.add_argument("--max-len", type=int, default=1024)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("timeline: needs a CUDA device")
     print(json.dumps(run(args.lengths, args.reps, args.heads,
-                         args.kv_heads, args.head_dim)))
+                         args.kv_heads, args.head_dim, args.max_len)))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
-"""deepseek-7b (reduced, float32) through the port's entry points against
-the JAX reference's: the `serve_tiered_kv` twin with `--arch deepseek-7b`
-against the reference script with the same flag, and the declared tenant
-pack through Platform.compile -> Platform.scheduler ->
+"""deepseek-7b and mistral-nemo-12b (reduced, float32) through the port's
+entry points against the JAX reference's: the `serve_tiered_kv` twin with
+`--arch` against the reference script with the same flag, and the
+declared tenant pack through Platform.compile -> Platform.scheduler ->
 run(Platform.jobs()) on both sides. gemma-2b's cases of the same checks
 are in tests/test_torch_platform.py and tests/test_torch_scheduler.py;
-the model and engine parity of both configs in tests/test_torch_model.py
-and tests/test_torch_serving.py.
+the model and engine parity of every ported config in
+tests/test_torch_model.py and tests/test_torch_serving.py.
 
 What must match: the twin's lines from `[tiering]` on (tiers, stall and
 both report tables: modeled, so exact); the scheduler's outcome, trace,
@@ -22,13 +22,14 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
     _sides
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCH = "deepseek-7b"
+ARCHS = ("deepseek-7b", "mistral-nemo-12b")
 
 
-def test_serve_example_twin_matches_reference_script(monkeypatch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_example_twin_matches_reference_script(monkeypatch, arch):
     from repro_torch.examples import serve_tiered_kv as twin
-    got = _capture(lambda: twin.main(["--arch", ARCH, "--device", "cpu"]))
-    monkeypatch.setattr(sys, "argv", ["serve_tiered_kv.py", "--arch", ARCH])
+    got = _capture(lambda: twin.main(["--arch", arch, "--device", "cpu"]))
+    monkeypatch.setattr(sys, "argv", ["serve_tiered_kv.py", "--arch", arch])
     want = _capture(lambda: runpy.run_path(
         str(ROOT / "examples" / "serve_tiered_kv.py"),
         run_name="__main__"))
@@ -38,9 +39,9 @@ def test_serve_example_twin_matches_reference_script(monkeypatch):
     assert any(ln.startswith("[tier stats]") for ln in _modeled(got))
 
 
-@pytest.fixture(scope="module")
-def sides():
-    return _sides(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def sides(request):
+    return _sides(request.param)
 
 
 @pytest.mark.parametrize("isolation", ["per-tenant", "shared"])

@@ -1,8 +1,10 @@
 """The ported dense configs (reduced, float32) in the PyTorch port
 against the JAX reference on the same weights, plus the port's own
 decode-vs-forward equivalence: gemma-2b (MQA, GeGLU, tied and scaled
-embeddings) and deepseek-7b (MHA, SwiGLU, an untied unembed, no
-embedding scale).
+embeddings), deepseek-7b (MHA, SwiGLU, an untied unembed, no embedding
+scale) and mistral-nemo-12b (GQA 2:1 reduced, 4:1 at full width,
+SwiGLU, untied; at full width its query width 32 x 128 = 4096 is not
+its d_model 5120, which a widened reduced variant covers here).
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -26,7 +28,8 @@ from repro_torch.models.layers import Ctx
 
 ATOL = 1e-4
 # each ported config with its full-width parameter count
-DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696}
+DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
+         "mistral-nemo-12b": 12_247_782_400}
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
@@ -101,12 +104,56 @@ def test_per_slot_decode_logits_match_reference(setup):
                                atol=ATOL)
 
 
+def test_query_width_unlike_d_model_matches_reference():
+    """mistral-nemo-12b projects d_model 5120 to 32 query heads of 128
+    (4096) and back; no shipped reduced config has a query width other
+    than its d_model. Its reduced config widened to d_model 80 (4 heads
+    of 16 = 64) at its published rope theta 1e6, on both sides: prefill
+    and per-slot decode logits at ATOL."""
+    import dataclasses
+    change = dict(d_model=80, rope_theta=1e6)
+    jcfg = dataclasses.replace(
+        j_get_config("mistral-nemo-12b", reduced=True), **change)
+    cfg = dataclasses.replace(
+        get_config("mistral-nemo-12b", reduced=True), **change)
+    assert repr(cfg) == repr(jcfg)
+    attn = cfg.pattern[0][0]
+    assert attn.n_heads * attn.head_dim != cfg.d_model
+    jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    assert tuple(tp["groups"]["L0S0"]["mixer"]["wq"].shape) == \
+        (cfg.n_groups, 80, attn.n_heads, attn.head_dim)
+    rules = single_device_rules()
+    rng = np.random.default_rng(13)
+    B, S, T = 3, 10, 32
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    jc = JM.init_cache(jcfg, B, T, dtype=jnp.float32)
+    tc = TM.init_cache(cfg, B, T, dtype=torch.float32, device="cpu")
+    jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+                        compute_dtype=jnp.float32)
+    tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
+                        compute_dtype=torch.float32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    index = np.array([4, 10, 7], np.int32)
+    for step in range(3):
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        jc, jl = JM.decode_step(jp, jcfg, rules, jnp.asarray(tok), jc,
+                                jnp.asarray(index), compute_dtype=jnp.float32)
+        tc, tl = TM.decode_step(tp, cfg, torch.from_numpy(tok), tc,
+                                torch.from_numpy(index),
+                                compute_dtype=torch.float32)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   err_msg=f"decode step {step}")
+        index = index + 1
+
+
 BF16_ATOL = 1e-2
+MIN_SEPARATED = 12      # slot-steps whose greedy token is compared
 
 
 def test_bf16_logits_and_greedy_tokens_match_reference(setup):
     """bf16 compute on both sides, the same weights and tokens: prefill,
-    then 8 greedy decode steps, both fed the reference's greedy tokens.
+    then 16 greedy decode steps, both fed the reference's greedy tokens.
 
     The reference runs gemma's residual stream in float64 (its x64 mode
     promotes the NumPy `sqrt(d_model)` of `_embed_tokens`) and so returns
@@ -114,14 +161,18 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
     the compute dtype, bf16, as it does on the card. The test follows the
     port's side: every product is bf16 on both, and BF16_ATOL (at a logit
     scale of ~0.5, where one bf16 rounding is ~2e-3) covers the residual
-    stream's extra roundings (observed <= 5.5e-3). deepseek-7b has no
-    embedding scale, so both sides keep its stream and logits in bf16 and
-    differ only in where they round (observed <= 6.4e-3). The port's
+    stream's extra roundings (observed <= 7.3e-3). deepseek-7b and
+    mistral-nemo-12b have no embedding scale, so both sides keep their
+    stream and logits in bf16 and differ only in where they round
+    (observed <= 6.4e-3 on each). The port's
     greedy token equals the reference's at every step whose top-2 margin
     exceeds twice the tolerance; a closer pair is a tie at bf16's
-    resolution."""
+    resolution. Which steps those are depends on the reference's logits
+    alone: at least MIN_SEPARATED slot-steps must be held to the greedy
+    token (reduced gemma-2b's margins exceed twice the tolerance at ~80%
+    of slot-steps, deepseek-7b's at ~68%, mistral-nemo-12b's at ~55%)."""
     jcfg, cfg, jp, tp, rules = setup
-    B, S, steps = 2, 12, 8
+    B, S, steps = 2, 12, 16
     toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
     jc = JM.init_cache(jcfg, B, 32, dtype=jnp.bfloat16)
     jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
@@ -150,7 +201,7 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
                                 torch.from_numpy(index),
                                 compute_dtype=torch.bfloat16)
         index = index + 1
-    assert separated >= B * steps * 3 // 4, separated
+    assert separated >= MIN_SEPARATED, separated
 
 
 def test_decode_matches_forward(setup):
