@@ -90,7 +90,7 @@ Drives the port's serving path on the card and checks it, in phases:
      8 scan sessions of 128) on one host whose DRAM holds 4 KV blobs,
      the economic policy priced per tenant, through `Platform.compile`
      -> `Platform.scheduler` -> `run(Platform.jobs())` on phase 4's
-     weights (4 slots, 1024 positions); three runs on fresh platforms
+     weights (4 slots, 1024 positions); two runs on fresh platforms
      give equal tokens and reports; continuous batching gives the
      lock-step gang's tokens; the stall ledger conserves; pauses reach
      both DRAM and flash; premium's tau_be is above scan's; rmsnorm,
@@ -200,8 +200,20 @@ Drives the port's serving path on the card and checks it, in phases:
      SDPA and its bound, with its timeline there; (b) and (c) as phase
      13; peak device memory of native init, of the first-step check, of
      (b) and of (c).
+ 17. full-width granite-20b (52 layers, d_model 6144, MQA of 48 query
+     heads on one kv head of 128, a plain GELU FFN of d_ff 24576, vocab
+     49152, tied embeddings without a scale, rope theta 1e4; 40.03 GB of
+     random bf16 weights from a seed, drawn in place) through phase 16's
+     path: (a) rmsnorm at [4,6144] and [1023,6144], decode attention at
+     q [4,48,128] and k,v [4,1,1024,128] (six head groups a block),
+     flash attention at q [1,48,S,128] and k,v [1,1,S,128], then decode
+     attention at the config's own 32,768 positions at lengths 32768,
+     25001, 8193 and 1, in f32 and bf16 (48 heads' merge weights over
+     1,024 chunks: the shared-memory layout's largest case); (b) and
+     (c) as phase 16, with the device memory held when the phase starts
+     and the bytes it will need reckoned before they are made.
 
-The first-step check (phases 4 and 13-16) holds the kernels to the plain
+The first-step check (phases 4 and 13-17) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -257,9 +269,10 @@ KERNELS = {
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 # the full-width configs the script serves, by their published parameter
 # count: gemma-2b in phases 4 and 9-10, deepseek-7b in phase 13,
-# mistral-nemo-12b in phase 16
+# mistral-nemo-12b in phase 16, granite-20b in phase 17
 PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
-          "mistral-nemo-12b": 12_247_782_400}
+          "mistral-nemo-12b": 12_247_782_400,
+          "granite-20b": 20_013_766_656}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
 # the TPU kernel's largest and one that is not a multiple of 8; rows of a
 # step, of a decode step's slots and of the largest prefill bucket
@@ -1350,7 +1363,7 @@ def phase_platform(cfg, params, prompts):
 # --------------------------------------------------------------- phase 10
 DRAM_BLOBS = 4                 # phase 10's host DRAM, in paused-KV blobs
 PAUSE_IDLE_STEPS = 8
-WORKLOAD_RUNS = 3
+WORKLOAD_RUNS = 2             # phase 10's full-width runs, compared
 
 
 def _workload_spec(cfg, tenants=("premium", "rag", "scan"), n_sessions=None,
@@ -1526,7 +1539,7 @@ def phase_workload(cfg, params):
     """Continuous batching over a declared workload on the card: three
     tenants (premium chat, RAG, scan) of 20 sessions through
     Platform.compile -> Platform.scheduler -> run(Platform.jobs()) on
-    phase 4's full-width bf16 weights, three times on fresh platforms
+    phase 4's full-width bf16 weights, twice on fresh platforms
     (equal tokens and reports), against the lock-step gang (equal
     tokens), with the stall ledger conserved, pauses on both DRAM and
     flash and premium's tau_be above scan's; then the reduced model's
@@ -3102,13 +3115,20 @@ def phase_artifacts():
     print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
-# ---------------------------------------------------------- phases 13, 16
+# ------------------------------------------------------ phases 13, 16, 17
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
-WINDOWS = 3                    # phases 13 and 16's decode windows
-# phase 16's decode attention at the config's own context (max_seq): a
-# full row, two ragged ones and one of a single position
-LONG_LENGTHS = (100_003, 32_769, 1)
+MQA_ARCH = "granite-20b"
+WINDOWS = 3                    # phases 13, 16 and 17's decode windows
+
+
+def _long_lengths(T: int) -> tuple:
+    """Decode attention's lengths at a config's own context of T = max_seq
+    positions: a full row, two ragged ones and one of a single position.
+    The ragged ones are ceil(T * 100,003 / 131,072) (about 0.763 T; at
+    131,072 positions 100,003) and T / 4 + 1, each ending inside a
+    chunk; at 32,768 positions 25,001 and 8,193."""
+    return (T, -(-T * 100_003 // 131_072), T // 4 + 1, 1)
 
 
 def _dense_kernels(cfg, lengths_main, buckets):
@@ -3222,12 +3242,12 @@ def _dense_kernels(cfg, lengths_main, buckets):
 def _long_decode(cfg):
     """decode_attention at `cfg`'s own context, max_seq positions a slot
     (at mistral-nemo-12b's 131,072, 4,096 chunks of 32 a row, whose
-    partials the row's last block merges): lengths max_seq and
-    LONG_LENGTHS, in float32 and bf16 against the plain version (TOL),
-    then timed in bf16 (one cache: it is far past L2) beside the plain
-    version, masked SDPA and the filled bytes' bound, and the per-phase
-    timeline there. The inputs' bytes are reckoned before they are
-    made."""
+    partials the row's last block merges; at granite-20b's 32,768, 1,024
+    chunks of 48 heads): `_long_lengths(max_seq)`, in float32 and bf16
+    against the plain version (TOL), then timed in bf16 (one cache: it is
+    far past L2) beside the plain version, masked SDPA and the filled
+    bytes' bound, and the per-phase timeline there. The inputs' bytes are
+    reckoned before they are made."""
     import torch
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.decode_attention import ops
@@ -3242,8 +3262,7 @@ def _long_decode(cfg):
     B, T = MAX_SLOTS, cfg.max_seq
     H, KV, hd = attn.n_heads, attn.n_kv, attn.head_dim
     scale = 1.0 / math.sqrt(hd)
-    lengths = torch.tensor((T,) + LONG_LENGTHS, dtype=torch.int32,
-                           device=dev)
+    lengths = torch.tensor(_long_lengths(T), dtype=torch.int32, device=dev)
     kv = 2 * B * KV * T * hd
     scratch = 4 * ops.scratch_numel(B, KV, T, H // KV, hd)
     print(f"  decode_attention at max_seq {T}: k, v [{B},{KV},{T},{hd}] "
@@ -3321,19 +3340,21 @@ def phase_dense(cfg, prompts, label, long_context=False):
     """A full-width dense config on the card (phase 13: deepseek-7b, MHA
     of 32 heads of 128 at d_model 4096; phase 16: mistral-nemo-12b, GQA
     of 32 query heads on 8 kv heads of 128 at d_model 5120; both SwiGLU,
-    an untied unembed, no embedding scale), `label` naming the phase in
-    its prints: (a) the three serving kernels at its shapes against their
-    plain versions, timed, and with `long_context` decode attention at
-    the config's own max_seq; (b) serve_tiered_kv's spec through
-    Platform.compile -> Platform.engine on native bf16 weights: the
-    first step's logits against the plain path, phase 4's prompts and
-    the example's flow, greedy tokens across a pause to flash and a
-    prefetched resume equal to a run without a break, decode windows
-    with every slot in use, one prefill and one decode step profiled;
-    (c) one run of phase 10's declared workload through
-    Platform.scheduler -> run(Platform.jobs()). Peak device memory by
-    part (native init apart from (b)). Returns the launches of (b) and
-    (c)."""
+    an untied unembed, no embedding scale; phase 17: granite-20b, MQA of
+    48 query heads on one kv head of 128 at d_model 6144, a plain GELU
+    FFN, tied embeddings without a scale), `label` naming the phase in
+    its prints, with the device memory held when it starts and the bytes
+    it will need reckoned first: (a) the three serving kernels at its shapes
+    against their plain versions, timed, and with `long_context` decode
+    attention at the config's own max_seq; (b) serve_tiered_kv's spec
+    through Platform.compile -> Platform.engine on native bf16 weights: the
+    first step's logits against the plain path, phase 4's prompts and the
+    example's flow, greedy tokens across a pause to flash and a prefetched
+    resume equal to a run without a break, decode windows with every slot in
+    use, one prefill and one decode step profiled; (c) one run of phase 10's
+    declared workload through Platform.scheduler -> run(Platform.jobs()).
+    Peak device memory by part (native init apart from (b)). Returns the
+    launches of (b) and (c)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -3341,7 +3362,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
 
     t_phase = time.perf_counter()
     card = _smi()
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    print(f"  device memory held as the phase starts "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     torch.cuda.reset_peak_memory_stats()
     lengths_main, buckets = _path_shapes(prompts)
     attn = cfg.pattern[0][0]
@@ -3352,6 +3377,12 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
           f"{blob} B; prompts {[len(p) for p in prompts]}, buckets "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
+    cache = 2 * cfg.n_groups * MAX_SLOTS * attn.n_kv * MAX_LEN \
+        * attn.head_dim * 2
+    print(f"  reckoned: weights {2 * PARAMS[cfg.name] / 1e9:.2f} GB in "
+          f"bf16; the engine's cache at {MAX_SLOTS} slots x {MAX_LEN} "
+          f"positions {cache / 1e6:.1f} MB in bf16; a paused blob "
+          f"{blob} B (float32)")
 
     print(f"  (a) the serving kernels at its shapes [{card}]")
     _dense_kernels(cfg, lengths_main, buckets)
@@ -4254,6 +4285,13 @@ def main() -> int:
     nemo = phase_dense(long_cfg, _prompts(long_cfg.vocab, N_REQUESTS + 2,
                                           np.random.default_rng(SEED)),
                        "phase 16", long_context=True)
+    mqa_cfg = get_config(MQA_ARCH)
+    print(f"[17] full-width {MQA_ARCH} through the kernels, the platform "
+          f"and the scheduler, and decode attention at its "
+          f"{mqa_cfg.max_seq}-position context")
+    granite = phase_dense(mqa_cfg, _prompts(mqa_cfg.vocab, N_REQUESTS + 2,
+                                            np.random.default_rng(SEED)),
+                          "phase 17", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4262,9 +4300,10 @@ def main() -> int:
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
-               "phase15": tiered, "phase16": nemo}
+               "phase15": tiered, "phase16": nemo, "phase17": granite}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo):
+    for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
+                 granite):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

@@ -23,7 +23,7 @@ ARCHS = (
 # archs with a config module in this package: the dense attention + FFN
 # family (without the features models.model does not build yet), one
 # config at a time
-PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b")
+PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

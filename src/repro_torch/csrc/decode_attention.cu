@@ -94,21 +94,31 @@ __device__ __forceinline__ long long global_ns() {
 #endif
 
 // shared-memory layout of one block; mirrored by
-// kernels/decode_attention/ops.py::smem_bytes
+// kernels/decode_attention/ops.py::smem_bytes. The mbarrier comes first,
+// in 128 bytes of its own; the merge weights lie over the staging
+// buffers, scores and weights, since only the row's last block writes
+// them, once its own chunk is done with those. A block takes the larger
+// of the two. (Built with the mbarrier past both instead, ptxas gave the
+// bf16 kernel at one query head a kv head more registers, so fewer
+// blocks an SM, and it ran slower at that shape; with the mbarrier first
+// it keeps its occupancy. `-Xptxas -v` prints the counts.)
 struct DecLayout {
   int qp;          // heads per kv head, rounded up to the head group
   int region;      // bytes of the K (and of the V) staging buffer
-  int s_off, p_off, w_off, bar_off, total;
+  int k_off, s_off, p_off, w_off, bar_off, total;
   __host__ __device__ DecLayout(int qr, int hg, int hd, int esize,
                                 int n_chunks) {
     constexpr int chunk = kDecChunk;
     qp = (qr + hg - 1) / hg * hg;
     region = (chunk * hd * esize + 16 + 127) / 128 * 128;
-    s_off = 2 * region;                    // scores [qp][chunk]
+    bar_off = 0;                           // the mbarrier, 128 bytes kept
+    k_off = 128;                           // K, then V staging
+    s_off = k_off + 2 * region;            // scores [qp][chunk]
     p_off = s_off + 4 * qp * chunk;        // weights [chunk][qp]
-    w_off = p_off + 4 * qp * chunk;        // merge weights [n_chunks][qp]
-    bar_off = (w_off + 4 * qp * n_chunks + 7) / 8 * 8;
-    total = bar_off + 8;
+    w_off = k_off;                         // merge weights [n_chunks][qp]
+    const int chunk_end = p_off + 4 * qp * chunk;
+    const int merge_end = w_off + 4 * qp * n_chunks;
+    total = chunk_end > merge_end ? chunk_end : merge_end;
   }
 };
 
@@ -361,11 +371,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mbar_init(bar, 1);
     mbar_fence_init();
     mbar_expect_tx(bar, kr.bulk_bytes() + vr.bulk_bytes());
-    kr.bulk(smem, bar);
-    vr.bulk(smem + lay.region, bar);
+    kr.bulk(smem + lay.k_off, bar);
+    vr.bulk(smem + lay.k_off + lay.region, bar);
   }
-  const T* ks = kr.ends<T>(smem);
-  const T* vs = vr.ends<T>(smem + lay.region);
+  const T* ks = kr.ends<T>(smem + lay.k_off);
+  const T* vs = vr.ends<T>(smem + lay.k_off + lay.region);
   const T* qb = q + b * q_sb + static_cast<long long>(g * qr) * q_sh;
   float qv[HG][kDecLaneElems];
   load_heads<HG>(qv, qb, 0, qr, q_sh, lane, hd);
@@ -464,6 +474,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     DEC_EXIT(0);
     return;
   }
+  __syncthreads();               // all have read the ticket: w_s covers it
 
   // merge weights w[c][h] = exp(m_c - M) / L, one load of each (m, l)
   const long long rbase = row * n_chunks * qr;        // (b, g, chunk 0)

@@ -17,7 +17,8 @@ facade — no clock/policy/store threading. It decodes on CUDA unless
 `--device` names another device.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
-      [--arch deepseek-7b | --arch mistral-nemo-12b] [--device cpu]
+      [--arch deepseek-7b | --arch mistral-nemo-12b | --arch granite-20b]
+      [--device cpu]
 """
 import argparse
 import time

@@ -27,14 +27,16 @@ def heads_per_group(qr: int) -> int:
 
 
 def smem_bytes(T: int, qr: int, hd: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block (`DecLayout` in the source): the
-    K and V staging buffers, scores and weights [CHUNK][qp] and the merge
-    weights [n_chunks][qp] in float32, and the mbarrier."""
+    """Dynamic shared memory of one block (`DecLayout` in the source): 128
+    bytes for the mbarrier, then the K and V staging buffers with scores
+    and weights [CHUNK][qp] in float32, or the merge weights
+    [n_chunks][qp] in float32 laid over them, whichever is larger."""
     hg = heads_per_group(qr)
     qp = -(-qr // hg) * hg
     region = -(-(CHUNK * hd * itemsize + 16) // 128) * 128
-    floats = 4 * qp * (2 * CHUNK + -(-T // CHUNK))
-    return -(-(2 * region + floats) // 8) * 8 + 8
+    chunk = 2 * region + 4 * qp * 2 * CHUNK
+    merge = 4 * qp * -(-T // CHUNK)
+    return 128 + max(chunk, merge)
 
 
 def scratch_numel(B: int, KV: int, T: int, qr: int, hd: int) -> int:

@@ -18,7 +18,7 @@ from ..kernels.decode_attention.ref import reference_decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import reference_attention
 from .config import AttnSpec, ModelConfig
-from .layers import Ctx, apply_rope, dense_init
+from .layers import Ctx, apply_rope
 
 
 def check_supported(spec: AttnSpec) -> None:
@@ -49,11 +49,6 @@ def param_shapes(cfg: ModelConfig, spec: AttnSpec):
         "wo": ((spec.n_heads, spec.head_dim, d),
                spec.n_heads * spec.head_dim),
     }
-
-
-def init(cfg: ModelConfig, spec: AttnSpec, generator, device, dtype):
-    return {name: dense_init(shape, fan_in, generator, device, dtype)
-            for name, (shape, fan_in) in param_shapes(cfg, spec).items()}
 
 
 def cache_shape(spec: AttnSpec, batch: int, max_len: int):

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from .config import FfnSpec, ModelConfig
-from .layers import ACTIVATIONS, Ctx, dense_init
+from .layers import ACTIVATIONS, Ctx
 
 
 def param_shapes(cfg: ModelConfig, spec: FfnSpec):
@@ -14,11 +14,6 @@ def param_shapes(cfg: ModelConfig, spec: FfnSpec):
     if spec.act in ("swiglu", "geglu"):
         out["w_gate"] = ((d, f), d)
     return out
-
-
-def init(cfg: ModelConfig, spec: FfnSpec, generator, device, dtype):
-    return {name: dense_init(shape, fan_in, generator, device, dtype)
-            for name, (shape, fan_in) in param_shapes(cfg, spec).items()}
 
 
 def apply(params, x, spec: FfnSpec, cfg: ModelConfig, ctx: Ctx):

@@ -29,7 +29,7 @@ import torch
 from .._device import resolve_device
 from . import attention, ffn
 from .config import ModelConfig
-from .layers import Ctx, apply_add_norm, apply_norm, embed_init
+from .layers import Ctx, apply_add_norm, apply_norm, dense_init, embed_init
 
 _MIXERS = {"attn": attention, "ffn": ffn}
 
@@ -116,13 +116,18 @@ def init_params(cfg: ModelConfig,
                                        dtype)
     params["groups"] = {}
     for k, spec in _sublayers(cfg):
-        mixers = [_MIXERS[spec.kind].init(cfg, spec, generator, dev, dtype)
-                  for _ in range(G)]
+        # drawn layer by layer, each matrix straight into its slot of the
+        # stacked [G, ...] tensor, so no second copy of a sublayer exists
+        mats = _MIXERS[spec.kind].param_shapes(cfg, spec)
+        mixer = {n: torch.empty((G,) + shape, dtype=dtype, device=dev)
+                 for n, (shape, _) in mats.items()}
+        for g in range(G):
+            for n, (shape, fan_in) in mats.items():
+                mixer[n][g] = dense_init(shape, fan_in, generator, dev, dtype)
         params["groups"][k] = {
             "norm": {"scale": torch.ones((G, d), dtype=torch.float32,
                                          device=dev)},
-            "mixer": {n: torch.stack([m[n] for m in mixers])
-                      for n in mixers[0]}}
+            "mixer": mixer}
     params["final_norm"] = {"scale": torch.ones((d,), dtype=torch.float32,
                                                 device=dev)}
     return params

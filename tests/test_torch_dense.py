@@ -1,4 +1,5 @@
-"""deepseek-7b and mistral-nemo-12b (reduced, float32) through the port's
+"""deepseek-7b, mistral-nemo-12b and granite-20b (reduced, float32)
+through the port's
 entry points against the JAX reference's: the `serve_tiered_kv` twin with
 `--arch` against the reference script with the same flag, and the
 declared tenant pack through Platform.compile -> Platform.scheduler ->
@@ -22,7 +23,7 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
     _sides
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("deepseek-7b", "mistral-nemo-12b")
+ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

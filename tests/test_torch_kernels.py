@@ -198,17 +198,40 @@ def test_decode_attention_head_groups(qr, hg):
 
 
 def test_decode_attention_shared_memory_and_scratch_sizes():
-    """`smem_bytes` mirrors the kernel's `DecLayout`: two 128-byte padded
-    staging buffers of 32 rows (16 spare bytes for an unaligned start),
-    float32 scores and weights [32][qp], merge weights [n_chunks][qp] and
-    an 8-byte mbarrier. At gemma-2b's decode shape: 2 * 16512 + 4 * 8 *
-    (64 + 32) + 8."""
-    assert smem_bytes(1024, 8, 256, 2) == 2 * 16512 + 3072 + 8
-    assert smem_bytes(1024, 8, 256, 4) == 2 * 32896 + 3072 + 8
+    """`smem_bytes` mirrors the kernel's `DecLayout`: 128 bytes for the
+    mbarrier, then two 128-byte padded staging buffers of 32 rows (16
+    spare bytes for an unaligned start) and float32 scores and weights
+    [32][qp], or the float32 merge weights [n_chunks][qp] laid over them,
+    whichever is larger. At gemma-2b's decode shape: 128 + 2 * 16512 +
+    4 * 8 * 64 (the merge weights, 4 * 8 * 32, fit under them)."""
+    assert smem_bytes(1024, 8, 256, 2) == 128 + 2 * 16512 + 4 * 8 * 64
+    assert smem_bytes(1024, 8, 256, 4) == 128 + 2 * 32896 + 4 * 8 * 64
     # qr 3 runs as a group of 4 heads; hd 7 rows are 14 bytes
-    assert smem_bytes(61, 3, 7, 2) == 2 * 512 + 4 * 4 * 66 + 8
+    assert smem_bytes(61, 3, 7, 2) == 128 + 2 * 512 + 4 * 4 * 64
+    # granite-20b at its max_seq: 48 heads' merge weights over 1,024
+    # chunks outgrow the staging (2 * 16512 + 4 * 48 * 64 in float32)
+    assert smem_bytes(32768, 48, 128, 4) == 128 + 4 * 48 * 1024
+    assert smem_bytes(32768, 48, 128, 2) == 128 + 4 * 48 * 1024
+    # mistral-nemo-12b at its max_seq: 4 heads over 4,096 chunks
+    assert smem_bytes(131072, 4, 128, 2) == 128 + 4 * 4 * 4096
     assert scratch_numel(4, 1, 1024, 8, 256) == 4 * 32 * 8 * 258
     assert scratch_numel(3, 2, 1023, 4, 112) == 3 * 2 * 32 * 4 * 114
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_takes_granite_at_its_max_seq(dtype):
+    """granite-20b's decode at its own context: 48 query heads on one kv
+    head of 128 over 32,768 positions fits a block's shared memory in
+    float32 and bf16 (meta tensors: nothing is allocated)."""
+    q = torch.empty(4, 48, 128, dtype=dtype, device="meta")
+    k = torch.empty(4, 1, 32768, 128, dtype=dtype, device="meta")
+    lengths = torch.empty(4, dtype=torch.int32, device="meta")
+    check_inputs(q, k, k, lengths)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_inputs(q, torch.empty(4, 1, 38752, 128, dtype=dtype,
+                                    device="meta"),
+                     torch.empty(4, 1, 38752, 128, dtype=dtype,
+                                 device="meta"), lengths)
 
 
 def test_decode_attention_takes_the_cache_layouts_of_the_path():

@@ -2,9 +2,12 @@
 against the JAX reference on the same weights, plus the port's own
 decode-vs-forward equivalence: gemma-2b (MQA, GeGLU, tied and scaled
 embeddings), deepseek-7b (MHA, SwiGLU, an untied unembed, no embedding
-scale) and mistral-nemo-12b (GQA 2:1 reduced, 4:1 at full width,
+scale), mistral-nemo-12b (GQA 2:1 reduced, 4:1 at full width,
 SwiGLU, untied; at full width its query width 32 x 128 = 4096 is not
-its d_model 5120, which a widened reduced variant covers here).
+its d_model 5120, which a widened reduced variant covers here) and
+granite-20b (MQA, 4:1 reduced and 48:1 at full width, a plain GELU FFN,
+tied embeddings without a scale). Native init draws each stacked
+weight in place, bit for bit as a draw-then-stack loop would.
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -29,7 +32,7 @@ from repro_torch.models.layers import Ctx
 ATOL = 1e-4
 # each ported config with its full-width parameter count
 DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
-         "mistral-nemo-12b": 12_247_782_400}
+         "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656}
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
@@ -324,6 +327,48 @@ def test_native_init_distributions(dtype):
     assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 0.88) < 0.05
     again = TM.init_params(cfg, 3, device="cpu", dtype=dtype)
     assert torch.equal(again["embed"], p["embed"])
+
+
+def _drawn_then_stacked(cfg, seed, dtype):
+    """Native init as a loop that draws all G layers' matrices of a
+    sublayer into a list (layer 0's in `param_shapes` order, then layer
+    1's, ...) and stacks them: the weights `init_params` must give."""
+    from repro_torch.models.layers import dense_init, embed_init
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = TM.param_shapes(cfg)
+    want = {"embed": embed_init(shapes["embed"], gen, "cpu", dtype)}
+    if "unembed" in shapes:
+        want["unembed"] = embed_init(shapes["unembed"], gen, "cpu", dtype)
+    want["groups"] = {}
+    for k, spec in TM._sublayers(cfg):
+        mats = TM._MIXERS[spec.kind].param_shapes(cfg, spec)
+        layers = [{n: dense_init(shape, fan_in, gen, "cpu", dtype)
+                   for n, (shape, fan_in) in mats.items()}
+                  for _ in range(cfg.n_groups)]
+        want["groups"][k] = {n: torch.stack([m[n] for m in layers])
+                             for n in mats}
+    return want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_native_init_stacks_in_place(arch, dtype):
+    """`init_params` draws each layer's matrices straight into their slot
+    of the stacked [G, ...] tensor, bit for bit the weights of drawing
+    every layer first and stacking the list."""
+    cfg = get_config(arch, reduced=True)
+    got = TM.init_params(cfg, 11, device="cpu", dtype=dtype)
+    want = _drawn_then_stacked(cfg, 11, dtype)
+    assert sorted(k for k in got if k != "final_norm") == sorted(want)
+    for name in ("embed", "unembed"):
+        if name in want:
+            assert torch.equal(got[name], want[name]), name
+    for k, mixer in want["groups"].items():
+        assert sorted(got["groups"][k]["mixer"]) == sorted(mixer)
+        for n, t in mixer.items():
+            g = got["groups"][k]["mixer"][n]
+            assert g.dtype == t.dtype == dtype, (k, n)
+            assert torch.equal(g, t), (k, n)
 
 
 def test_params_from_jax_rejects_a_mismatched_tree(setup):

@@ -1,6 +1,6 @@
 """The PyTorch port's DecodeEngine against the JAX reference engine on the
 same weights (each ported dense config, reduced, float32: gemma-2b,
-deepseek-7b and mistral-nemo-12b), in the tiered-KV serving scenario of
+deepseek-7b, mistral-nemo-12b and granite-20b), in the tiered-KV serving scenario of
 examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
 blobs, so paused sessions really reach flash.
 
@@ -35,7 +35,8 @@ STEP = 5e-3
 
 
 @pytest.fixture(scope="module",
-                params=["deepseek-7b", "gemma-2b", "mistral-nemo-12b"])
+                params=["deepseek-7b", "gemma-2b", "granite-20b",
+                        "mistral-nemo-12b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
