@@ -212,8 +212,29 @@ Drives the port's serving path on the card and checks it, in phases:
      1,024 chunks: the shared-memory layout's largest case); (b) and
      (c) as phase 16, with the device memory held when the phase starts
      and the bytes it will need reckoned before they are made.
+ 18. full-width qwen3-moe-235b-a22b at 12 of its 94 layers (31.1 billion
+     parameters, 62.2 GB of random bf16 weights drawn in place; the 94
+     layers are 470 GB): d_model 4096, GQA of 64 query heads on 4 kv
+     heads of 128 with qk-norm (q and k normed a head at a time by the
+     rmsnorm kernel at D = 128), an MoE sublayer of 128 experts top-8 of
+     d_ff 1536 (SwiGLU) at static capacity, vocab 151936, untied, rope
+     theta 1e6, through phase 16's path: (a) adds the qk-norm rows
+     ([4 x 64, 128], [4 x 4, 128] and the largest bucket's) against the
+     plain version and timed; decode attention at 16 query heads a kv
+     head, at 1,024 and at 32,768 positions; (b) the first-step check
+     replays the kernel path's expert ids on the plain paths, then runs
+     the plain path on its own routing and counts the choices that
+     differ; the first decode window notes every step's expert ids, and
+     one decode step's expert products are timed in place against the
+     bound of reading every expert (57.98 GB); (d) the first 64 steps'
+     ids x 12 layers replay through `Platform.expert_store` (economic
+     policy priced at one expert's 37,748,736 B, every expert on flash),
+     pipelined and through the reference test's fetch loop, on the card
+     (the gate's reuse sketch runs reuse_sketch) and on the CPU, records
+     equal and the pipelined stall below the sync one; the residency
+     plan, the gate's stats and each layer's selection shares printed.
 
-The first-step check (phases 4 and 13-17) holds the kernels to the plain
+The first-step check (phases 4 and 13-18) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -227,6 +248,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -268,15 +290,20 @@ KERNELS = {
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 # the full-width configs the script serves, by their published parameter
-# count: gemma-2b in phases 4 and 9-10, deepseek-7b in phase 13,
-# mistral-nemo-12b in phase 16, granite-20b in phase 17
+# count at the depth served: gemma-2b in phases 4 and 9-10, deepseek-7b in
+# phase 13, mistral-nemo-12b in phase 16, granite-20b in phase 17, all at
+# full depth; qwen3-moe-235b-a22b in phase 18 at MOE_GROUPS of its 94
+# layers (235,093,634,560 parameters at all 94, 470 GB in bf16)
+MOE_GROUPS = 12
 PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "mistral-nemo-12b": 12_247_782_400,
-          "granite-20b": 20_013_766_656}
+          "granite-20b": 20_013_766_656,
+          "qwen3-moe-235b-a22b": 31_097_723_904}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
-# the TPU kernel's largest and one that is not a multiple of 8; rows of a
-# step, of a decode step's slots and of the largest prefill bucket
-RMS_DS = (64, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
+# 128 (qwen3-moe's qk-norm rows, one a head), the TPU kernel's largest and
+# one that is not a multiple of 8; rows of a step, of a decode step's
+# slots and of the largest prefill bucket
+RMS_DS = (64, 128, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
 RMS_ROWS = (1, MAX_SLOTS, MAX_LEN - 1)
 # phase 6: examples/kvstore_demo.py's store, and one at deployment size
 KV_DEMO_BUCKETS = 8192
@@ -628,10 +655,10 @@ def _rmsnorm_host_split(D, eps):
     return split
 
 
-def _rmsnorm_times(D, eps, rows):
+def _rmsnorm_times(D, eps, rows, entries=("rmsnorm", "add_rmsnorm")):
     """Device, with-launch, plain and library times and the byte bound of
-    both entries at [rows, D] bf16; the fused entry also against the
-    two launches it replaces (x + r, then the kernel)."""
+    `entries` (both by default) at [rows, D] bf16; the fused entry also
+    against the two launches it replaces (x + r, then the kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import add_rmsnorm, rmsnorm
@@ -665,6 +692,8 @@ def _rmsnorm_times(D, eps, rows):
                          for x, r in xs],
                 unfused=[lambda x=x, r=r: rmsnorm(x + r, s, eps)
                          for x, r in xs]))):
+        if entry not in entries:
+            continue
         n_io = 2 if entry == "rmsnorm" else 4
         b_ms, b_by = _bound_ms(n_io * row_bytes + D * 4,
                                (4 if entry == "rmsnorm" else 5) * rows * D,
@@ -967,6 +996,53 @@ def _native_params(cfg):
     return params
 
 
+def _moe_spec(cfg):
+    """`cfg`'s MoE sublayer spec, or None for a dense config."""
+    return next((s for _, _, _, s in cfg.sublayers() if s.kind == "moe"),
+                None)
+
+
+@contextlib.contextmanager
+def _routes(replay=None, margins=False):
+    """Stands in for `repro_torch.models.moe.route`, from outside the
+    package, while the block runs: notes each call's expert ids [B,S,K]
+    in the list it yields, in call order, with (given `margins`, or
+    `replay`) each token's router-logit margin between its k-th and
+    (k+1)-th expert. With `replay`, ids noted in an earlier run, each call
+    takes the next of them instead of its own top-k, its gates this
+    call's own probabilities at those ids, renormalised as `route` does,
+    so two paths can be compared on one routing."""
+    import torch
+    from repro_torch.models import moe
+    route = moe.route
+    noted = []
+
+    def stand_in(params, x, spec, ctx):
+        if replay is None and not margins:
+            gates, idx = route(params, x, spec, ctx)
+            noted.append((idx, None))
+            return gates, idx
+        logits = torch.einsum("bsd,de->bse", x, params["router"].to(
+            ctx.compute_dtype)).float()
+        if replay is None:
+            gates, idx = route(params, x, spec, ctx)
+        else:
+            idx = replay[len(noted)]
+            p = torch.softmax(logits, dim=-1).gather(-1, idx)
+            if spec.top_k > 1:
+                p = p / p.sum(-1, keepdim=True).clamp_min(1e-9)
+            gates = p.to(ctx.compute_dtype)
+        top = logits.topk(spec.top_k + 1, dim=-1).values
+        noted.append((idx, top[..., -2] - top[..., -1]))
+        return gates, idx
+
+    moe.route = stand_in
+    try:
+        yield noted
+    finally:
+        moe.route = route
+
+
 def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     """The launches of one prefill and one decode step, and the first
     step's logits through the kernels against the plain path on the same
@@ -979,7 +1055,14 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     each matrix is float32 only while it is used; bf16 -> float32 is
     exact, so this is the float32 path on a float32 copy, without the
     copy). Prints the peak device memory of the check. Returns the
-    launches per prefill and per decode step."""
+    launches per prefill and per decode step.
+
+    Routing is a discrete choice: an MoE config's plain paths replay the
+    kernel path's expert ids (`_routes`), so the check holds the kernels'
+    arithmetic on one routing. The plain bf16 path then runs again on its
+    own routing: the choices that differ from the kernel path's and the
+    last token's least routing margin are printed, and the same bound is
+    held there only if no choice differs."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -999,7 +1082,8 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    kern = first_logits(params, torch.bfloat16, False)
+    with _routes() as noted:
+        kern = first_logits(params, torch.bfloat16, False)
     per_prefill = kernels.launch_counts()
     kernels.reset_launch_counts()
     M.decode_step(params, cfg, p0[:, :1], M.init_cache(
@@ -1010,13 +1094,18 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
           f"{per_step}")
     assert per_prefill["rmsnorm"] == per_step["rmsnorm"] == _norms(cfg), \
         (per_prefill, per_step)
-    plain = first_logits(params, torch.bfloat16, True)
-    truth = first_logits(params, torch.float32, True)
+    ids = [i for i, _ in noted] if _moe_spec(cfg) else None
+    with _routes(replay=ids):
+        plain = first_logits(params, torch.bfloat16, True)
+    with _routes(replay=ids):
+        truth = first_logits(params, torch.float32, True)
     peak = torch.cuda.max_memory_allocated()
     err = float((kern - plain).abs().max())
     noise = float((plain - truth).abs().max())
+    routing = ("" if ids is None else
+               "; the kernel path's routing replayed on the plain paths")
     print(f"  first-step logits [1,{cfg.vocab}] (prompt {S}, tokens "
-          f"{len(tokens)}, max_len {max_len}): kernels vs plain bf16 "
+          f"{len(tokens)}, max_len {max_len}{routing}): kernels vs plain bf16 "
           f"max_abs_err={err:.4e}; plain bf16 vs float32 {noise:.4e}; "
           f"kernels vs float32 {float((kern - truth).abs().max()):.4e}; "
           f"argmax {int(kern.argmax())} / {int(plain.argmax())} / "
@@ -1024,6 +1113,23 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     print(f"  peak device memory in the check {peak / 1e9:.3f} GB "
           f"({held / 1e9:.3f} GB held before it)")
     assert err <= 2 * noise, (err, noise)
+    if ids is not None:
+        with _routes(margins=True) as own:
+            free = first_logits(params, torch.bfloat16, True)
+        free_err = float((kern - free).abs().max())
+        differ = sum(int((a.sort(-1).values != b.sort(-1).values).sum())
+                     for a, (b, _) in zip(ids, own))
+        total = sum(a.numel() for a in ids)
+        margin = min(float(m[0, S - 1]) for _, m in own)
+        print(f"  the plain bf16 path on its own routing: {differ} of "
+              f"{total} expert choices differ from the kernel path's; the "
+              f"last token's least routing margin over {len(own)} layers "
+              f"{margin:.4f}; kernels vs plain bf16 max_abs_err "
+              f"{free_err:.4e} (held to {2 * noise:.4e} only when no "
+              f"choice differs: {'held' if differ == 0 else 'not held'})")
+        if differ == 0:
+            assert free_err <= 2 * noise, (free_err, noise)
+        del free
     del kern, plain, truth
     torch.cuda.empty_cache()
     return per_prefill, per_step
@@ -1031,8 +1137,11 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
 
 def _norms(cfg) -> int:
     """rmsnorm launches a forward: one before each sublayer and the final
-    norm (the residual adds run inside them)."""
-    return cfg.n_groups * sum(len(layer) for layer in cfg.pattern) + 1
+    norm (the residual adds run inside them), and two (q and k) in each
+    attention sublayer with qk-norm."""
+    per_group = sum(1 + 2 * bool(getattr(s, "qk_norm", False))
+                    for layer in cfg.pattern for s in layer)
+    return cfg.n_groups * per_group + 1
 
 
 def _timed(fn, *args):
@@ -1096,7 +1205,9 @@ def _profile_split(eng, prompts):
     torch.profiler after a warm-up, with the device operations by time and
     the device-idle share, 1 - kernel time / wall. The profiler slows the
     host, so the share is given against the profiled wall and against the
-    same work's wall without the profiler (host clock, synchronised)."""
+    same work's wall without the profiler (host clock, synchronised).
+    Returns the profiled decode step's device-kernel milliseconds (None
+    where the profiler saw no device time)."""
     from repro_torch.serving import Request
 
     def wall(fn):
@@ -1112,6 +1223,7 @@ def _profile_split(eng, prompts):
     prof_pre, wall_pre = _profiled(lambda: eng.admit(reqs[3]))
     plain_step = sorted(wall(eng.step) for _ in range(5))[2]
     prof_step, wall_step = _profiled(eng.step)
+    step_ms = None
     for label, kern, w, w0 in (
             ("prefill, bucket 1023", prof_pre, wall_pre, plain_pre),
             (f"decode step, {MAX_SLOTS} live slots", prof_step, wall_step,
@@ -1134,6 +1246,7 @@ def _profile_split(eng, prompts):
             print(f"    {t:9.4f} ms {100 * t / busy:5.1f}% x{e.count:<4d} "
                   f"{e.key[:90]}")
         if label.startswith("decode"):
+            step_ms = busy
             dec = [e for e in kern if "decode_attention" in e.key]
             assert len(dec) == 1 and dec[0].count == eng.cfg.n_groups, \
                 [(e.key, e.count) for e in dec]
@@ -1144,6 +1257,7 @@ def _profile_split(eng, prompts):
                   f"{100 * t / busy:.1f}% of device time")
     while eng.live.any():
         eng.step()
+    return step_ms
 
 
 def _tensors(tree):
@@ -3119,7 +3233,9 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-WINDOWS = 3                    # phases 13, 16 and 17's decode windows
+MOE_ARCH = "qwen3-moe-235b-a22b"
+WINDOWS = 3                    # phases 13 and 16-18's decode windows
+EXPERT_STEPS = 64              # phase 18 (d)'s decode steps replayed
 
 
 def _long_lengths(T: int) -> tuple:
@@ -3336,6 +3452,221 @@ def _pause_resume(eng, clock, prompts):
     return [tier_a.name, tier_b.name, demoted.name], t_pause, t_restore
 
 
+def _largest_matrix(cfg) -> int:
+    """Elements of one layer's largest weight (the embedding tables
+    apart): what native init draws as float32 before its cast, and what
+    the first-step check's float32 path casts at once."""
+    from repro_torch.models import model as M
+    return max(math.prod(shape) for _, spec in M._sublayers(cfg)
+               for _, shape, fan_in in M._leaves_of(
+                   M._MIXERS[spec.kind].param_shapes(cfg, spec))
+               if fan_in is not None)
+
+
+def _qk_norm_rows(cfg, buckets):
+    """rmsnorm at the qk-norm rows, head_dim wide, one row a (token,
+    head): q's and k's of a decode step ([slots x heads, hd] and [slots x
+    kv heads, hd]) and of the largest prefill bucket, against its plain
+    version in float32 and bf16 (TOL), then timed beside F.rms_norm and
+    the byte bound."""
+    import torch
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    attn = cfg.pattern[0][0]
+    hd, eps, S = attn.head_dim, cfg.norm_eps, max(buckets)
+    rows = (MAX_SLOTS * attn.n_heads, MAX_SLOTS * attn.n_kv,
+            S * attn.n_heads, S * attn.n_kv)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for r in rows:
+            x = torch.randn(r, hd, generator=gen, device=dev).to(dt)
+            s = 1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev)
+            _check("rmsnorm", rmsnorm(x, s, eps),
+                   reference_rmsnorm(x, s, eps), name,
+                   f"qk-norm [{r},{hd}] {name}")
+    for r in rows:
+        _rmsnorm_times(hd, eps, r, entries=("rmsnorm",))
+
+
+def _decode_routings(noted, cfg):
+    """The expert ids of each decode step with every slot decoding, from
+    `_routes`' notes (one call a layer; prefills apart): [{layer: ids
+    [slots, 1, k] as numpy}, ...] in step order."""
+    k = _moe_spec(cfg).top_k
+    calls = [i.cpu().numpy() for i, _ in noted
+             if tuple(i.shape) == (MAX_SLOTS, 1, k)]
+    L = cfg.n_groups
+    assert calls and len(calls) % L == 0, len(calls)
+    return [dict(enumerate(calls[i:i + L]))
+            for i in range(0, len(calls), L)]
+
+
+def _expert_products(eng, prompts, card):
+    """The expert FFN's three products in one decode step with every slot
+    decoding, timed where they run by CUDA events around each layer's
+    call (a stand-in for `moe._expert_ffn` set from outside the package):
+    against the bound of reading every expert's weights, which the
+    static-capacity product does, and against the bytes of the experts
+    the step routed."""
+    import torch
+    from repro_torch.core import units
+    from repro_torch.models import moe
+    from repro_torch.serving import Request
+
+    cfg = eng.cfg
+    spec = _moe_spec(cfg)
+    for i, p in enumerate(prompts[:MAX_SLOTS]):
+        eng.admit(Request(rid=f"ffn{i}", prompt=p, max_new=4))
+    eng.step()                                  # warm-up
+    ffn = moe._expert_ffn
+    events = []
+
+    def timed(*args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = ffn(*args)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    moe._expert_ffn = timed
+    try:
+        with _routes() as noted:
+            _, wall = _timed(eng.step)
+    finally:
+        moe._expert_ffn = ffn
+    ms = sum(a.elapsed_time(b) for a, b in events)
+    mats = 3 if spec.act in ("swiglu", "geglu") else 2
+    one = mats * cfg.d_model * spec.d_ff * 2
+    every = len(events) * spec.n_experts * one
+    routed = sum(int(torch.unique(i).numel()) for i, _ in noted)
+    print(f"  expert products in a decode step ({MAX_SLOTS} slots, "
+          f"{len(events)} layers, capacity "
+          f"{moe.capacity(spec, MAX_SLOTS)} a expert): {ms:.4f} ms (CUDA "
+          f"events) of a {wall * 1e3:.3f} ms step (host clock); bound "
+          f"{every / units.H100_HBM_BW * 1e3:.4f} ms to read every "
+          f"expert's {every / 1e9:.3f} GB; the {routed} routed experts' "
+          f"{routed * one / 1e9:.3f} GB would take "
+          f"{routed * one / units.H100_HBM_BW * 1e3:.4f} ms [{card}]")
+    while eng.live.any():
+        eng.step()
+    return ms
+
+
+def _expert_arm(cfg, routings, layer_time, device, pipelined):
+    """One arm of phase 18 (d) on `device`, on a fresh platform: a
+    one-host spec under the economic policy priced at one expert's bytes,
+    `Platform.expert_store` with every (layer, expert) on FLASH (one host
+    buffer backs every key: `TieredStore.put` keeps a reference), then
+    the noted routings, through `decode_step` (pipelined) or the
+    reference test's fetch loop without a prefetch
+    (tests/test_autopilot.py::test_expert_decode_step_pipelines_prefetch).
+    Returns the record and the host-clock seconds of the replay."""
+    import numpy as np
+    from repro_torch.core.policy import Tier
+    from repro_torch.platform import (HierarchySpec, HostDecl, Platform,
+                                      PolicyDecl)
+
+    spec = _moe_spec(cfg)
+    one = 3 * cfg.d_model * spec.d_ff * 2
+    platform = Platform.compile(HierarchySpec(
+        hosts=(HostDecl(),), policy=PolicyDecl.economic(l_blk=one)),
+        device=device)
+    es = platform.expert_store(n_layers=cfg.n_groups,
+                               n_experts=spec.n_experts, expert_bytes=one)
+    blob = np.zeros(one, np.uint8)
+    for layer in range(cfg.n_groups):
+        for e in range(spec.n_experts):
+            es.store.put((layer, e), blob, tier=Tier.FLASH)
+    platform.drain()
+    platform.reset_stats()
+    clock = platform.clock
+    stall, steps = 0.0, []
+    t0 = time.perf_counter()
+    for r in routings:
+        if pipelined:
+            rec = es.decode_step(r, layer_time=layer_time, tokens=MAX_SLOTS)
+            stall += rec["stall"]
+            steps.append([rec["fetched"], rec["prefetched"]])
+            continue
+        for layer in sorted(r):
+            for e in np.unique(r[layer]):
+                t = clock.now()
+                es.fetch_expert(layer, int(e))
+                stall += clock.now() - t
+            es.store.runtime.advance(layer_time)
+    wall = time.perf_counter() - t0
+    out = {"stall": stall, "now": clock.now(), "steps": steps}
+    if pipelined:
+        plan = es.residency_plan(layer_time * cfg.n_groups)
+        out.update(
+            plan={k: v for k, v in plan.items() if k != "tiers"},
+            tiers=plan["tiers"].tolist(),
+            gate=dataclasses.asdict(es.policy.gate_stats),
+            mass=float(es.policy.tracker.class_mass("expert")),
+            counts=es.counts.tolist())
+    return out, wall
+
+
+def _expert_store(cfg, routings, step_s, card):
+    """Phase 18 (d): (b)'s decode routings replayed through
+    `Platform.expert_store`, pipelined and not, on the card (the economic
+    gate's reuse sketch launches reuse_sketch) and on the CPU (its plain
+    version), with the layer time of (b)'s profiled decode step; the
+    records must be equal and the pipelined stall below the sync one."""
+    import numpy as np
+    from repro_torch import kernels
+
+    spec = _moe_spec(cfg)
+    one = 3 * cfg.d_model * spec.d_ff * 2
+    layer_time = step_s / cfg.n_groups
+    ids = np.stack([np.stack([r[layer].ravel() for layer in sorted(r)])
+                    for r in routings])              # [steps, L, slots*k]
+    share = np.stack([np.bincount(ids[:, layer].ravel(),
+                                  minlength=spec.n_experts)
+                      for layer in range(cfg.n_groups)]) / ids[:, 0].size
+    keys = cfg.n_groups * spec.n_experts
+    print(f"  {len(routings)} decode steps x {cfg.n_groups} layers of "
+          f"expert ids ({MAX_SLOTS} slots x top-{spec.top_k}); one expert "
+          f"{one} B; one host buffer of {one} B backs all {keys} keys "
+          f"({keys * one / 1e9:.3f} GB were each its own); "
+          f"layer_time {layer_time!r} s = the profiled decode step's "
+          f"device time / {cfg.n_groups}, on both devices")
+    print(f"  selection share a layer (uniform {1 / spec.n_experts:.5f}; "
+          f"random weights): max " + " ".join(
+              f"{v:.4f}" for v in share.max(1)) + "; min " + " ".join(
+              f"{v:.4f}" for v in share.min(1)))
+    recs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        before = kernels.launch_counts()["reuse_sketch"]
+        for arm in ("pipelined", "sync"):
+            recs[device, arm], walls[device, arm] = _expert_arm(
+                cfg, routings, layer_time, device, arm == "pipelined")
+        launches = kernels.launch_counts()["reuse_sketch"] - before
+        print(f"  on {device}: replay wall {walls[device, 'pipelined']:.3f} "
+              f"s pipelined, {walls[device, 'sync']:.3f} s sync (host "
+              f"clock); reuse_sketch launches {launches}")
+        if device == "cuda":
+            assert launches > 0, "the gate's sketch never ran on the card"
+    for arm in ("pipelined", "sync"):
+        assert json.dumps(recs["cuda", arm], sort_keys=True) == json.dumps(
+            recs["cpu", arm], sort_keys=True), f"(d) {arm}: card != CPU"
+    pipe, sync = recs["cuda", "pipelined"], recs["cuda", "sync"]
+    steps = np.array(pipe["steps"])
+    print(f"  stall (modeled) over {len(routings)} steps: pipelined "
+          f"{pipe['stall']!r} s, sync {sync['stall']!r} s; a step fetches "
+          f"{steps[:, 0].mean():.2f} and prefetches {steps[:, 1].mean():.2f}"
+          f" experts (mean); residency_plan({layer_time * cfg.n_groups!r})"
+          f" {json.dumps(pipe['plan'])}; gate {json.dumps(pipe['gate'])}; "
+          f"expert class mass {pipe['mass']!r}; records equal on the card "
+          f"and the CPU [{card}]")
+    assert pipe["stall"] < sync["stall"], (pipe["stall"], sync["stall"])
+
+
 def phase_dense(cfg, prompts, label, long_context=False):
     """A full-width dense config on the card (phase 13: deepseek-7b, MHA
     of 32 heads of 128 at d_model 4096; phase 16: mistral-nemo-12b, GQA
@@ -3353,8 +3684,14 @@ def phase_dense(cfg, prompts, label, long_context=False):
     resume equal to a run without a break, decode windows with every slot in
     use, one prefill and one decode step profiled; (c) one run of phase 10's
     declared workload through Platform.scheduler -> run(Platform.jobs()).
-    Peak device memory by part (native init apart from (b)). Returns the
-    launches of (b) and (c)."""
+    Peak device memory by part (native init apart from (b)). An MoE
+    config (phase 18: qwen3-moe-235b-a22b, GQA of 64 query heads on 4 kv
+    heads of 128 with qk-norm, 128 experts top-8 of d_ff 1536) adds the
+    qk-norm rows to (a), its routing to (b)'s first-step check, the
+    expert products' time in a decode step against their byte bound, and
+    (d): the expert ids (b)'s first decode window chose, replayed through
+    Platform.expert_store on the card and on the CPU. Returns the launches
+    of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -3383,9 +3720,29 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"bf16; the engine's cache at {MAX_SLOTS} slots x {MAX_LEN} "
           f"positions {cache / 1e6:.1f} MB in bf16; a paused blob "
           f"{blob} B (float32)")
+    big = _largest_matrix(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    weights = 2 * PARAMS[cfg.name]
+    print(f"  reckoned: the largest stacked weight's layer {big} elements; "
+          f"native init holds it as a float32 draw, its scaled float32 "
+          f"copy and its bf16 cast (10 B an element), so it peaks near "
+          f"{(weights + 10 * big) / 1e9:.2f} GB; the first-step check's "
+          f"float32 path casts one weight at a time (4 B an element), "
+          f"{(weights + 4 * big) / 1e9:.2f} GB with the activations "
+          f"apart; the card has {total / 1e9:.2f} GB")
+    assert weights + 10 * big < total, "native init would not fit"
+    moe = _moe_spec(cfg)
+    if moe is not None:
+        print(f"  {cfg.name}: {moe.n_experts} experts top-{moe.top_k} of "
+              f"d_ff {moe.d_ff} ({moe.act}), capacity factor "
+              f"{moe.capacity_factor}; qk-norm {attn.qk_norm}; "
+              f"{cfg.n_groups} of its layers: {PARAMS[cfg.name]} "
+              f"parameters")
 
     print(f"  (a) the serving kernels at its shapes [{card}]")
     _dense_kernels(cfg, lengths_main, buckets)
+    if attn.qk_norm:
+        _qk_norm_rows(cfg, buckets)
     if long_context:
         _long_decode(cfg)
     peaks = {"(a)": torch.cuda.max_memory_allocated()}
@@ -3422,13 +3779,23 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{t_restore!r} s (host clock, synchronised) [{card}]")
     print(f"  kv_stall_time={eng.kv_stall_time!r} s after both flows "
           f"(modeled); store DRAM {dram}; FLASH {flash}")
-    tps = sorted(_decode_window(eng, prompts, f"w{i}-")
-                 for i in range(WINDOWS))
+    tps = []
+    for i in range(WINDOWS):
+        # an MoE config's first window notes its decode steps' expert ids
+        # for (d)
+        with (_routes() if moe is not None and i == 0
+              else contextlib.nullcontext()) as noted:
+            tps.append(_decode_window(eng, prompts, f"w{i}-"))
+        if moe is not None and i == 0:
+            routings = _decode_routings(noted, cfg)[:EXPERT_STEPS]
+    tps.sort()
     print(f"  decode windows, {MAX_SLOTS} slots live for {STEADY_NEW - 1} "
           f"steps each, tokens/s (host clock, synchronised): median "
           f"{tps[len(tps) // 2]!r}, range {tps[0]!r} - {tps[-1]!r} over "
           f"{len(tps)} windows [{card}]")
-    _profile_split(eng, prompts)
+    step_ms = _profile_split(eng, prompts)
+    if moe is not None:
+        _expert_products(eng, prompts, card)
     peaks["(b)"] = torch.cuda.max_memory_allocated()
     del eng, platform
     torch.cuda.empty_cache()
@@ -3449,9 +3816,15 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{blob / 2**20:.0f} MiB each on the host); peak device memory "
           + ", ".join(f"{v / 1e9:.3f} GB in {k}" for k, v in peaks.items())
           + f", {max(peaks.values()) / 1e9:.3f} GB in all [{card}]")
+    if moe is not None:
+        assert step_ms is not None, "(d) takes the profiled decode step"
+        print(f"  (d) Platform.expert_store [{card}]")
+        _expert_store(cfg, routings, step_ms / 1e3, card)
+        counts = kernels.launch_counts()
     counts = {name: counts[name] for name in
               SERVING_KERNELS + ("reuse_sketch",)}
-    print(f"  launches in {label} (b) and (c): {json.dumps(counts)}")
+    parts = "(b), (c) and (d)" if moe is not None else "(b) and (c)"
+    print(f"  launches in {label} {parts}: {json.dumps(counts)}")
     for name, n in counts.items():
         assert n > 0, f"{name} never launched in {label}"
     del platform, sched, jobs, params
@@ -4292,6 +4665,14 @@ def main() -> int:
     granite = phase_dense(mqa_cfg, _prompts(mqa_cfg.vocab, N_REQUESTS + 2,
                                             np.random.default_rng(SEED)),
                           "phase 17", long_context=True)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_groups=MOE_GROUPS)
+    print(f"[18] full-width {MOE_ARCH} ({MOE_GROUPS} of its "
+          f"{get_config(MOE_ARCH).n_groups} layers) through the kernels, "
+          f"the platform, the scheduler and Platform.expert_store, and "
+          f"decode attention at its {moe_cfg.max_seq}-position context")
+    qwen = phase_dense(moe_cfg, _prompts(moe_cfg.vocab, N_REQUESTS + 2,
+                                         np.random.default_rng(SEED)),
+                       "phase 18", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4300,10 +4681,11 @@ def main() -> int:
                "phase8": {"reuse_sketch": counts["reuse_sketch"]},
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
-               "phase15": tiered, "phase16": nemo, "phase17": granite}
+               "phase15": tiered, "phase16": nemo, "phase17": granite,
+               "phase18": qwen}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite):
+                 granite, qwen):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

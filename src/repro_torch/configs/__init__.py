@@ -1,7 +1,8 @@
 """Architecture registry: the reference package's 10 architectures (+
 reduced smoke variants). `get_config` builds those the port can already
 run and raises NotImplementedError for the others. The dense
-attention + FFN family is ported one config at a time."""
+attention + FFN family and the MoE family are ported one config at a
+time."""
 from __future__ import annotations
 
 import importlib
@@ -21,9 +22,10 @@ ARCHS = (
 )
 
 # archs with a config module in this package: the dense attention + FFN
-# family (without the features models.model does not build yet), one
-# config at a time
-PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b")
+# family and the first MoE config (without the features models.model does
+# not build yet), one config at a time
+PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b",
+          "qwen3-moe-235b-a22b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -17,7 +17,8 @@ facade — no clock/policy/store threading. It decodes on CUDA unless
 `--device` names another device.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
-      [--arch deepseek-7b | --arch mistral-nemo-12b | --arch granite-20b]
+      [--arch deepseek-7b | mistral-nemo-12b | granite-20b |
+       qwen3-moe-235b-a22b]
       [--device cpu]
 """
 import argparse

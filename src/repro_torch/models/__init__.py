@@ -1,2 +1,2 @@
-from . import attention, config, ffn, layers, model  # noqa
-from .config import AttnSpec, FfnSpec, ModelConfig  # noqa
+from . import attention, config, ffn, layers, model, moe  # noqa
+from .config import AttnSpec, FfnSpec, ModelConfig, MoeSpec  # noqa

@@ -18,18 +18,21 @@ from ..kernels.decode_attention.ref import reference_decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import reference_attention
 from .config import AttnSpec, ModelConfig
-from .layers import Ctx, apply_rope
+from .layers import Ctx, apply_rope, rms_norm_heads
+
+# per-head q/k norm scales (qk_norm): float32 [head_dim] leaves, ones at
+# init, as the rmsnorm kernel takes its scale
+SCALES = ("q_scale", "k_scale")
 
 
 def check_supported(spec: AttnSpec) -> None:
     """Raise NotImplementedError for the attention features this port
-    does not build yet (none of them is used by gemma-2b)."""
+    does not build yet (no ported config uses them)."""
     unported = {
         "rope != 'rope' (M-RoPE, no rope)": spec.rope != "rope",
         "cross-attention": spec.cross,
         "non-causal self-attention": not spec.causal,
         "shared attention weights": spec.shared,
-        "qk_norm": spec.qk_norm,
         "sliding_window": spec.sliding_window != 0,
         "logit_softcap": spec.logit_softcap != 0.0,
     }
@@ -40,15 +43,19 @@ def check_supported(spec: AttnSpec) -> None:
 
 
 def param_shapes(cfg: ModelConfig, spec: AttnSpec):
-    """{name: (shape, fan_in)} of one sublayer's matrices."""
+    """{name: (shape, fan_in)} of one sublayer's leaves; fan_in None
+    marks a float32 scale of ones (the qk-norm scales)."""
     d = cfg.d_model
-    return {
+    out = {
         "wq": ((d, spec.n_heads, spec.head_dim), d),
         "wk": ((d, spec.n_kv, spec.head_dim), d),
         "wv": ((d, spec.n_kv, spec.head_dim), d),
         "wo": ((spec.n_heads, spec.head_dim, d),
                spec.n_heads * spec.head_dim),
     }
+    if spec.qk_norm:
+        out.update({n: ((spec.head_dim,), None) for n in SCALES})
+    return out
 
 
 def cache_shape(spec: AttnSpec, batch: int, max_len: int):
@@ -68,6 +75,13 @@ def apply(params, x, spec: AttnSpec, cfg: ModelConfig, ctx: Ctx,
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dgk->bgsk", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dgk->bgsk", x, params["wv"].to(dt))
+    if spec.qk_norm:
+        # before RoPE, as the reference does; the kernel reads contiguous
+        # rows, so k is normed as [B,S,KV,hd] and transposed back
+        q = rms_norm_heads(q.contiguous(), params["q_scale"], cfg.norm_eps,
+                           ctx.plain)
+        k = rms_norm_heads(k.transpose(1, 2).contiguous(), params["k_scale"],
+                           cfg.norm_eps, ctx.plain).transpose(1, 2)
     pos = ctx.positions
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k.transpose(1, 2), pos,

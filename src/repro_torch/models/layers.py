@@ -70,6 +70,14 @@ def apply_add_norm(params, x, residual, kind: str, eps: float,
     return fn(x, residual, params["scale"], eps)
 
 
+def rms_norm_heads(x, scale, eps: float = 1e-6, plain: bool = False):
+    """Per-head q/k RMSNorm (qwen3): x [..., head_dim] contiguous, scale
+    [head_dim] float32; the rmsnorm kernel's function on rows of head_dim
+    (or its plain version when `plain`)."""
+    fn = reference_rmsnorm if plain else rmsnorm
+    return fn(x, scale, eps)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

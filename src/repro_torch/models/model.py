@@ -14,8 +14,8 @@ compute the same function; `init_params` draws the same distributions
 natively on the device. Caches are grouped the same way:
 {"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}}, "tail": {}}.
 
-The port builds attention + FFN stacks; the other sublayer kinds and the
-attention features `attention.check_supported` lists raise
+The port builds attention, FFN and MoE stacks; the other sublayer kinds
+and the attention features `attention.check_supported` lists raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -27,11 +27,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import attention, ffn
+from . import attention, ffn, moe
 from .config import ModelConfig
 from .layers import Ctx, apply_add_norm, apply_norm, dense_init, embed_init
 
-_MIXERS = {"attn": attention, "ffn": ffn}
+_MIXERS = {"attn": attention, "ffn": ffn, "moe": moe}
 
 
 def _key(li: int, si: int) -> str:
@@ -78,15 +78,46 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         shapes["unembed"] = (cfg.vocab, d)
     shapes["groups"] = {
         k: {"norm": {"scale": (G, d)},
-            "mixer": {n: (G,) + s for n, (s, _) in
-                      _MIXERS[spec.kind].param_shapes(cfg, spec).items()}}
+            "mixer": _stacked(_MIXERS[spec.kind].param_shapes(cfg, spec), G)}
         for k, spec in _sublayers(cfg)}
     shapes["final_norm"] = {"scale": (d,)}
     return shapes
 
 
-def _is_norm_path(path) -> bool:
-    return "norm" in path or "final_norm" in path
+def _stacked(mats, G: int):
+    """A mixer's {name: (shape, fan_in)} (nested for a shared expert) as
+    its stacked [G, ...] shapes."""
+    return {n: _stacked(m, G) if isinstance(m, dict) else (G,) + m[0]
+            for n, m in mats.items()}
+
+
+def _leaves_of(mats, path=()):
+    """(path, shape, fan_in) of a mixer's leaves, in `param_shapes` order;
+    fan_in None marks a float32 scale of ones."""
+    for n, m in mats.items():
+        if isinstance(m, dict):
+            yield from _leaves_of(m, path + (n,))
+        else:
+            yield path + (n,), m[0], m[1]
+
+
+def _is_f32_path(path) -> bool:
+    """Leaves kept in float32 whatever the weights' dtype: norm scales and
+    the qk-norm scales, as the rmsnorm kernel takes them."""
+    return ("norm" in path or "final_norm" in path
+            or path[-1] in attention.SCALES)
+
+
+def _set(tree, path, value):
+    for n in path[:-1]:
+        tree = tree.setdefault(n, {})
+    tree[path[-1]] = value
+
+
+def _at_path(tree, path):
+    for n in path:
+        tree = tree[n]
+    return tree
 
 
 def init_params(cfg: ModelConfig,
@@ -95,9 +126,9 @@ def init_params(cfg: ModelConfig,
     """Native random init with the reference's distributions (truncated
     normal, fan-in scaled; embeddings at std 0.02; norm scales ones).
 
-    Matrices are stored in `dtype`; norm scales stay float32, as the
-    kernels take them. `generator` is a torch.Generator on `device` or an
-    int seed. Runs on CUDA unless `device` says otherwise.
+    Matrices are stored in `dtype`; norm and qk-norm scales stay float32,
+    as the kernels take them. `generator` is a torch.Generator on `device`
+    or an int seed. Runs on CUDA unless `device` says otherwise.
 
     The weights depend on the device: an int seed seeds that device's own
     generator, and the CUDA and CPU generators draw different numbers
@@ -117,13 +148,19 @@ def init_params(cfg: ModelConfig,
     params["groups"] = {}
     for k, spec in _sublayers(cfg):
         # drawn layer by layer, each matrix straight into its slot of the
-        # stacked [G, ...] tensor, so no second copy of a sublayer exists
-        mats = _MIXERS[spec.kind].param_shapes(cfg, spec)
-        mixer = {n: torch.empty((G,) + shape, dtype=dtype, device=dev)
-                 for n, (shape, _) in mats.items()}
+        # stacked [G, ...] tensor, so no second copy of a sublayer exists;
+        # the qk-norm scales are float32 ones, as the reference sets them
+        leaves = list(_leaves_of(_MIXERS[spec.kind].param_shapes(cfg, spec)))
+        mixer: Dict[str, Any] = {}
+        for path, shape, fan_in in leaves:
+            _set(mixer, path, torch.ones((G,) + shape, dtype=torch.float32,
+                                         device=dev) if fan_in is None
+                 else torch.empty((G,) + shape, dtype=dtype, device=dev))
         for g in range(G):
-            for n, (shape, fan_in) in mats.items():
-                mixer[n][g] = dense_init(shape, fan_in, generator, dev, dtype)
+            for path, shape, fan_in in leaves:
+                if fan_in is not None:
+                    _at_path(mixer, path)[g] = dense_init(
+                        shape, fan_in, generator, dev, dtype)
         params["groups"][k] = {
             "norm": {"scale": torch.ones((G, d), dtype=torch.float32,
                                          device=dev)},
@@ -137,7 +174,8 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
                     dtype: torch.dtype = torch.float32):
     """The reference package's `init_params` output (a tree of numpy
     arrays, e.g. `jax.tree.map(np.asarray, params)`) as this port's
-    parameters. Matrices are cast to `dtype`; norm scales stay float32.
+    parameters. Matrices are cast to `dtype`; norm and qk-norm scales stay
+    float32.
     Raises ValueError when the tree does not match `cfg`."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
@@ -154,7 +192,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
         if arr.shape != tuple(want):
             raise ValueError(f"params at {'/'.join(path)}: shape "
                              f"{arr.shape}, expected {tuple(want)}")
-        leaf_dtype = torch.float32 if _is_norm_path(path) else dtype
+        leaf_dtype = torch.float32 if _is_f32_path(path) else dtype
         # np.array copies: the reference's arrays may be read-only views
         return torch.from_numpy(np.array(arr)).to(device=dev,
                                                   dtype=leaf_dtype)
@@ -173,7 +211,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     groups = {}
     for k, spec in _sublayers(cfg):
-        if spec.kind == "attn":
+        if spec.kind == "attn":             # FFN and MoE hold no cache
             shape = (cfg.n_groups,) + attention.cache_shape(spec, batch,
                                                             max_len)
             groups[k] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -199,7 +237,7 @@ def _sub_apply(params, x, spec, cfg: ModelConfig, ctx: Ctx, cache=None,
     if spec.kind == "attn":
         out, _ = attention.apply(params["mixer"], h, spec, cfg, ctx, cache)
     else:
-        out = ffn.apply(params["mixer"], h, spec, cfg, ctx)
+        out = _MIXERS[spec.kind].apply(params["mixer"], h, spec, cfg, ctx)
     return x, out
 
 

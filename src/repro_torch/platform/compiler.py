@@ -13,6 +13,7 @@ The facade hands out uniform capabilities:
     platform = Platform.compile(spec)           # CUDA unless device= says
     sess = platform.kv_session("user-42", host=1)
     sess.save(blob); h = sess.prefetch(); ...; blob = h.result()
+    es = platform.expert_store(n_layers=4, n_experts=8)
     eng = platform.engine(cfg, params, host=0)
     sched = platform.scheduler(cfg, params)     # continuous batching
     sched.run(platform.jobs(vocab=cfg.vocab))   # the declared workload
@@ -33,8 +34,7 @@ asks for the CPU.
 A spec with `pool=` compiles the fleet-shared far-memory pool
 (`runtime.pool.PooledStore`) into the fabric, and a host declaring a
 "gpu_flash" tier gets a gate that routes gate-cold admissions down the
-GPU-direct path. Not ported yet, and raising NotImplementedError with its
-ROADMAP item: `expert_store` (Queue 1 item 7f).
+GPU-direct path.
 """
 from __future__ import annotations
 
@@ -56,11 +56,6 @@ from .handles import Handle, KvSession
 from .spec import HierarchySpec, PolicyDecl
 
 __all__ = ["Platform", "Handle", "KvSession"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 class Platform:
@@ -270,8 +265,16 @@ class Platform:
                          replicas=replicas if replicas is not None
                          else self.spec.replicas)
 
-    def expert_store(self, *args, **kw):
-        raise _not_ported("Platform.expert_store (tiering/)", "7f")
+    def expert_store(self, n_layers: int, n_experts: int, *,
+                     host: int = 0, replicas: Optional[int] = None,
+                     expert_bytes: float = 0.0):
+        """MoE expert streaming over the fabric from `host`'s view."""
+        from ..tiering.expert_store import ExpertStore
+        r = replicas if replicas is not None else self.spec.replicas
+        return ExpertStore(
+            n_layers, n_experts, policy=self.policy(host),
+            store=self.fabric.host_view(host, replicas=r),
+            expert_bytes=expert_bytes)
 
     def checkpoint_steps(self, step_time: Optional[float] = None) -> int:
         """spec.checkpoint_interval (seconds) -> decode steps for this

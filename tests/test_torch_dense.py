@@ -1,5 +1,5 @@
-"""deepseek-7b, mistral-nemo-12b and granite-20b (reduced, float32)
-through the port's
+"""deepseek-7b, mistral-nemo-12b, granite-20b and qwen3-moe-235b-a22b
+(reduced, float32) through the port's
 entry points against the JAX reference's: the `serve_tiered_kv` twin with
 `--arch` against the reference script with the same flag, and the
 declared tenant pack through Platform.compile -> Platform.scheduler ->
@@ -23,7 +23,8 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
     _sides
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b")
+ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b",
+         "qwen3-moe-235b-a22b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

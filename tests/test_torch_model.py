@@ -6,8 +6,10 @@ scale), mistral-nemo-12b (GQA 2:1 reduced, 4:1 at full width,
 SwiGLU, untied; at full width its query width 32 x 128 = 4096 is not
 its d_model 5120, which a widened reduced variant covers here) and
 granite-20b (MQA, 4:1 reduced and 48:1 at full width, a plain GELU FFN,
-tied embeddings without a scale). Native init draws each stacked
-weight in place, bit for bit as a draw-then-stack loop would.
+tied embeddings without a scale) and qwen3-moe-235b-a22b (GQA with
+qk-norm, and a mixture-of-experts sublayer: 8 experts top-2 reduced, 128
+top-8 at full width, static capacity with drops). Native init draws each
+stacked weight in place, bit for bit as a draw-then-stack loop would.
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -25,14 +27,31 @@ from repro.parallel.sharding import single_device_rules
 from repro_torch.configs import ARCHS, PORTED, get_config
 from repro_torch.models import model as TM
 from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
-from repro_torch.models import attention, ffn
+from repro_torch.models import attention
 from repro_torch.models.config import AttnSpec
 from repro_torch.models.layers import Ctx
 
 ATOL = 1e-4
 # each ported config with its full-width parameter count
 DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
-         "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656}
+         "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656,
+         "qwen3-moe-235b-a22b": 235_093_634_560}
+
+
+def _has_moe(cfg) -> bool:
+    return any(s.kind == "moe" for _, _, _, s in cfg.sublayers())
+
+
+def _no_drop(cfg):
+    """As tests/test_decode_equivalence.py does: MoE capacity raised so
+    no choice is dropped, since capacity is a function of the call's own
+    token count and prefill(S0) and forward(S) drop different choices at
+    finite capacity, by design."""
+    import dataclasses
+    from repro_torch.models.config import MoeSpec
+    layer = tuple(dataclasses.replace(s, capacity_factor=64.0)
+                  if isinstance(s, MoeSpec) else s for s in cfg.pattern[0])
+    return dataclasses.replace(cfg, pattern=(layer,))
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
@@ -152,9 +171,51 @@ def test_query_width_unlike_d_model_matches_reference():
 
 BF16_ATOL = 1e-2
 MIN_SEPARATED = 12      # slot-steps whose greedy token is compared
+# MoE configs: a slot-step is held where the reference's router logits of
+# the step's own tokens, at every MoE sublayer, put at least ROUTE_MARGIN
+# between the k-th and the (k+1)-th expert; below it the two are a tie at
+# bf16's resolution, and a swapped expert moves the logits past BF16_ATOL
+ROUTE_MARGIN = 0.03
+MIN_ROUTED = 16         # MoE slot-steps held to the reference's logits
+MIN_SEPARATED_MOE = 8   # of them, slot-steps whose greedy token is compared
 
 
-def test_bf16_logits_and_greedy_tokens_match_reference(setup):
+def _route_margins(monkeypatch, cfg):
+    """Wraps the reference's router so that each call reports, a slot at
+    a time, the least logit margin between its k-th and (k+1)-th expert
+    over the call's tokens; returns the list the margins land in (one
+    [B] array a MoE call, through an ordered debug callback, so it works
+    inside the reference's scan)."""
+    import repro.models.moe as JMoe
+    seen = []
+    if not _has_moe(cfg):
+        return seen
+    route = JMoe._route
+
+    def noted(params, x, spec, ctx):
+        logits = jnp.einsum("bsd,de->bse", x, params["router"].astype(
+            ctx.compute_dtype)).astype(jnp.float32)
+        top = jax.lax.top_k(logits, spec.top_k + 1)[0]
+        margin = (top[..., -2] - top[..., -1]).min(-1)
+        jax.debug.callback(lambda m: seen.append(np.asarray(m)), margin,
+                           ordered=True)
+        return route(params, x, spec, ctx)
+    monkeypatch.setattr(JMoe, "_route", noted)
+    return seen
+
+
+def _held(seen, B):
+    """Slots whose routing cleared ROUTE_MARGIN in the calls since the
+    last read (every slot for a config without MoE)."""
+    if not seen:
+        return np.ones(B, bool)
+    jax.effects_barrier()
+    held = np.min(np.stack(seen), 0) > ROUTE_MARGIN
+    seen.clear()
+    return held
+
+
+def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
     """bf16 compute on both sides, the same weights and tokens: prefill,
     then 16 greedy decode steps, both fed the reference's greedy tokens.
 
@@ -173,8 +234,17 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
     resolution. Which steps those are depends on the reference's logits
     alone: at least MIN_SEPARATED slot-steps must be held to the greedy
     token (reduced gemma-2b's margins exceed twice the tolerance at ~80%
-    of slot-steps, deepseek-7b's at ~68%, mistral-nemo-12b's at ~55%)."""
+    of slot-steps, deepseek-7b's at ~68%, mistral-nemo-12b's at ~55%).
+
+    Routing is a discrete choice: for qwen3-moe a slot-step is held (its
+    logits, then its greedy token) only where the reference's routing of
+    that step's tokens clears ROUTE_MARGIN at every MoE sublayer (the
+    prefill's: every prompt token's). Reduced qwen3-moe holds 23 of the
+    32 slot-steps (at least MIN_ROUTED must be), its held logits within
+    6.8e-3, and compares the greedy token at 13 of them; one it leaves
+    out (margin 0.004) is 0.093 off, a swapped expert."""
     jcfg, cfg, jp, tp, rules = setup
+    seen = _route_margins(monkeypatch, cfg)
     B, S, steps = 2, 12, 16
     toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
     jc = JM.init_cache(jcfg, B, 32, dtype=jnp.bfloat16)
@@ -184,18 +254,20 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
                         compute_dtype=torch.bfloat16)
     index = np.full(B, S, np.int32)
-    separated = 0
+    separated = routed = 0
     for step in range(steps):
         assert tl.dtype == torch.bfloat16
+        held = _held(seen, B)
         j = np.asarray(jl, np.float32)
         t = tl.float().numpy()
-        np.testing.assert_allclose(t, j, atol=BF16_ATOL,
+        np.testing.assert_allclose(t[held], j[held], atol=BF16_ATOL,
                                    err_msg=f"decode step {step}")
         top2 = np.sort(j, axis=-1)[:, -2:]
-        sep = top2[:, 1] - top2[:, 0] > 2 * BF16_ATOL
+        sep = held & (top2[:, 1] - top2[:, 0] > 2 * BF16_ATOL)
         np.testing.assert_array_equal(t.argmax(-1)[sep], j.argmax(-1)[sep],
                                       err_msg=f"greedy token, step {step}")
         separated += int(sep.sum())
+        routed += int(held.sum())
         tok = j.argmax(-1)[:, None].astype(np.int32)
         jc, jl = JM.decode_step(jp, jcfg, rules, jnp.asarray(tok), jc,
                                 jnp.asarray(index),
@@ -204,13 +276,20 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup):
                                 torch.from_numpy(index),
                                 compute_dtype=torch.bfloat16)
         index = index + 1
-    assert separated >= MIN_SEPARATED, separated
+    if _has_moe(cfg):
+        assert routed >= MIN_ROUTED, routed
+        assert separated >= MIN_SEPARATED_MOE, separated
+    else:
+        assert routed == B * steps
+        assert separated >= MIN_SEPARATED, separated
 
 
 def test_decode_matches_forward(setup):
     """As tests/test_decode_equivalence.py checks for the reference:
-    prefill + token-by-token decode equal the parallel forward pass."""
+    prefill + token-by-token decode equal the parallel forward pass (MoE
+    at a capacity that drops nothing, as there)."""
     _, cfg, _, tp, _ = setup
+    cfg = _no_drop(cfg)
     B, S, S0 = 2, 12, 5
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, (B, S)))
@@ -251,7 +330,8 @@ def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
             if spec.kind == "attn":
                 out, _ = attention.apply(p["mixer"], h, spec, cfg, ctx, c)
             else:
-                out = ffn.apply(p["mixer"], h, spec, cfg, ctx)
+                out = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg,
+                                                  ctx)
             x = x + out
     if mode == "prefill":
         i = S - 1 if last is None else last
@@ -341,12 +421,16 @@ def _drawn_then_stacked(cfg, seed, dtype):
         want["unembed"] = embed_init(shapes["unembed"], gen, "cpu", dtype)
     want["groups"] = {}
     for k, spec in TM._sublayers(cfg):
-        mats = TM._MIXERS[spec.kind].param_shapes(cfg, spec)
+        # the qk-norm scales (fan_in None) are ones, not drawn
+        mats = [(path[-1], shape, fan_in) for path, shape, fan_in in
+                TM._leaves_of(TM._MIXERS[spec.kind].param_shapes(cfg, spec))]
         layers = [{n: dense_init(shape, fan_in, gen, "cpu", dtype)
-                   for n, (shape, fan_in) in mats.items()}
+                   if fan_in is not None else
+                   torch.ones(shape, dtype=torch.float32)
+                   for n, shape, fan_in in mats}
                   for _ in range(cfg.n_groups)]
         want["groups"][k] = {n: torch.stack([m[n] for m in layers])
-                             for n in mats}
+                             for n, _, _ in mats}
     return want
 
 
@@ -367,7 +451,8 @@ def test_native_init_stacks_in_place(arch, dtype):
         assert sorted(got["groups"][k]["mixer"]) == sorted(mixer)
         for n, t in mixer.items():
             g = got["groups"][k]["mixer"][n]
-            assert g.dtype == t.dtype == dtype, (k, n)
+            want_dtype = torch.float32 if n.endswith("_scale") else dtype
+            assert g.dtype == t.dtype == want_dtype, (k, n)
             assert torch.equal(g, t), (k, n)
 
 
@@ -385,7 +470,7 @@ def test_params_from_jax_rejects_a_mismatched_tree(setup):
 
 @pytest.mark.parametrize("change", [
     dict(sliding_window=16), dict(logit_softcap=30.0),
-    dict(rope="mrope"), dict(cross=True), dict(qk_norm=True)])
+    dict(rope="mrope"), dict(cross=True)])
 def test_unported_attention_features_raise(change):
     import dataclasses
     cfg = get_config("gemma-2b", reduced=True)
@@ -404,10 +489,9 @@ def test_int8_kv_cache_is_not_ported_yet():
 
 def test_unported_sublayer_kinds_raise():
     import dataclasses
-    from repro_torch.models.config import MoeSpec
+    from repro_torch.models.config import Mamba2Spec
     cfg = get_config("gemma-2b", reduced=True)
     bad = dataclasses.replace(cfg, pattern=(
-        (AttnSpec(n_heads=4, n_kv=1, head_dim=32),
-         MoeSpec(n_experts=4, top_k=2, d_ff=64)),))
-    with pytest.raises(NotImplementedError, match="moe"):
+        (AttnSpec(n_heads=4, n_kv=1, head_dim=32), Mamba2Spec()),))
+    with pytest.raises(NotImplementedError, match="mamba2"):
         TM.init_cache(bad, 1, 8, device="cpu")

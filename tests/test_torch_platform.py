@@ -335,8 +335,18 @@ def test_compiled_fabric_matches_reference(name):
 def test_unported_capabilities_raise_with_their_roadmap_item():
     platform = TP.Platform.compile(_specs(TP)["one_host_static"],
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7f"):
-        platform.expert_store()
+    # the expert store is ported (item 7f): the reference's, on a spec
+    # with replicas (tests/test_torch_expert_store.py holds its scenarios)
+    experts = {}
+    for P, kw in ((TP, {"device": "cpu"}), (JP, {})):
+        es = P.Platform.compile(_specs(P)["topology_net"], **kw
+                                ).expert_store(2, 8, host=1,
+                                               expert_bytes=4096.0)
+        experts[P] = (type(es).__name__, es.host, es.store.replicas,
+                      es.expert_bytes, es.counts.shape,
+                      type(es.policy).__name__)
+    assert experts[TP] == experts[JP] == (
+        "ExpertStore", 1, 2, 4096.0, (2, 8), "EconomicGate")
     # the pool and the GPU-direct tier are ported (item 7d): the spec
     # compiles to the reference's gates, pool and tiers
     # (tests/test_torch_fourth_tier.py holds them to it on live fleets)

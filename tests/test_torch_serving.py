@@ -1,7 +1,9 @@
 """The PyTorch port's DecodeEngine against the JAX reference engine on the
-same weights (each ported dense config, reduced, float32: gemma-2b,
-deepseek-7b, mistral-nemo-12b and granite-20b), in the tiered-KV serving scenario of
-examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
+same weights (each ported config, reduced, float32: gemma-2b,
+deepseek-7b, mistral-nemo-12b, granite-20b and qwen3-moe-235b-a22b,
+whose MoE routes the pads of each prefill bucket and the dead slots of
+each decode step as the reference's does), in the tiered-KV serving
+scenario of examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
 blobs, so paused sessions really reach flash.
 
 Tokens, tiers, stalls and every counter of the store and its runtime
@@ -36,7 +38,7 @@ STEP = 5e-3
 
 @pytest.fixture(scope="module",
                 params=["deepseek-7b", "gemma-2b", "granite-20b",
-                        "mistral-nemo-12b"])
+                        "mistral-nemo-12b", "qwen3-moe-235b-a22b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
