@@ -197,9 +197,11 @@ Drives the port's serving path on the card and checks it, in phases:
      [1,8,S,128]), then decode attention at the config's own context,
      k,v [4,8,131072,128] at lengths 131072, 100003, 32769 and 1,
      against its plain version in f32 and bf16, timed beside masked
-     SDPA and its bound, with its timeline there; (b) and (c) as phase
-     13; peak device memory of native init, of the first-step check, of
-     (b) and of (c).
+     SDPA and its bound, with its timeline there; (b) as phase 13, and
+     (c) at 10 of its 40 layers (views of the first 10 groups' weights:
+     the run's wall is host launches a layer, and the whole script keeps
+     inside its time with phase 19); peak device memory of native init,
+     of the first-step check, of (b) and of (c).
  17. full-width granite-20b (52 layers, d_model 6144, MQA of 48 query
      heads on one kv head of 128, a plain GELU FFN of d_ff 24576, vocab
      49152, tied embeddings without a scale, rope theta 1e4; 40.03 GB of
@@ -210,8 +212,9 @@ Drives the port's serving path on the card and checks it, in phases:
      attention at the config's own 32,768 positions at lengths 32768,
      25001, 8193 and 1, in f32 and bf16 (48 heads' merge weights over
      1,024 chunks: the shared-memory layout's largest case); (b) and
-     (c) as phase 16, with the device memory held when the phase starts
-     and the bytes it will need reckoned before they are made.
+     (c) as phase 16 ((c) at 13 of its 52 layers), with the device
+     memory held when the phase starts and the bytes it will need
+     reckoned before they are made.
  18. full-width qwen3-moe-235b-a22b at 12 of its 94 layers (31.1 billion
      parameters, 62.2 GB of random bf16 weights drawn in place; the 94
      layers are 470 GB): d_model 4096, GQA of 64 query heads on 4 kv
@@ -233,8 +236,23 @@ Drives the port's serving path on the card and checks it, in phases:
      (the gate's reuse sketch runs reuse_sketch) and on the CPU, records
      equal and the pipelined stall below the sync one; the residency
      plan, the gate's stats and each layer's selection shares printed.
+ 19. full-width llama4-maverick-400b-a17b at one of its 24 groups, a
+     dense layer and an MoE layer (18.6 billion parameters, 37.11 GB of
+     random bf16 weights; the 48 layers are 795 GB, and two groups
+     would fit native init but not the first-step check's float32 cast
+     of one whole expert stack): d_model 5120, GQA of 40 query heads on
+     8 kv heads of 128 (five query heads a kv head: one head group of
+     8 with three idle lanes in decode attention), SwiGLU d_ff 8192 in
+     the dense layer, 128 experts top-1 of d_ff 8192 and an always-on
+     shared expert of 8192 in the MoE layer, vocab 202048, untied, rope
+     theta 5e5, through phase 18's path with every count of attention
+     and MoE layers taken from the pattern (2 flash or decode attention
+     launches and 5 norms a prefill or step); native init draws each
+     [128, 5120, 8192] expert stack one expert at a time; (d) at one
+     MoE layer a step has nothing upstream to prefetch behind, so every
+     step must prefetch no expert.
 
-The first-step check (phases 4 and 13-18) holds the kernels to the plain
+The first-step check (phases 4 and 13-19) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -293,12 +311,20 @@ SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 # count at the depth served: gemma-2b in phases 4 and 9-10, deepseek-7b in
 # phase 13, mistral-nemo-12b in phase 16, granite-20b in phase 17, all at
 # full depth; qwen3-moe-235b-a22b in phase 18 at MOE_GROUPS of its 94
-# layers (235,093,634,560 parameters at all 94, 470 GB in bf16)
+# layers (235,093,634,560 parameters at all 94, 470 GB in bf16);
+# llama4-maverick-400b-a17b in phase 19 at TOP1_GROUPS of its 24 groups
+# of two layers (397,691,950,080 parameters at all 24, 795 GB in bf16)
 MOE_GROUPS = 12
+# one group (a dense and an MoE layer) and the two tables are 37.11 GB in
+# bf16; two groups (70.08 GB) would fit native init, but not the
+# first-step check's float32 truth, which casts one whole [128, 5120,
+# 8192] expert stack at a time (+21.5 GB: 91.6 GB of the card's 85.0)
+TOP1_GROUPS = 1
 PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "mistral-nemo-12b": 12_247_782_400,
           "granite-20b": 20_013_766_656,
-          "qwen3-moe-235b-a22b": 31_097_723_904}
+          "qwen3-moe-235b-a22b": 31_097_723_904,
+          "llama4-maverick-400b-a17b": 18_553_267_200}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
 # 128 (qwen3-moe's qk-norm rows, one a head), the TPU kernel's largest and
 # one that is not a multiple of 8; rows of a step, of a decode step's
@@ -837,7 +863,7 @@ def phase_kernels(cfg, lengths_main, buckets):
     # caches exceed the 50 MB L2
     caches = [(randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=torch.bfloat16),
                randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=torch.bfloat16))
-              for _ in range(cfg.n_groups)]
+              for _ in range(_timed_caches(cfg))]
     q = randn(MAX_SLOTS, H, hd, dtype=torch.bfloat16)
     k, v = caches[0]
     # the same inputs give the same bits; the tickets reset after a call
@@ -1144,6 +1170,38 @@ def _norms(cfg) -> int:
     return cfg.n_groups * per_group + 1
 
 
+def _attn_specs(cfg):
+    """The attention sublayers' specs of one group, in pattern order."""
+    return [s for layer in cfg.pattern for s in layer if s.kind == "attn"]
+
+
+def _attn_layers(cfg) -> int:
+    """Attention sublayers of the stack, each one flash_attention launch a
+    prefill and one decode_attention launch a decode step: a group's
+    (two at llama4's, one at every other config's) times its groups."""
+    return len(_attn_specs(cfg)) * cfg.n_groups
+
+
+def _moe_layers(cfg) -> int:
+    """MoE sublayers of the stack: a group's times its groups."""
+    return sum(s.kind == "moe" for layer in cfg.pattern
+               for s in layer) * cfg.n_groups
+
+
+L2_BYTES = 50 * 2 ** 20        # the H100's L2
+
+
+def _timed_caches(cfg) -> int:
+    """Distinct (k, v) caches that decode attention's timing reads in
+    turn: one an attention sublayer, and at least enough to pass the L2
+    (llama4 at one group has two attention sublayers of 16.8 MB), so
+    each call finds its own cold as a layer does behind the layers
+    between."""
+    attn = _attn_specs(cfg)[0]
+    one = 2 * MAX_SLOTS * attn.n_kv * MAX_LEN * attn.head_dim * 2
+    return max(_attn_layers(cfg), L2_BYTES // one + 1)
+
+
 def _timed(fn, *args):
     """fn(*args) and its seconds on the host clock, synchronised."""
     import torch
@@ -1248,7 +1306,7 @@ def _profile_split(eng, prompts):
         if label.startswith("decode"):
             step_ms = busy
             dec = [e for e in kern if "decode_attention" in e.key]
-            assert len(dec) == 1 and dec[0].count == eng.cfg.n_groups, \
+            assert len(dec) == 1 and dec[0].count == _attn_layers(eng.cfg), \
                 [(e.key, e.count) for e in dec]
             assert not any("merge" in e.key for e in kern), "merge kernel"
             t = dec[0].self_device_time_total / 1e3
@@ -1283,9 +1341,10 @@ def _smi() -> str:
 
 
 def _blob_bytes(cfg, max_len=MAX_LEN) -> int:
-    """A paused session's blob: every K/V leaf of one slot, as float32."""
-    attn = cfg.pattern[0][0]
-    return 2 * cfg.n_groups * attn.n_kv * max_len * attn.head_dim * 4
+    """A paused session's blob: every K/V leaf of one slot (every
+    attention sublayer of every group), as float32."""
+    return sum(2 * cfg.n_groups * a.n_kv * max_len * a.head_dim * 4
+               for a in _attn_specs(cfg))
 
 
 def _tier_table(cfg) -> dict:
@@ -3233,9 +3292,15 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
+# (c)'s depth in phases 16 and 17, a quarter of each config's layers (its
+# (b) serves all of them): the scheduler's run is host launches a layer
+# (47 s at mistral-nemo-12b's 40 layers, 56 s at granite-20b's 52), and
+# the whole script is held to 800 s with phase 19 in it
+WORKLOAD_GROUPS = {"mistral-nemo-12b": 10, "granite-20b": 13}
 MOE_ARCH = "qwen3-moe-235b-a22b"
-WINDOWS = 3                    # phases 13 and 16-18's decode windows
-EXPERT_STEPS = 64              # phase 18 (d)'s decode steps replayed
+TOP1_ARCH = "llama4-maverick-400b-a17b"
+WINDOWS = 3                    # phases 13 and 16-19's decode windows
+EXPERT_STEPS = 64              # phases 18 and 19 (d)'s decode steps replayed
 
 
 def _long_lengths(T: int) -> tuple:
@@ -3312,7 +3377,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
                    name, f"H={H} KV={KV} hd={hd} {lab} {name}")
     caches = [(randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=bf16),
                randn(MAX_SLOTS, KV, MAX_LEN, hd, dtype=bf16))
-              for _ in range(cfg.n_groups)]
+              for _ in range(_timed_caches(cfg))]
     q = randn(MAX_SLOTS, H, hd, dtype=bf16)
     err = _check("decode_attention",
                  decode_attention(q, *caches[0], lengths_main, scale=scale),
@@ -3452,15 +3517,20 @@ def _pause_resume(eng, clock, prompts):
     return [tier_a.name, tier_b.name, demoted.name], t_pause, t_restore
 
 
-def _largest_matrix(cfg) -> int:
+def _largest_matrix(cfg) -> tuple:
     """Elements of one layer's largest weight (the embedding tables
-    apart): what native init draws as float32 before its cast, and what
-    the first-step check's float32 path casts at once."""
+    apart), what the first-step check's float32 path casts at once, and
+    of native init's largest float32 draw: that weight, or one
+    leading-axis slice (one expert) of a weight above
+    `M.DRAW_SLICE_ELEMENTS`."""
     from repro_torch.models import model as M
-    return max(math.prod(shape) for _, spec in M._sublayers(cfg)
-               for _, shape, fan_in in M._leaves_of(
-                   M._MIXERS[spec.kind].param_shapes(cfg, spec))
-               if fan_in is not None)
+    shapes = [shape for _, spec in M._sublayers(cfg)
+              for _, shape, fan_in in M._leaves_of(
+                  M._MIXERS[spec.kind].param_shapes(cfg, spec))
+              if fan_in is not None]
+    sizes = [math.prod(shape) for shape in shapes]
+    return max(sizes), max(n if n <= M.DRAW_SLICE_ELEMENTS else n // sh[0]
+                           for n, sh in zip(sizes, shapes))
 
 
 def _qk_norm_rows(cfg, buckets):
@@ -3498,7 +3568,7 @@ def _decode_routings(noted, cfg):
     k = _moe_spec(cfg).top_k
     calls = [i.cpu().numpy() for i, _ in noted
              if tuple(i.shape) == (MAX_SLOTS, 1, k)]
-    L = cfg.n_groups
+    L = _moe_layers(cfg)
     assert calls and len(calls) % L == 0, len(calls)
     return [dict(enumerate(calls[i:i + L]))
             for i in range(0, len(calls), L)]
@@ -3576,10 +3646,11 @@ def _expert_arm(cfg, routings, layer_time, device, pipelined):
     platform = Platform.compile(HierarchySpec(
         hosts=(HostDecl(),), policy=PolicyDecl.economic(l_blk=one)),
         device=device)
-    es = platform.expert_store(n_layers=cfg.n_groups,
-                               n_experts=spec.n_experts, expert_bytes=one)
+    L = _moe_layers(cfg)
+    es = platform.expert_store(n_layers=L, n_experts=spec.n_experts,
+                               expert_bytes=one)
     blob = np.zeros(one, np.uint8)
-    for layer in range(cfg.n_groups):
+    for layer in range(L):
         for e in range(spec.n_experts):
             es.store.put((layer, e), blob, tier=Tier.FLASH)
     platform.drain()
@@ -3602,7 +3673,7 @@ def _expert_arm(cfg, routings, layer_time, device, pipelined):
     wall = time.perf_counter() - t0
     out = {"stall": stall, "now": clock.now(), "steps": steps}
     if pipelined:
-        plan = es.residency_plan(layer_time * cfg.n_groups)
+        plan = es.residency_plan(layer_time * L)
         out.update(
             plan={k: v for k, v in plan.items() if k != "tiers"},
             tiers=plan["tiers"].tolist(),
@@ -3613,29 +3684,32 @@ def _expert_arm(cfg, routings, layer_time, device, pipelined):
 
 
 def _expert_store(cfg, routings, step_s, card):
-    """Phase 18 (d): (b)'s decode routings replayed through
+    """Phases 18 and 19 (d): (b)'s decode routings replayed through
     `Platform.expert_store`, pipelined and not, on the card (the economic
     gate's reuse sketch launches reuse_sketch) and on the CPU (its plain
-    version), with the layer time of (b)'s profiled decode step; the
-    records must be equal and the pipelined stall below the sync one."""
+    version), with the layer time of (b)'s profiled decode step over its
+    MoE layers; the records must be equal and the pipelined stall below
+    the sync one. At one MoE layer a step (phase 19) nothing lies upstream
+    to prefetch behind, so every step must prefetch no expert."""
     import numpy as np
     from repro_torch import kernels
 
     spec = _moe_spec(cfg)
     one = 3 * cfg.d_model * spec.d_ff * 2
-    layer_time = step_s / cfg.n_groups
+    L = _moe_layers(cfg)
+    layer_time = step_s / L
     ids = np.stack([np.stack([r[layer].ravel() for layer in sorted(r)])
                     for r in routings])              # [steps, L, slots*k]
     share = np.stack([np.bincount(ids[:, layer].ravel(),
                                   minlength=spec.n_experts)
-                      for layer in range(cfg.n_groups)]) / ids[:, 0].size
-    keys = cfg.n_groups * spec.n_experts
-    print(f"  {len(routings)} decode steps x {cfg.n_groups} layers of "
+                      for layer in range(L)]) / ids[:, 0].size
+    keys = L * spec.n_experts
+    print(f"  {len(routings)} decode steps x {L} MoE layers of "
           f"expert ids ({MAX_SLOTS} slots x top-{spec.top_k}); one expert "
           f"{one} B; one host buffer of {one} B backs all {keys} keys "
           f"({keys * one / 1e9:.3f} GB were each its own); "
           f"layer_time {layer_time!r} s = the profiled decode step's "
-          f"device time / {cfg.n_groups}, on both devices")
+          f"device time / {L}, on both devices")
     print(f"  selection share a layer (uniform {1 / spec.n_experts:.5f}; "
           f"random weights): max " + " ".join(
               f"{v:.4f}" for v in share.max(1)) + "; min " + " ".join(
@@ -3660,11 +3734,14 @@ def _expert_store(cfg, routings, step_s, card):
     print(f"  stall (modeled) over {len(routings)} steps: pipelined "
           f"{pipe['stall']!r} s, sync {sync['stall']!r} s; a step fetches "
           f"{steps[:, 0].mean():.2f} and prefetches {steps[:, 1].mean():.2f}"
-          f" experts (mean); residency_plan({layer_time * cfg.n_groups!r})"
+          f" experts (mean); residency_plan({layer_time * L!r})"
           f" {json.dumps(pipe['plan'])}; gate {json.dumps(pipe['gate'])}; "
           f"expert class mass {pipe['mass']!r}; records equal on the card "
           f"and the CPU [{card}]")
-    assert pipe["stall"] < sync["stall"], (pipe["stall"], sync["stall"])
+    if L == 1:
+        assert not steps[:, 1].any(), "a prefetch with no upstream layer"
+    else:
+        assert pipe["stall"] < sync["stall"], (pipe["stall"], sync["stall"])
 
 
 def phase_dense(cfg, prompts, label, long_context=False):
@@ -3683,15 +3760,20 @@ def phase_dense(cfg, prompts, label, long_context=False):
     example's flow, greedy tokens across a pause to flash and a prefetched
     resume equal to a run without a break, decode windows with every slot in
     use, one prefill and one decode step profiled; (c) one run of phase 10's
-    declared workload through Platform.scheduler -> run(Platform.jobs()).
-    Peak device memory by part (native init apart from (b)). An MoE
-    config (phase 18: qwen3-moe-235b-a22b, GQA of 64 query heads on 4 kv
+    declared workload through Platform.scheduler -> run(Platform.jobs()),
+    at the first WORKLOAD_GROUPS groups of the weights where the config
+    has an entry (phases 16 and 17). Peak device memory by part (native
+    init apart from (b)). An MoE config (phase 18: qwen3-moe-235b-a22b, GQA of 64 query heads on 4 kv
     heads of 128 with qk-norm, 128 experts top-8 of d_ff 1536) adds the
     qk-norm rows to (a), its routing to (b)'s first-step check, the
     expert products' time in a decode step against their byte bound, and
     (d): the expert ids (b)'s first decode window chose, replayed through
-    Platform.expert_store on the card and on the CPU. Returns the launches
-    of (b), (c) and (d)."""
+    Platform.expert_store on the card and on the CPU. An MoE config whose
+    group is a dense and an MoE layer (phase 19: llama4-maverick-400b-a17b,
+    GQA of 40 query heads on 8 kv heads of 128, 128 experts top-1 of d_ff
+    8192 and a shared expert of 8192) runs the same steps, with every
+    count of attention and MoE layers taken from its pattern. Returns the
+    launches of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -3708,35 +3790,39 @@ def phase_dense(cfg, prompts, label, long_context=False):
     lengths_main, buckets = _path_shapes(prompts)
     attn = cfg.pattern[0][0]
     blob = _blob_bytes(cfg)
-    print(f"  {cfg.name}: {cfg.n_groups} layers, d_model {cfg.d_model}, "
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{attn.n_heads} heads / {attn.n_kv} kv of {attn.head_dim}, "
           f"{cfg.pattern[0][1].act} d_ff {cfg.pattern[0][1].d_ff}, vocab "
           f"{cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
           f"{blob} B; prompts {[len(p) for p in prompts]}, buckets "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
-    cache = 2 * cfg.n_groups * MAX_SLOTS * attn.n_kv * MAX_LEN \
-        * attn.head_dim * 2
+    cache = MAX_SLOTS * blob // 2                   # every slot, in bf16
     print(f"  reckoned: weights {2 * PARAMS[cfg.name] / 1e9:.2f} GB in "
           f"bf16; the engine's cache at {MAX_SLOTS} slots x {MAX_LEN} "
           f"positions {cache / 1e6:.1f} MB in bf16; a paused blob "
           f"{blob} B (float32)")
-    big = _largest_matrix(cfg)
+    big, draw = _largest_matrix(cfg)
     total = torch.cuda.get_device_properties(0).total_memory
     weights = 2 * PARAMS[cfg.name]
-    print(f"  reckoned: the largest stacked weight's layer {big} elements; "
-          f"native init holds it as a float32 draw, its scaled float32 "
-          f"copy and its bf16 cast (10 B an element), so it peaks near "
-          f"{(weights + 10 * big) / 1e9:.2f} GB; the first-step check's "
-          f"float32 path casts one weight at a time (4 B an element), "
-          f"{(weights + 4 * big) / 1e9:.2f} GB with the activations "
-          f"apart; the card has {total / 1e9:.2f} GB")
-    assert weights + 10 * big < total, "native init would not fit"
+    sliced = (f"drawn one expert at a time, {draw} elements a draw" if
+              draw < big else "drawn whole")
+    print(f"  reckoned: the largest stacked weight's layer {big} elements, "
+          f"{sliced}; native init holds a draw as float32, its scaled "
+          f"float32 copy and its bf16 cast (10 B an element), so it peaks "
+          f"near {(weights + 10 * draw) / 1e9:.2f} GB; the first-step "
+          f"check's float32 path casts one whole weight at a time (4 B an "
+          f"element), {(weights + 4 * big) / 1e9:.2f} GB with the "
+          f"activations apart; the card has {total / 1e9:.2f} GB")
+    assert weights + 10 * draw < total, "native init would not fit"
+    assert weights + 4 * big < total, "the first-step check would not fit"
     moe = _moe_spec(cfg)
     if moe is not None:
         print(f"  {cfg.name}: {moe.n_experts} experts top-{moe.top_k} of "
               f"d_ff {moe.d_ff} ({moe.act}), capacity factor "
-              f"{moe.capacity_factor}; qk-norm {attn.qk_norm}; "
-              f"{cfg.n_groups} of its layers: {PARAMS[cfg.name]} "
+              f"{moe.capacity_factor}, shared expert d_ff "
+              f"{moe.shared_d_ff}; qk-norm {attn.qk_norm}; "
+              f"{cfg.n_layers} of its layers ({_moe_layers(cfg)} MoE, "
+              f"{_attn_layers(cfg)} attention): {PARAMS[cfg.name]} "
               f"parameters")
 
     print(f"  (a) the serving kernels at its shapes [{card}]")
@@ -3753,8 +3839,8 @@ def phase_dense(cfg, prompts, label, long_context=False):
     peaks["native init"] = torch.cuda.max_memory_allocated()
     # resets the peak: (b) from here is the check and the serving
     per_prefill, per_step = _first_step(cfg, params, prompts[0])
-    assert per_prefill["flash_attention"] == cfg.n_groups, per_prefill
-    assert per_step["decode_attention"] == cfg.n_groups, per_step
+    assert per_prefill["flash_attention"] == _attn_layers(cfg), per_prefill
+    assert per_step["decode_attention"] == _attn_layers(cfg), per_step
     platform = Platform.compile(_example_spec(cfg), device="cuda")
     eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
                           max_len=MAX_LEN, compute_dtype=torch.bfloat16)
@@ -3800,10 +3886,20 @@ def phase_dense(cfg, prompts, label, long_context=False):
     del eng, platform
     torch.cuda.empty_cache()
 
-    print(f"  (c) Platform.scheduler -> run(Platform.jobs()) [{card}]")
+    wcfg, wparams = cfg, params
+    workload_groups = WORKLOAD_GROUPS.get(cfg.name)
+    if workload_groups is not None:          # views of the first groups
+        wcfg = dataclasses.replace(cfg, n_groups=workload_groups)
+        wparams = dict(params, groups=_map(params["groups"],
+                                           lambda t: t[:workload_groups]))
+        blob = _blob_bytes(wcfg)
+    depth = ("" if workload_groups is None else
+             f" at {wcfg.n_layers} of its {cfg.n_layers} layers")
+    print(f"  (c) Platform.scheduler -> run(Platform.jobs()){depth} "
+          f"[{card}]")
     torch.cuda.reset_peak_memory_stats()
     platform, sched, jobs, report, wall, split, pauses = _serve_workload(
-        cfg, params, _workload_spec(cfg), dtype=torch.bfloat16)
+        wcfg, wparams, _workload_spec(wcfg), dtype=torch.bfloat16)
     counts = kernels.launch_counts()
     _workload_report(platform, sched, report, pauses, card)
     assert report["tokens"] == sum(len(j.request.generated) for j in jobs)
@@ -3827,7 +3923,7 @@ def phase_dense(cfg, prompts, label, long_context=False):
     print(f"  launches in {label} {parts}: {json.dumps(counts)}")
     for name, n in counts.items():
         assert n > 0, f"{name} never launched in {label}"
-    del platform, sched, jobs, params
+    del platform, sched, jobs, params, wparams
     torch.cuda.empty_cache()
     print(f"  {label} wall {time.perf_counter() - t_phase:.1f} s [{card}]")
     return counts
@@ -4673,6 +4769,17 @@ def main() -> int:
     qwen = phase_dense(moe_cfg, _prompts(moe_cfg.vocab, N_REQUESTS + 2,
                                          np.random.default_rng(SEED)),
                        "phase 18", long_context=True)
+    top1_cfg = dataclasses.replace(get_config(TOP1_ARCH),
+                                   n_groups=TOP1_GROUPS)
+    print(f"[19] full-width {TOP1_ARCH} ({TOP1_GROUPS} of its "
+          f"{get_config(TOP1_ARCH).n_groups} groups: {top1_cfg.n_layers} "
+          f"of {get_config(TOP1_ARCH).n_layers} layers, a dense and an MoE "
+          f"layer) through the kernels, the platform, the scheduler and "
+          f"Platform.expert_store, and decode attention at its "
+          f"{top1_cfg.max_seq}-position context")
+    llama = phase_dense(top1_cfg, _prompts(top1_cfg.vocab, N_REQUESTS + 2,
+                                           np.random.default_rng(SEED)),
+                        "phase 19", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4682,10 +4789,10 @@ def main() -> int:
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
-               "phase18": qwen}
+               "phase18": qwen, "phase19": llama}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen):
+                 granite, qwen, llama):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

@@ -22,10 +22,10 @@ ARCHS = (
 )
 
 # archs with a config module in this package: the dense attention + FFN
-# family and the first MoE config (without the features models.model does
-# not build yet), one config at a time
+# family and the MoE configs (without the features models.model does not
+# build yet), one config at a time
 PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b",
-          "qwen3-moe-235b-a22b")
+          "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -18,7 +18,7 @@ facade — no clock/policy/store threading. It decodes on CUDA unless
 
   PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
       [--arch deepseek-7b | mistral-nemo-12b | granite-20b |
-       qwen3-moe-235b-a22b]
+       qwen3-moe-235b-a22b | llama4-maverick-400b-a17b]
       [--device cpu]
 """
 import argparse

@@ -120,6 +120,15 @@ def _at_path(tree, path):
     return tree
 
 
+# a [G] slot whose draw holds more elements than this is drawn one
+# leading-axis slice (one expert) at a time: a draw holds a float32
+# sample, its scaled float32 copy and the cast, about 10 B an element, so
+# one of llama4-maverick's [128, 5120, 8192] expert stacks drawn whole
+# would need 53.7 GB beside the weights. Slices draw different numbers
+# from one whole draw, so every slot at or below the bound is drawn whole.
+DRAW_SLICE_ELEMENTS = 1 << 30
+
+
 def init_params(cfg: ModelConfig,
                 generator: Union[torch.Generator, int, None] = None,
                 device=None, dtype: torch.dtype = torch.float32):
@@ -128,7 +137,9 @@ def init_params(cfg: ModelConfig,
 
     Matrices are stored in `dtype`; norm and qk-norm scales stay float32,
     as the kernels take them. `generator` is a torch.Generator on `device`
-    or an int seed. Runs on CUDA unless `device` says otherwise.
+    or an int seed. Runs on CUDA unless `device` says otherwise. Each
+    stacked weight is drawn layer by layer into its slot, and a slot above
+    DRAW_SLICE_ELEMENTS one leading-axis slice at a time.
 
     The weights depend on the device: an int seed seeds that device's own
     generator, and the CUDA and CPU generators draw different numbers
@@ -158,9 +169,17 @@ def init_params(cfg: ModelConfig,
                  else torch.empty((G,) + shape, dtype=dtype, device=dev))
         for g in range(G):
             for path, shape, fan_in in leaves:
-                if fan_in is not None:
-                    _at_path(mixer, path)[g] = dense_init(
-                        shape, fan_in, generator, dev, dtype)
+                if fan_in is None:
+                    continue
+                slot = _at_path(mixer, path)[g]
+                if math.prod(shape) <= DRAW_SLICE_ELEMENTS:
+                    slot.copy_(dense_init(shape, fan_in, generator, dev,
+                                          dtype))
+                    continue
+                # one leading-axis slice (one expert) at a time
+                for e in range(shape[0]):
+                    slot[e] = dense_init(shape[1:], fan_in, generator, dev,
+                                         dtype)
         params["groups"][k] = {
             "norm": {"scale": torch.ones((G, d), dtype=torch.float32,
                                          device=dev)},

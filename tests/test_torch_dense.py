@@ -1,5 +1,5 @@
-"""deepseek-7b, mistral-nemo-12b, granite-20b and qwen3-moe-235b-a22b
-(reduced, float32) through the port's
+"""deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b and
+llama4-maverick-400b-a17b (reduced, float32) through the port's
 entry points against the JAX reference's: the `serve_tiered_kv` twin with
 `--arch` against the reference script with the same flag, and the
 declared tenant pack through Platform.compile -> Platform.scheduler ->
@@ -24,7 +24,7 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b",
-         "qwen3-moe-235b-a22b")
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -8,8 +8,12 @@ its d_model 5120, which a widened reduced variant covers here) and
 granite-20b (MQA, 4:1 reduced and 48:1 at full width, a plain GELU FFN,
 tied embeddings without a scale) and qwen3-moe-235b-a22b (GQA with
 qk-norm, and a mixture-of-experts sublayer: 8 experts top-2 reduced, 128
-top-8 at full width, static capacity with drops). Native init draws each
-stacked weight in place, bit for bit as a draw-then-stack loop would.
+top-8 at full width, static capacity with drops) and
+llama4-maverick-400b-a17b (a group of two layers, a dense FFN layer and
+an MoE layer of top-1 routing with an always-on shared expert; GQA 2:1
+reduced, 5:1 at full width). Native init draws each stacked weight in
+place, bit for bit as a draw-then-stack loop would, and a stack above
+`DRAW_SLICE_ELEMENTS` one expert at a time.
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -35,7 +39,8 @@ ATOL = 1e-4
 # each ported config with its full-width parameter count
 DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
          "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656,
-         "qwen3-moe-235b-a22b": 235_093_634_560}
+         "qwen3-moe-235b-a22b": 235_093_634_560,
+         "llama4-maverick-400b-a17b": 397_691_950_080}
 
 
 def _has_moe(cfg) -> bool:
@@ -49,9 +54,15 @@ def _no_drop(cfg):
     finite capacity, by design."""
     import dataclasses
     from repro_torch.models.config import MoeSpec
-    layer = tuple(dataclasses.replace(s, capacity_factor=64.0)
-                  if isinstance(s, MoeSpec) else s for s in cfg.pattern[0])
-    return dataclasses.replace(cfg, pattern=(layer,))
+    return dataclasses.replace(cfg, pattern=tuple(
+        tuple(dataclasses.replace(s, capacity_factor=64.0)
+              if isinstance(s, MoeSpec) else s for s in layer)
+        for layer in cfg.pattern))
+
+
+def _attn_keys(cfg):
+    """The cache's keys: every attention sublayer of the group."""
+    return [k for k, spec in TM._sublayers(cfg) if spec.kind == "attn"]
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
@@ -92,10 +103,13 @@ def test_prefill_logits_match_reference(setup, B, S, last):
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
                         compute_dtype=torch.float32, last_index=last)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
-    for leaf in ("k", "v"):
-        np.testing.assert_allclose(
-            tc["groups"]["L0S0"][leaf].numpy(),
-            np.asarray(jc["groups"]["L0S0"][leaf]), atol=ATOL)
+    assert sorted(tc["groups"]) == sorted(jc["groups"]) == _attn_keys(cfg)
+    for key in _attn_keys(cfg):
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(
+                tc["groups"][key][leaf].numpy(),
+                np.asarray(jc["groups"][key][leaf]), atol=ATOL,
+                err_msg=f"{key} {leaf}")
 
 
 def test_per_slot_decode_logits_match_reference(setup):
@@ -121,9 +135,12 @@ def test_per_slot_decode_logits_match_reference(setup):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
                                    err_msg=f"decode step {step}")
         index = index + 1
-    np.testing.assert_allclose(tc["groups"]["L0S0"]["v"].numpy(),
-                               np.asarray(jc["groups"]["L0S0"]["v"]),
-                               atol=ATOL)
+    for key in _attn_keys(cfg):
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(
+                tc["groups"][key][leaf].numpy(),
+                np.asarray(jc["groups"][key][leaf]), atol=ATOL,
+                err_msg=f"{key} {leaf}")
 
 
 def test_query_width_unlike_d_model_matches_reference():
@@ -409,29 +426,48 @@ def test_native_init_distributions(dtype):
     assert torch.equal(again["embed"], p["embed"])
 
 
-def _drawn_then_stacked(cfg, seed, dtype):
+def _drawn_then_stacked(cfg, seed, dtype, bound=None):
     """Native init as a loop that draws all G layers' matrices of a
     sublayer into a list (layer 0's in `param_shapes` order, then layer
-    1's, ...) and stacks them: the weights `init_params` must give."""
+    1's, ...) and stacks them: the weights `init_params` must give. A
+    matrix of more than `bound` elements (None: no bound) is drawn as its
+    leading-axis slices, each a draw of the slice's shape from where the
+    generator stands, then stacked."""
+    import math
     from repro_torch.models.layers import dense_init, embed_init
     gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def draw(shape, fan_in):
+        if bound is None or math.prod(shape) <= bound:
+            return dense_init(shape, fan_in, gen, "cpu", dtype)
+        return torch.stack([dense_init(shape[1:], fan_in, gen, "cpu", dtype)
+                            for _ in range(shape[0])])
     shapes = TM.param_shapes(cfg)
     want = {"embed": embed_init(shapes["embed"], gen, "cpu", dtype)}
     if "unembed" in shapes:
         want["unembed"] = embed_init(shapes["unembed"], gen, "cpu", dtype)
     want["groups"] = {}
     for k, spec in TM._sublayers(cfg):
-        # the qk-norm scales (fan_in None) are ones, not drawn
-        mats = [(path[-1], shape, fan_in) for path, shape, fan_in in
-                TM._leaves_of(TM._MIXERS[spec.kind].param_shapes(cfg, spec))]
-        layers = [{n: dense_init(shape, fan_in, gen, "cpu", dtype)
-                   if fan_in is not None else
+        # the qk-norm scales (fan_in None) are ones, not drawn; a shared
+        # expert's leaves are nested, so leaves are keyed by their paths
+        mats = list(TM._leaves_of(TM._MIXERS[spec.kind].param_shapes(cfg,
+                                                                     spec)))
+        layers = [{n: draw(shape, fan_in) if fan_in is not None else
                    torch.ones(shape, dtype=torch.float32)
                    for n, shape, fan_in in mats}
                   for _ in range(cfg.n_groups)]
         want["groups"][k] = {n: torch.stack([m[n] for m in layers])
                              for n, _, _ in mats}
     return want
+
+
+def _paths(tree, path=()):
+    """The leaf paths of a nested dict."""
+    for n, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, path + (n,))
+        else:
+            yield path + (n,)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -448,12 +484,79 @@ def test_native_init_stacks_in_place(arch, dtype):
         if name in want:
             assert torch.equal(got[name], want[name]), name
     for k, mixer in want["groups"].items():
-        assert sorted(got["groups"][k]["mixer"]) == sorted(mixer)
+        assert sorted(_paths(got["groups"][k]["mixer"])) == sorted(mixer)
         for n, t in mixer.items():
-            g = got["groups"][k]["mixer"][n]
-            want_dtype = torch.float32 if n.endswith("_scale") else dtype
+            g = TM._at_path(got["groups"][k]["mixer"], n)
+            want_dtype = torch.float32 if n[-1].endswith("_scale") else dtype
             assert g.dtype == t.dtype == want_dtype, (k, n)
             assert torch.equal(g, t), (k, n)
+
+
+ARCH_2 = "llama4-maverick-400b-a17b"     # a group of two layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_native_init_draws_a_stack_above_the_bound_one_expert_at_a_time(
+        monkeypatch, dtype):
+    """A [G] slot of more than DRAW_SLICE_ELEMENTS is drawn one expert (one
+    leading-axis slice) at a time, each expert a draw of its own shape from
+    where the generator stands; every smaller slot is drawn whole. At full
+    width only llama4's expert stacks pass the bound (qwen3-moe's 805M
+    elements stay under it, so its native weights are unchanged); reduced
+    llama4 with the bound lowered to 16,384 draws its [4, 64, 128] stacks
+    (32,768 elements) by slices and its dense and shared FFN (8,192)
+    whole, and the sliced weights are not those of whole draws."""
+    import math
+    big = {arch: max(math.prod(shape) for _, spec in TM._sublayers(
+        get_config(arch)) for _, shape, fan_in in TM._leaves_of(
+            TM._MIXERS[spec.kind].param_shapes(get_config(arch), spec))
+        if fan_in is not None) for arch in DENSE}
+    assert big[ARCH_2] == 128 * 5120 * 8192 > TM.DRAW_SLICE_ELEMENTS
+    assert all(n <= TM.DRAW_SLICE_ELEMENTS for a, n in big.items()
+               if a != ARCH_2), big
+    cfg = get_config(ARCH_2, reduced=True)
+    whole = TM.init_params(cfg, 11, device="cpu", dtype=dtype)
+    monkeypatch.setattr(TM, "DRAW_SLICE_ELEMENTS", 16_384)
+    got = TM.init_params(cfg, 11, device="cpu", dtype=dtype)
+    want = _drawn_then_stacked(cfg, 11, dtype, bound=16_384)
+    sliced = 0
+    for k, mixer in want["groups"].items():
+        assert sorted(_paths(got["groups"][k]["mixer"])) == sorted(mixer)
+        for n, t in mixer.items():
+            g = TM._at_path(got["groups"][k]["mixer"], n)
+            assert g.dtype == t.dtype and torch.equal(g, t), (k, n)
+            drawn = TM._at_path(whole["groups"][k]["mixer"], n)
+            if math.prod(t.shape[1:]) > 16_384:
+                sliced += 1
+                assert n in (("w_in",), ("w_gate",), ("w_out",)), (k, n)
+                assert not torch.equal(g, drawn), (k, n)
+    assert sliced == 3, sliced
+    assert torch.equal(got["unembed"], whole["unembed"])
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_no_drop_keeps_every_layer_of_the_pattern(arch):
+    """`_no_drop` raises the capacity of every MoE sublayer in every layer
+    of the pattern and leaves the pattern's length and every other spec as
+    they were: on llama4 its group stays a dense layer and an MoE layer."""
+    import dataclasses
+    from repro_torch.models.config import MoeSpec
+    cfg = get_config(arch, reduced=True)
+    got = _no_drop(cfg)
+    assert len(got.pattern) == len(cfg.pattern)
+    assert got.param_count() == cfg.param_count()
+    for new, old in zip(got.pattern, cfg.pattern):
+        assert len(new) == len(old)
+        for a, b in zip(new, old):
+            if isinstance(b, MoeSpec):
+                assert b.capacity_factor < a.capacity_factor == 64.0
+                assert dataclasses.replace(a, capacity_factor=1.0) == \
+                    dataclasses.replace(b, capacity_factor=1.0)
+            else:
+                assert a == b
+    if arch == ARCH_2:
+        assert [[s.kind for s in layer] for layer in got.pattern] == \
+            [["attn", "ffn"], ["attn", "moe"]]
 
 
 def test_params_from_jax_rejects_a_mismatched_tree(setup):

@@ -1,7 +1,9 @@
 """The port's MoE sublayer (`repro_torch.models.moe`) and qk-norm against
 the JAX reference's (`repro.models.moe`, `rms_norm_heads`), float32, on
 the CPU, the inputs drawn from a numpy seed and the reference run under
-`single_device_rules()`.
+`single_device_rules()`: reduced qwen3-moe (top-2) and reduced
+llama4-maverick (top-1, gates not renormalised, with an always-on shared
+expert, in the second layer of a two-layer group).
 
 The kept set (which token choices the static capacity keeps) is read
 from each package's own `apply` by replacing its expert FFN with one
@@ -31,6 +33,7 @@ from repro_torch.models.config import MoeSpec
 from repro_torch.models.layers import Ctx
 
 ARCH = "qwen3-moe-235b-a22b"
+TOP1 = "llama4-maverick-400b-a17b"
 ATOL = 1e-5
 
 
@@ -39,23 +42,30 @@ def rules():
     return single_device_rules()
 
 
-def _cfgs(**moe):
-    """Reduced qwen3-moe (8 experts top-2 of d_ff 96 at d_model 64) on
-    both sides, its MoE spec changed by `moe`."""
-    jcfg = j_get_config(ARCH, reduced=True)
-    cfg = get_config(ARCH, reduced=True)
+def _cfgs(arch=ARCH, **moe):
+    """Reduced `arch` on both sides (qwen3-moe: 8 experts top-2 of d_ff 96
+    at d_model 64; llama4: 4 experts top-1 of d_ff 128 and a shared expert
+    of 128 in the second of its two layers), the MoE spec of every layer
+    of its pattern changed by `moe`."""
+    jcfg = j_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
 
     def fix(c, spec_cls):
-        layer = tuple(dataclasses.replace(s, **moe)
-                      if isinstance(s, spec_cls) else s
-                      for s in c.pattern[0])
-        return dataclasses.replace(c, pattern=(layer,))
+        return dataclasses.replace(c, pattern=tuple(
+            tuple(dataclasses.replace(s, **moe)
+                  if isinstance(s, spec_cls) else s for s in layer)
+            for layer in c.pattern))
     return fix(jcfg, JMoeSpec), fix(cfg, MoeSpec)
+
+
+def _moe_spec(c):
+    """The MoE sublayer's spec of a config's pattern."""
+    return next(s for layer in c.pattern for s in layer if s.kind == "moe")
 
 
 def _layer(jcfg, cfg, seed=0):
     """One MoE sublayer's reference params and the port's copy."""
-    jspec, spec = jcfg.pattern[0][1], cfg.pattern[0][1]
+    jspec, spec = _moe_spec(jcfg), _moe_spec(cfg)
     jp, _ = JMoe.init(jax.random.PRNGKey(seed), jcfg, jspec)
     tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
     return jspec, spec, jp, tp
@@ -133,7 +143,7 @@ def test_kept_set_matches_reference_with_drops(monkeypatch, rules):
     jcfg, cfg = _cfgs()
     x = _x(1, 256, cfg.d_model, 2)
     jk, tk, _ = _kept(monkeypatch, rules, jcfg, cfg, x)
-    assert TMoe.capacity(cfg.pattern[0][1], 256) == 80
+    assert TMoe.capacity(_moe_spec(cfg), 256) == 80
     assert (~jk).sum() > 0, "no choice was dropped"
     np.testing.assert_array_equal(tk, jk)
 
@@ -155,7 +165,7 @@ def test_bucket_pads_count_toward_capacity(monkeypatch, rules):
     reference's, and the model's prefill logits at the last real token
     equal the reference's."""
     jcfg, cfg = _cfgs()
-    spec = cfg.pattern[0][1]
+    spec = _moe_spec(cfg)
     S, L = 100, 128
     assert (TMoe.capacity(spec, S), TMoe.capacity(spec, L)) == (32, 40)
     # one direction shared by every token skews the routing toward a few
@@ -201,6 +211,56 @@ def test_apply_matches_reference(rules, act, shared_d_ff):
     x = _x(2, 96, cfg.d_model, 6)
     jy = JMoe.apply(jp, jnp.asarray(x), jspec, jcfg, _jctx(rules, 2, 96))
     ty = TMoe.apply(tp, torch.from_numpy(x), spec, cfg, _tctx(2, 96))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
+
+
+def test_top1_route_keeps_the_top_probability(rules):
+    """llama4's top-1 routing: the ids and gates equal the reference's,
+    and a gate is its expert's softmax probability, not renormalised to 1
+    (the reference renormalises only when k > 1)."""
+    jcfg, cfg = _cfgs(TOP1)
+    jspec, spec, jp, tp = _layer(jcfg, cfg)
+    assert (spec.top_k, spec.shared_d_ff) == (1, 128)
+    x = _x(3, 40, cfg.d_model, 10)
+    jg, ji = JMoe._route(jp, jnp.asarray(x), jspec, _jctx(rules, 3, 40))
+    tg, ti = TMoe.route(tp, torch.from_numpy(x), spec, _tctx(3, 40))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6)
+    probs = torch.softmax(torch.einsum("bsd,de->bse", torch.from_numpy(x),
+                                       tp["router"]), -1)
+    np.testing.assert_allclose(tg.numpy(), probs.max(-1, keepdim=True)
+                               .values.numpy(), atol=1e-6)
+    assert float(tg.max()) < 1.0 - 1e-3
+
+
+def test_top1_kept_set_matches_reference_with_drops(monkeypatch, rules):
+    """A 256-token call at llama4's capacity factor 1.25 and top-1: cap 80
+    slots an expert against a mean of 64 choices, so some are dropped; the
+    port keeps exactly the reference's. The shared expert is off here, as
+    it would add to every coordinate the kept set is read from."""
+    jcfg, cfg = _cfgs(TOP1, shared_d_ff=0)
+    x = _x(1, 256, cfg.d_model, 11) + 2.0 * _x(1, 1, cfg.d_model, 12)
+    jk, tk, ids = _kept(monkeypatch, rules, jcfg, cfg, x)
+    assert TMoe.capacity(_moe_spec(cfg), 256) == 80
+    assert ids.shape == (256, 1)
+    assert (~jk).sum() > 0, "no choice was dropped"
+    np.testing.assert_array_equal(tk, jk)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_top1_apply_with_a_shared_expert_matches_reference(rules, act):
+    """llama4's whole MoE sublayer, top-1 with its always-on shared expert,
+    drops present (a skewed 2 x 128-token call), in each activation."""
+    jcfg, cfg = _cfgs(TOP1, act=act)
+    jspec, spec, jp, tp = _layer(jcfg, cfg, seed=2)
+    assert "shared" in tp and ("w_gate" in tp) == (act != "gelu")
+    x = _x(2, 128, cfg.d_model, 13) + 2.0 * _x(1, 1, cfg.d_model, 14)
+    _, idx = TMoe.route(tp, torch.from_numpy(x), spec, _tctx(2, 128))
+    _, keep = TMoe.dispatch(idx.reshape(-1, 1), spec.n_experts,
+                            TMoe.capacity(spec, 256))
+    assert not bool(keep.all()), "no choice was dropped"
+    jy = JMoe.apply(jp, jnp.asarray(x), jspec, jcfg, _jctx(rules, 2, 128))
+    ty = TMoe.apply(tp, torch.from_numpy(x), spec, cfg, _tctx(2, 128))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
 
 

@@ -1,10 +1,11 @@
 """The PyTorch port's DecodeEngine against the JAX reference engine on the
 same weights (each ported config, reduced, float32: gemma-2b,
-deepseek-7b, mistral-nemo-12b, granite-20b and qwen3-moe-235b-a22b,
-whose MoE routes the pads of each prefill bucket and the dead slots of
-each decode step as the reference's does), in the tiered-KV serving
-scenario of examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
-blobs, so paused sessions really reach flash.
+deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b and
+llama4-maverick-400b-a17b, whose MoE routes the pads of each prefill
+bucket and the dead slots of each decode step as the reference's does,
+and whose blob holds both attention layers of its group), in the
+tiered-KV serving scenario of examples/serve_tiered_kv.py with a DRAM
+tier that holds only 1.5 KV blobs, so paused sessions really reach flash.
 
 Tokens, tiers, stalls and every counter of the store and its runtime
 must be identical: the modeled path is the same Python on both sides,
@@ -38,7 +39,8 @@ STEP = 5e-3
 
 @pytest.fixture(scope="module",
                 params=["deepseek-7b", "gemma-2b", "granite-20b",
-                        "mistral-nemo-12b", "qwen3-moe-235b-a22b"])
+                        "llama4-maverick-400b-a17b", "mistral-nemo-12b",
+                        "qwen3-moe-235b-a22b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
@@ -48,8 +50,9 @@ def weights(request):
 
 
 def _scenario(make_engine, Req, Policy, Tier, Clock, Store, Spec, cfg):
-    attn = cfg.pattern[0][0]
-    blob = 2 * cfg.n_groups * attn.n_kv * MAX_LEN * attn.head_dim * 4
+    # every attention sublayer's K and V of one slot, float32
+    blob = sum(2 * cfg.n_groups * s.n_kv * MAX_LEN * s.head_dim * 4
+               for layer in cfg.pattern for s in layer if s.kind == "attn")
     clock = Clock()
     policy = Policy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
     store = Store(policy, clock=clock, specs={
