@@ -145,7 +145,9 @@ Drives the port's serving path on the card and checks it, in phases:
      prefetched resume equal to a run without a break (the pause's and
      the restore's host time), DRAM and flash both written, three decode
      windows, one prefill and one decode step profiled; (c) one run of
-     phase 10's workload through `Platform.scheduler`: its report,
+     phase 10's workload through `Platform.scheduler` at 8 of its 30
+     layers (views of the first 8 groups' weights, as phases 16 and 17
+     cut theirs, so the script keeps its time with phase 20): its report,
      tenants, ledger, tau_be, where each pause went, the wall split and
      peak host RSS; the serving kernels and reuse_sketch launched.
  14. the fleet at scale: (a) the fleet bench through the serving_fleet
@@ -251,8 +253,30 @@ Drives the port's serving path on the card and checks it, in phases:
      [128, 5120, 8192] expert stack one expert at a time; (d) at one
      MoE layer a step has nothing upstream to prefetch behind, so every
      step must prefetch no expert.
+ 20. full-width zamba2-7b (81 layers: 13 groups of five Mamba-2 layers and
+     a layer of shared attention, shared FFN and Mamba-2, then a tail of
+     three Mamba-2 layers; d_model 3584, Mamba-2 of 112 heads of 64 with
+     state 64 and d_inner 7168, MHA of 32 heads of 112 and a SwiGLU FFN of
+     14336 whose one weight set every group applies, vocab 32000, tied;
+     13.27 GB of random bf16 weights) through phase 13's path: prompts
+     prefill at their exact lengths (pads would advance the recurrent
+     state), so (a) holds flash attention at q,k,v [1,32,S,112] (padded
+     to head_dim 128 by its wrapper) at every prompt length, decode
+     attention at q [4,32,112] and k,v [4,32,1024,112], rmsnorm at
+     [4,3584] and the prefill's rows, and the Mamba-2 gated norm's
+     float32 rmsnorm at [4,7168] and [S,7168]; (b) native init and the
+     first-step check at all 81 layers (13 shared-attention applications,
+     189 norms a prefill or step: 108 pre-norms and the final one, 81
+     gated); then (b)'s serving and (c) at ZAMBA_GROUPS of its 13 groups
+     and the tail (views of the full weights: a full-depth decode step is
+     ~3,900 launches, host-bound), with a park check in (b): a session
+     parked three steps, then unparked, decodes the tokens of the run
+     without the park. A paused blob holds each slot's K/V of the
+     attention applications, the float32 Mamba-2 state and the conv
+     windows (537,409,024 B at full depth and 1024 positions, 87,558,656
+     B at 2 groups).
 
-The first-step check (phases 4 and 13-19) holds the kernels to the plain
+The first-step check (phases 4 and 13-20) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -324,7 +348,12 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "mistral-nemo-12b": 12_247_782_400,
           "granite-20b": 20_013_766_656,
           "qwen3-moe-235b-a22b": 31_097_723_904,
-          "llama4-maverick-400b-a17b": 18_553_267_200}
+          "llama4-maverick-400b-a17b": 18_553_267_200,
+          "zamba2-7b": 6_636_442_832}
+# the config's analytic `param_count()` less the tensors native init
+# makes: zamba2-7b's leaves out each Mamba-2 layer's conv bias (7,296)
+# and skip (112) and counts each shared sublayer's norm twice (3,584 x 2)
+ANALYTIC_GAP = {"zamba2-7b": -81 * (7_296 + 112) + 2 * 3_584}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
 # 128 (qwen3-moe's qk-norm rows, one a head), the TPU kernel's largest and
 # one that is not a multiple of 8; rows of a step, of a decode step's
@@ -402,14 +431,16 @@ def _prompts(vocab: int, n: int, rng):
         np.int32) for _ in range(n)]
 
 
-def _path_shapes(prompts):
+def _path_shapes(prompts, exact=False):
     """The kernels' shapes on the serving path of `prompts`: the decode
     step's lengths of the first slot grid, a few steps in (int32 on the
     card), and the engine's prefill lengths, prompts padded to powers of
-    two."""
+    two (at their exact lengths when `exact`: a recurrent config's)."""
     import torch
     lengths = torch.tensor([len(p) + 8 for p in prompts[:MAX_SLOTS]],
                            dtype=torch.int32, device="cuda")
+    if exact:
+        return lengths, sorted({len(p) for p in prompts})
     buckets = sorted({min(1 << (len(p) - 1).bit_length(), MAX_LEN - 1)
                       for p in prompts})
     return lengths, buckets
@@ -681,26 +712,29 @@ def _rmsnorm_host_split(D, eps):
     return split
 
 
-def _rmsnorm_times(D, eps, rows, entries=("rmsnorm", "add_rmsnorm")):
+def _rmsnorm_times(D, eps, rows, entries=("rmsnorm", "add_rmsnorm"),
+                   dtype=None):
     """Device, with-launch, plain and library times and the byte bound of
-    `entries` (both by default) at [rows, D] bf16; the fused entry also
-    against the two launches it replaces (x + r, then the kernel)."""
+    `entries` (both by default) at [rows, D] in `dtype` (bf16 by
+    default); the fused entry also against the two launches it replaces
+    (x + r, then the kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import add_rmsnorm, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import (reference_add_rmsnorm,
                                                  reference_rmsnorm)
 
+    dtype = dtype or torch.bfloat16
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     n_in = 8 if rows <= MAX_SLOTS else 4
-    xs = [(torch.randn(rows, D, generator=gen, device=dev).to(
-        torch.bfloat16), torch.randn(rows, D, generator=gen,
-                                     device=dev).to(torch.bfloat16))
+    xs = [(torch.randn(rows, D, generator=gen, device=dev).to(dtype),
+           torch.randn(rows, D, generator=gen, device=dev).to(dtype))
           for _ in range(n_in)]
     s = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
-    s16 = s.to(torch.bfloat16)
-    row_bytes = rows * D * 2
+    s16 = s.to(dtype)
+    row_bytes = rows * D * dtype.itemsize
     out = {}
     for entry, calls in (
             ("rmsnorm", dict(
@@ -723,7 +757,7 @@ def _rmsnorm_times(D, eps, rows, entries=("rmsnorm", "add_rmsnorm")):
         n_io = 2 if entry == "rmsnorm" else 4
         b_ms, b_by = _bound_ms(n_io * row_bytes + D * 4,
                                (4 if entry == "rmsnorm" else 5) * rows * D,
-                               torch.bfloat16)
+                               dtype)
         t = dict(ms=_time_ms(calls["kernel"]),
                  launch_ms=_time_ms(calls["kernel"], queued=False),
                  plain_ms=_time_ms(calls["plain"]),
@@ -738,7 +772,7 @@ def _rmsnorm_times(D, eps, rows, entries=("rmsnorm", "add_rmsnorm")):
         extra = ("" if "unfused_ms" not in t else
                  f" unfused (x + r, then the kernel) {t['unfused_ms']:.6f} "
                  f"(with host launch {t['unfused_launch_ms']:.6f})")
-        print(f"  time  {entry:17s} x [{rows},{D}] bf16: kernel_ms="
+        print(f"  time  {entry:17s} x [{rows},{D}] {name}: kernel_ms="
               f"{t['ms']:.6f} (with host launch {t['launch_ms']:.6f}) "
               f"plain_ms={t['plain_ms']:.6f} library_ms="
               f"{t['library_ms']:.6f} ({lib}) bound_ms={b_ms:.7f} "
@@ -763,7 +797,7 @@ def phase_kernels(cfg, lengths_main, buckets):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    attn = cfg.pattern[0][0]
+    attn = _attn_specs(cfg)[0]
     D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
     eps = cfg.norm_eps
     scale = 1.0 / math.sqrt(hd)
@@ -1016,7 +1050,9 @@ def _native_params(cfg):
     params = M.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _tensors(params))
-    assert n_params == cfg.param_count() == PARAMS[cfg.name], n_params
+    assert n_params == PARAMS[cfg.name], n_params
+    assert cfg.param_count() == n_params + ANALYTIC_GAP.get(cfg.name, 0), \
+        (cfg.param_count(), n_params)
     print(f"  {cfg.name}: {n_params} parameters, bf16, native init in "
           f"{time.perf_counter() - t0:.1f} s")
     return params
@@ -1095,6 +1131,8 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     from repro_torch.models import model as M
 
     S = len(prompt)
+    # a recurrent config prefills at the exact length, as its engine does
+    assert bucket is None or not _recurrent(cfg), bucket
     tokens = np.zeros(bucket or S, np.int64)
     tokens[:S] = prompt
     p0 = torch.as_tensor(tokens[None], device="cuda")
@@ -1161,13 +1199,27 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     return per_prefill, per_step
 
 
+def _applied(cfg):
+    """Every sublayer application of the stack: each spec of the group
+    once a group (a shared one too: its one weight set is applied every
+    group), then the tail's."""
+    for where, _, _, s in cfg.sublayers():
+        yield from [s] * (cfg.n_groups if where == "pattern" else 1)
+
+
+def _recurrent(cfg) -> bool:
+    """A config with recurrent state (Mamba-2): its engine prefills at the
+    exact prompt length."""
+    return any(s.kind == "mamba2" for _, _, _, s in cfg.sublayers())
+
+
 def _norms(cfg) -> int:
     """rmsnorm launches a forward: one before each sublayer and the final
-    norm (the residual adds run inside them), and two (q and k) in each
-    attention sublayer with qk-norm."""
-    per_group = sum(1 + 2 * bool(getattr(s, "qk_norm", False))
-                    for layer in cfg.pattern for s in layer)
-    return cfg.n_groups * per_group + 1
+    norm (the residual adds run inside them), two (q and k) in each
+    attention sublayer with qk-norm, and one (the gated norm, float32
+    rows of d_inner) in each Mamba-2 sublayer."""
+    return sum(1 + 2 * bool(getattr(s, "qk_norm", False))
+               + (s.kind == "mamba2") for s in _applied(cfg)) + 1
 
 
 def _attn_specs(cfg):
@@ -1175,17 +1227,23 @@ def _attn_specs(cfg):
     return [s for layer in cfg.pattern for s in layer if s.kind == "attn"]
 
 
+def _ffn_spec(cfg):
+    """The pattern's first FFN or MoE sublayer's spec."""
+    return next(s for layer in cfg.pattern for s in layer
+                if s.kind in ("ffn", "moe"))
+
+
 def _attn_layers(cfg) -> int:
-    """Attention sublayers of the stack, each one flash_attention launch a
-    prefill and one decode_attention launch a decode step: a group's
-    (two at llama4's, one at every other config's) times its groups."""
-    return len(_attn_specs(cfg)) * cfg.n_groups
+    """Attention applications of the stack, each one flash_attention
+    launch a prefill and one decode_attention launch a decode step: a
+    group's (two at llama4's, one at every other config's) times its
+    groups, with the tail's."""
+    return sum(s.kind == "attn" for s in _applied(cfg))
 
 
 def _moe_layers(cfg) -> int:
     """MoE sublayers of the stack: a group's times its groups."""
-    return sum(s.kind == "moe" for layer in cfg.pattern
-               for s in layer) * cfg.n_groups
+    return sum(s.kind == "moe" for s in _applied(cfg))
 
 
 L2_BYTES = 50 * 2 ** 20        # the H100's L2
@@ -1271,9 +1329,12 @@ def _profile_split(eng, prompts):
     def wall(fn):
         return _timed(fn)[1]
 
-    # prompts 0, 2 and 5 fall in bucket 1023, prompt 1 in 256
+    # prompts 0, 2 and 5 fall in bucket 1023, prompt 1 in 256; a recurrent
+    # config prefills each at its exact length
     reqs = [Request(rid=f"prof{i}", prompt=prompts[i], max_new=MAX_NEW)
             for i in (0, 1, 2, 5)]
+    pre = ("prefill, bucket 1023" if not _recurrent(eng.cfg) else
+           f"prefill, {len(prompts[5])} tokens")
     eng.admit(reqs[0])                     # warm-up
     eng.admit(reqs[1])
     eng.step()
@@ -1283,7 +1344,7 @@ def _profile_split(eng, prompts):
     prof_step, wall_step = _profiled(eng.step)
     step_ms = None
     for label, kern, w, w0 in (
-            ("prefill, bucket 1023", prof_pre, wall_pre, plain_pre),
+            (pre, prof_pre, wall_pre, plain_pre),
             (f"decode step, {MAX_SLOTS} live slots", prof_step, wall_step,
              plain_step)):
         busy = sum(e.self_device_time_total for e in kern) / 1e3   # ms
@@ -1340,11 +1401,27 @@ def _smi() -> str:
                           text=True, check=True).stdout.strip()
 
 
+def _slot_bytes(cfg, itemsize, max_len=MAX_LEN) -> int:
+    """One slot's cache: every attention application's K and V and every
+    Mamba-2 sublayer's conv window at `itemsize` bytes an element, and
+    each Mamba-2 state in float32 (the cache holds it so in any dtype)."""
+    def sub(s):
+        if s.kind == "attn":
+            return 2 * s.n_kv * max_len * s.head_dim * itemsize
+        if s.kind == "mamba2":
+            d_in = s.expand * cfg.d_model
+            return (4 * d_in * s.d_state
+                    + itemsize * (s.d_conv - 1)
+                    * (d_in + 2 * s.n_groups * s.d_state))
+        return 0
+    return sum(sub(s) for s in _applied(cfg))
+
+
 def _blob_bytes(cfg, max_len=MAX_LEN) -> int:
-    """A paused session's blob: every K/V leaf of one slot (every
-    attention sublayer of every group), as float32."""
-    return sum(2 * cfg.n_groups * a.n_kv * max_len * a.head_dim * 4
-               for a in _attn_specs(cfg))
+    """A paused session's blob: every cache leaf of one slot (K/V of every
+    attention application, every Mamba-2 state and conv window, the
+    tail's too), as float32."""
+    return _slot_bytes(cfg, 4, max_len)
 
 
 def _tier_table(cfg) -> dict:
@@ -3292,15 +3369,35 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-# (c)'s depth in phases 16 and 17, a quarter of each config's layers (its
-# (b) serves all of them): the scheduler's run is host launches a layer
-# (47 s at mistral-nemo-12b's 40 layers, 56 s at granite-20b's 52), and
-# the whole script is held to 800 s with phase 19 in it
-WORKLOAD_GROUPS = {"mistral-nemo-12b": 10, "granite-20b": 13}
+# (c)'s depth in phases 13, 16 and 17, a quarter of each config's layers
+# (its (b) serves all of them): the scheduler's run is host launches a
+# layer (38 s at deepseek-7b's 30 layers, 47 s at mistral-nemo-12b's 40,
+# 56 s at granite-20b's 52), and the whole script is held to 800 s with
+# phases 19 and 20 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
+# zamba2-7b's 13 groups and its tail (15 of 81 layers, two applications
+# of the shared attention): a decode step is ~3,900 launches at full
+# depth, 128 ms of host time (0.875 device-idle); its native init and
+# first-step check run all 81 layers
+ZAMBA_GROUPS = 2
+WORKLOAD_GROUPS = {"deepseek-7b": 8, "mistral-nemo-12b": 10,
+                   "granite-20b": 13, "zamba2-7b": ZAMBA_GROUPS}
+SERVE_GROUPS = {"zamba2-7b": ZAMBA_GROUPS}
 MOE_ARCH = "qwen3-moe-235b-a22b"
 TOP1_ARCH = "llama4-maverick-400b-a17b"
-WINDOWS = 3                    # phases 13 and 16-19's decode windows
+SSM_ARCH = "zamba2-7b"
+WINDOWS = 3                    # phases 13 and 16-20's decode windows
 EXPERT_STEPS = 64              # phases 18 and 19 (d)'s decode steps replayed
+
+
+def _at_depth(cfg, params, groups):
+    """`cfg` and its weights at the first `groups` groups (views of the
+    stacked weights; shared weights and the tail as they are), or both as
+    given when `groups` is None."""
+    if groups is None:
+        return cfg, params
+    return (dataclasses.replace(cfg, n_groups=groups),
+            dict(params, groups=_map(params["groups"],
+                                     lambda t: t[:groups])))
 
 
 def _long_lengths(T: int) -> tuple:
@@ -3334,7 +3431,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    attn = cfg.pattern[0][0]
+    attn = _attn_specs(cfg)[0]
     D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
     eps, scale = cfg.norm_eps, 1.0 / math.sqrt(hd)
     bf16 = torch.bfloat16
@@ -3439,7 +3536,7 @@ def _long_decode(cfg):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    attn = cfg.pattern[0][0]
+    attn = _attn_specs(cfg)[0]
     B, T = MAX_SLOTS, cfg.max_seq
     H, KV, hd = attn.n_heads, attn.n_kv, attn.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -3476,6 +3573,25 @@ def _long_decode(cfg):
     torch.cuda.empty_cache()
 
 
+def _two_sessions(prompts, tag):
+    """Requests of the two prompts after the six served, MAX_NEW tokens
+    each."""
+    from repro_torch.serving import Request
+    return [Request(rid=f"{tag}{i}", prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts[N_REQUESTS:N_REQUESTS + 2],
+                                  start=N_REQUESTS)]
+
+
+def _unbroken(eng, prompts, tag):
+    """`_two_sessions` decoded to their end without a break."""
+    whole = _two_sessions(prompts, tag)
+    for r in whole:
+        eng.admit(r)
+    while eng.live.any():
+        eng.step()
+    return whole
+
+
 def _pause_resume(eng, clock, prompts):
     """Two sessions (the prompts after the six served) decode without a
     break, then again paused three steps in: DRAM of 1.5 blobs sends the
@@ -3485,18 +3601,9 @@ def _pause_resume(eng, clock, prompts):
     and the host-clock seconds of the first pause and of that blob's
     restore."""
     from repro_torch.core.policy import Tier
-    from repro_torch.serving import Request
 
-    def requests(tag):
-        return [Request(rid=f"{tag}{i}", prompt=p, max_new=MAX_NEW)
-                for i, p in enumerate(prompts[N_REQUESTS:N_REQUESTS + 2],
-                                      start=N_REQUESTS)]
-    whole = requests("whole-s")
-    for r in whole:
-        eng.admit(r)
-    while eng.live.any():
-        eng.step()
-    a, b = requests("paused-s")
+    whole = _unbroken(eng, prompts, "whole-s")
+    a, b = _two_sessions(prompts, "paused-s")
     eng.admit(a)
     eng.admit(b)
     for _ in range(3):
@@ -3524,10 +3631,12 @@ def _largest_matrix(cfg) -> tuple:
     leading-axis slice (one expert) of a weight above
     `M.DRAW_SLICE_ELEMENTS`."""
     from repro_torch.models import model as M
-    shapes = [shape for _, spec in M._sublayers(cfg)
-              for _, shape, fan_in in M._leaves_of(
+    specs = [spec for _, spec in M._sublayers(cfg)] + [
+        spec for _, spec in M._tail(cfg)]
+    shapes = [shape for spec in specs
+              for _, shape, init in M._leaves_of(
                   M._MIXERS[spec.kind].param_shapes(cfg, spec))
-              if fan_in is not None]
+              if M._drawn(init)]
     sizes = [math.prod(shape) for shape in shapes]
     return max(sizes), max(n if n <= M.DRAW_SLICE_ELEMENTS else n // sh[0]
                            for n, sh in zip(sizes, shapes))
@@ -3545,7 +3654,7 @@ def _qk_norm_rows(cfg, buckets):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    attn = cfg.pattern[0][0]
+    attn = _attn_specs(cfg)[0]
     hd, eps, S = attn.head_dim, cfg.norm_eps, max(buckets)
     rows = (MAX_SLOTS * attn.n_heads, MAX_SLOTS * attn.n_kv,
             S * attn.n_heads, S * attn.n_kv)
@@ -3559,6 +3668,52 @@ def _qk_norm_rows(cfg, buckets):
                    f"qk-norm [{r},{hd}] {name}")
     for r in rows:
         _rmsnorm_times(hd, eps, r, entries=("rmsnorm",))
+
+
+def _gated_norm_rows(cfg, buckets):
+    """rmsnorm at Mamba-2's gated norm, float32 rows of d_inner (the
+    gate's product y * silu(z), one row a token): a decode step's
+    [slots, d_in] and the largest prefill's [S, d_in], against its plain
+    version (TOL), then timed beside F.rms_norm and the byte bound."""
+    import torch
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    mamba = next(s for s in _applied(cfg) if s.kind == "mamba2")
+    d_in, eps = mamba.expand * cfg.d_model, cfg.norm_eps
+    for rows in (MAX_SLOTS, max(buckets)):
+        x = torch.randn(rows, d_in, generator=gen, device=dev)
+        s = 1.0 + 0.1 * torch.randn(d_in, generator=gen, device=dev)
+        _check("rmsnorm", rmsnorm(x, s, eps), reference_rmsnorm(x, s, eps),
+               "float32", f"gated norm [{rows},{d_in}] float32")
+    for rows in (MAX_SLOTS, max(buckets)):
+        _rmsnorm_times(d_in, eps, rows, entries=("rmsnorm",),
+                       dtype=torch.float32)
+
+
+def _park_check(eng, prompts):
+    """Two sessions (the prompts after the six served) decode without a
+    break, then again with the first parked three steps in while the
+    second decodes three more: after the unpark the parked session's
+    greedy tokens must be those of the run without the park (its
+    recurrent state held while the grid decoded around it)."""
+    whole = _unbroken(eng, prompts, "whole-p")
+    a, b = _two_sessions(prompts, "parked-p")
+    eng.admit(a)
+    eng.admit(b)
+    for _ in range(3):
+        eng.step()
+    eng.park(a.rid)
+    for _ in range(3):
+        eng.step()
+    assert len(a.generated) == 4 and len(b.generated) == 7
+    eng.unpark(a.rid)
+    while eng.live.any():
+        eng.step()
+    assert [a.generated, b.generated] == [r.generated for r in whole], \
+        "park and unpark changed the greedy tokens"
 
 
 def _decode_routings(noted, cfg):
@@ -3762,7 +3917,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
     use, one prefill and one decode step profiled; (c) one run of phase 10's
     declared workload through Platform.scheduler -> run(Platform.jobs()),
     at the first WORKLOAD_GROUPS groups of the weights where the config
-    has an entry (phases 16 and 17). Peak device memory by part (native
+    has an entry (phases 13, 16, 17 and 20), and (b)'s serving after the
+    first-step check at the first SERVE_GROUPS groups where the config
+    has one (phase 20). Peak device memory by part (native
     init apart from (b)). An MoE config (phase 18: qwen3-moe-235b-a22b, GQA of 64 query heads on 4 kv
     heads of 128 with qk-norm, 128 experts top-8 of d_ff 1536) adds the
     qk-norm rows to (a), its routing to (b)'s first-step check, the
@@ -3772,7 +3929,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
     group is a dense and an MoE layer (phase 19: llama4-maverick-400b-a17b,
     GQA of 40 query heads on 8 kv heads of 128, 128 experts top-1 of d_ff
     8192 and a shared expert of 8192) runs the same steps, with every
-    count of attention and MoE layers taken from its pattern. Returns the
+    count of attention and MoE layers taken from its pattern. A config
+    with recurrent state (phase 20: zamba2-7b, Mamba-2 layers with a
+    shared attention and FFN and a tail) prefills at the exact prompt
+    lengths, so (a) takes those lengths for the buckets and adds the
+    gated norm's float32 rows, and (b) adds a park check. Returns the
     launches of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
@@ -3787,16 +3948,28 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
           f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     torch.cuda.reset_peak_memory_stats()
-    lengths_main, buckets = _path_shapes(prompts)
-    attn = cfg.pattern[0][0]
+    recurrent = _recurrent(cfg)
+    lengths_main, buckets = _path_shapes(prompts, exact=recurrent)
+    attn = _attn_specs(cfg)[0]
     blob = _blob_bytes(cfg)
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{attn.n_heads} heads / {attn.n_kv} kv of {attn.head_dim}, "
-          f"{cfg.pattern[0][1].act} d_ff {cfg.pattern[0][1].d_ff}, vocab "
+          f"{_ffn_spec(cfg).act} d_ff {_ffn_spec(cfg).d_ff}, vocab "
           f"{cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
-          f"{blob} B; prompts {[len(p) for p in prompts]}, buckets "
+          f"{blob} B; prompts {[len(p) for p in prompts]}, "
+          f"{'prefill lengths' if recurrent else 'buckets'} "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
-    cache = MAX_SLOTS * blob // 2                   # every slot, in bf16
+    if recurrent:
+        m = next(s for s in _applied(cfg) if s.kind == "mamba2")
+        d_in = m.expand * cfg.d_model
+        print(f"  {cfg.name}: {sum(s.kind == 'mamba2' for s in _applied(cfg))}"
+              f" Mamba-2 layers ({len(cfg.tail)} in the tail) of "
+              f"{d_in // m.head_dim} heads of {m.head_dim}, state "
+              f"{m.d_state}, d_inner {d_in}, conv {m.d_conv}, chunk "
+              f"{m.chunk}; {_attn_layers(cfg)} applications of the shared "
+              f"attention and FFN; {_norms(cfg)} norms a forward")
+    # every slot, in bf16 (a Mamba-2 state stays float32)
+    cache = MAX_SLOTS * _slot_bytes(cfg, 2)
     print(f"  reckoned: weights {2 * PARAMS[cfg.name] / 1e9:.2f} GB in "
           f"bf16; the engine's cache at {MAX_SLOTS} slots x {MAX_LEN} "
           f"positions {cache / 1e6:.1f} MB in bf16; a paused blob "
@@ -3829,6 +4002,8 @@ def phase_dense(cfg, prompts, label, long_context=False):
     _dense_kernels(cfg, lengths_main, buckets)
     if attn.qk_norm:
         _qk_norm_rows(cfg, buckets)
+    if recurrent:
+        _gated_norm_rows(cfg, buckets)
     if long_context:
         _long_decode(cfg)
     peaks = {"(a)": torch.cuda.max_memory_allocated()}
@@ -3841,8 +4016,14 @@ def phase_dense(cfg, prompts, label, long_context=False):
     per_prefill, per_step = _first_step(cfg, params, prompts[0])
     assert per_prefill["flash_attention"] == _attn_layers(cfg), per_prefill
     assert per_step["decode_attention"] == _attn_layers(cfg), per_step
-    platform = Platform.compile(_example_spec(cfg), device="cuda")
-    eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
+    bcfg, bparams = _at_depth(cfg, params, SERVE_GROUPS.get(cfg.name))
+    if bcfg is not cfg:
+        blob = _blob_bytes(bcfg)
+        print(f"  the engine serves at {bcfg.n_layers} of its {cfg.n_layers}"
+              f" layers (views of the first {bcfg.n_groups} groups, the "
+              f"shared weights and the tail); a paused blob {blob} B")
+    platform = Platform.compile(_example_spec(bcfg), device="cuda")
+    eng = platform.engine(bcfg, bparams, max_slots=MAX_SLOTS,
                           max_len=MAX_LEN, compute_dtype=torch.bfloat16)
     kernels.reset_launch_counts()
     _, flow_tiers, wall = _example_flow(eng, platform.clock, prompts)
@@ -3865,6 +4046,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{t_restore!r} s (host clock, synchronised) [{card}]")
     print(f"  kv_stall_time={eng.kv_stall_time!r} s after both flows "
           f"(modeled); store DRAM {dram}; FLASH {flash}")
+    if recurrent:
+        _, t_park = _timed(_park_check, eng, prompts)
+        print(f"  park check: a session parked three steps while another "
+              f"decoded, then unparked, decoded the tokens of the run "
+              f"without the park ({t_park:.3f} s, host clock) [{card}]")
     tps = []
     for i in range(WINDOWS):
         # an MoE config's first window notes its decode steps' expert ids
@@ -3886,14 +4072,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
     del eng, platform
     torch.cuda.empty_cache()
 
-    wcfg, wparams = cfg, params
-    workload_groups = WORKLOAD_GROUPS.get(cfg.name)
-    if workload_groups is not None:          # views of the first groups
-        wcfg = dataclasses.replace(cfg, n_groups=workload_groups)
-        wparams = dict(params, groups=_map(params["groups"],
-                                           lambda t: t[:workload_groups]))
-        blob = _blob_bytes(wcfg)
-    depth = ("" if workload_groups is None else
+    wcfg, wparams = _at_depth(cfg, params, WORKLOAD_GROUPS.get(cfg.name))
+    blob = _blob_bytes(wcfg)
+    depth = ("" if wcfg is cfg else
              f" at {wcfg.n_layers} of its {cfg.n_layers} layers")
     print(f"  (c) Platform.scheduler -> run(Platform.jobs()){depth} "
           f"[{card}]")
@@ -4189,7 +4370,7 @@ def _race_kernels(cfg, buckets, lengths, what="the race's"):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    attn = cfg.pattern[0][0]
+    attn = _attn_specs(cfg)[0]
     D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
     eps, scale = cfg.norm_eps, 1.0 / math.sqrt(hd)
     errs = {n: 0.0 for n in ("rmsnorm", "add_rmsnorm", "decode_attention",
@@ -4780,6 +4961,15 @@ def main() -> int:
     llama = phase_dense(top1_cfg, _prompts(top1_cfg.vocab, N_REQUESTS + 2,
                                            np.random.default_rng(SEED)),
                         "phase 19", long_context=True)
+    ssm_cfg = get_config(SSM_ARCH)
+    print(f"[20] full-width {SSM_ARCH} ({ssm_cfg.n_layers} layers: Mamba-2 "
+          f"with a shared attention and FFN and a tail) through the "
+          f"kernels, the platform and the scheduler ((b)'s serving and (c) "
+          f"at {ZAMBA_GROUPS} of its {ssm_cfg.n_groups} groups and the "
+          f"tail)")
+    zamba = phase_dense(ssm_cfg, _prompts(ssm_cfg.vocab, N_REQUESTS + 2,
+                                          np.random.default_rng(SEED)),
+                        "phase 20")
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4789,10 +4979,10 @@ def main() -> int:
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
-               "phase18": qwen, "phase19": llama}
+               "phase18": qwen, "phase19": llama, "phase20": zamba}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama):
+                 granite, qwen, llama, zamba):
         counts.update(path)
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

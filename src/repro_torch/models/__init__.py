@@ -1,2 +1,2 @@
-from . import attention, config, ffn, layers, model, moe  # noqa
-from .config import AttnSpec, FfnSpec, ModelConfig, MoeSpec  # noqa
+from . import attention, config, ffn, layers, model, moe, ssm  # noqa
+from .config import AttnSpec, FfnSpec, Mamba2Spec, ModelConfig, MoeSpec  # noqa

@@ -32,7 +32,6 @@ def check_supported(spec: AttnSpec) -> None:
         "rope != 'rope' (M-RoPE, no rope)": spec.rope != "rope",
         "cross-attention": spec.cross,
         "non-causal self-attention": not spec.causal,
-        "shared attention weights": spec.shared,
         "sliding_window": spec.sliding_window != 0,
         "logit_softcap": spec.logit_softcap != 0.0,
     }

@@ -24,6 +24,9 @@ class Ctx:
     # on-card reference the kernels are held against). False: the kernel
     # wrappers, which launch the kernels on CUDA tensors.
     plain: bool = False
+    # decode: [B] bool of the slots that decode; a recurrent sublayer
+    # writes its new state only there (None: every slot)
+    active: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +74,10 @@ def apply_add_norm(params, x, residual, kind: str, eps: float,
 
 
 def rms_norm_heads(x, scale, eps: float = 1e-6, plain: bool = False):
-    """Per-head q/k RMSNorm (qwen3): x [..., head_dim] contiguous, scale
-    [head_dim] float32; the rmsnorm kernel's function on rows of head_dim
-    (or its plain version when `plain`)."""
+    """RMSNorm of contiguous rows: per-head q/k norm (qwen3) at head_dim,
+    and Mamba-2's gated norm at float32 rows of d_in. x [..., D]
+    contiguous, scale [D] float32; the rmsnorm kernel's function on rows
+    of D (or its plain version when `plain`)."""
     fn = reference_rmsnorm if plain else rmsnorm
     return fn(x, scale, eps)
 

@@ -8,15 +8,20 @@ Three entry points share one stack implementation:
 
 Parameters are a plain dict shaped like the reference package's pytree:
 group params are stacked [G, ...] under {"groups": {"L0S0": {"norm",
-"mixer"}}}, beside "embed" and "final_norm". `params_from_jax` takes the
-reference's `init_params` output (as numpy arrays), so both packages
-compute the same function; `init_params` draws the same distributions
-natively on the device. Caches are grouped the same way:
-{"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}}, "tail": {}}.
+"mixer"}}}, beside "embed" and "final_norm"; a sublayer whose weights are
+shared across the groups (zamba2's attention and FFN) is held once,
+unstacked, under {"shared": {"L5S0": ...}} and absent from "groups", and
+the non-repeating tail's sublayers unstacked under {"tail": {"L0S0":
+...}}. `params_from_jax` takes the reference's `init_params` output (as
+numpy arrays), so both packages compute the same function; `init_params`
+draws the same distributions natively on the device. Caches are grouped
+the same way: {"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}},
+"tail": {"L0S0": {"ssm": [B,H,N,P], "conv": [B,W-1,C]}}}; a shared
+attention sublayer keeps a cache for each of its G applications.
 
-The port builds attention, FFN and MoE stacks; the other sublayer kinds
-and the attention features `attention.check_supported` lists raise
-NotImplementedError.
+The port builds attention, FFN, MoE and Mamba-2 stacks; the xLSTM
+sublayer kinds and the attention features `attention.check_supported`
+lists raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,11 +32,28 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import attention, ffn, moe
+from . import attention, ffn, moe, ssm
 from .config import ModelConfig
 from .layers import Ctx, apply_add_norm, apply_norm, dense_init, embed_init
 
-_MIXERS = {"attn": attention, "ffn": ffn, "moe": moe}
+_MIXERS = {"attn": attention, "ffn": ffn, "moe": moe, "mamba2": ssm}
+# sublayer kinds that hold a cache (updated in place by their `apply`)
+_CACHED = ("attn", "mamba2")
+
+# constant leaves of a mixer's `param_shapes` (an init that is not a
+# fan-in), float32 whatever the weights' dtype
+CONSTANTS = {
+    None: lambda shape, dev: torch.ones(shape, dtype=torch.float32,
+                                        device=dev),
+    "zeros": lambda shape, dev: torch.zeros(shape, dtype=torch.float32,
+                                            device=dev),
+    # Mamba-2's decay rates, log(linspace(1, 16, H)) along the last axis,
+    # in float64 and rounded once (the reference's float32 linspace and
+    # log are within an ulp of it)
+    "a_log": lambda shape, dev: torch.log(torch.linspace(
+        1.0, 16.0, shape[-1], dtype=torch.float64, device=dev)).to(
+            torch.float32).expand(shape).contiguous(),
+}
 
 
 def _key(li: int, si: int) -> str:
@@ -42,8 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this port cannot build."""
     if cfg.encoder is not None:
         raise NotImplementedError("encoder stacks are not ported yet")
-    if cfg.tail:
-        raise NotImplementedError("non-repeating tails are not ported yet")
     if cfg.final_logit_softcap:
         raise NotImplementedError("final_logit_softcap is not ported yet")
     if cfg.norm != "rmsnorm":
@@ -60,9 +80,21 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _sublayers(cfg: ModelConfig):
+    """(key, spec) of the repeated group's sublayers, in pattern order."""
     for li, layer in enumerate(cfg.pattern):
         for si, spec in enumerate(layer):
             yield _key(li, si), spec
+
+
+def _tail(cfg: ModelConfig):
+    """(key, spec) of the non-repeating tail's sublayers, in order."""
+    for li, layer in enumerate(cfg.tail):
+        for si, spec in enumerate(layer):
+            yield _key(li, si), spec
+
+
+def _shared(spec) -> bool:
+    return getattr(spec, "shared", False)
 
 
 # ---------------------------------------------------------------------------
@@ -76,24 +108,33 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     shapes: Dict[str, Any] = {"embed": (cfg.vocab, d)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab, d)
-    shapes["groups"] = {
-        k: {"norm": {"scale": (G, d)},
-            "mixer": _stacked(_MIXERS[spec.kind].param_shapes(cfg, spec), G)}
-        for k, spec in _sublayers(cfg)}
+    def sub(spec, lead):
+        return {"norm": {"scale": lead + (d,)},
+                "mixer": _stacked(_MIXERS[spec.kind].param_shapes(cfg, spec),
+                                  lead)}
+    shapes["groups"] = {k: sub(spec, (G,)) for k, spec in _sublayers(cfg)
+                        if not _shared(spec)}
+    shared = {k: sub(spec, ()) for k, spec in _sublayers(cfg)
+              if _shared(spec)}
+    if shared:
+        shapes["shared"] = shared
+    if cfg.tail:
+        shapes["tail"] = {k: sub(spec, ()) for k, spec in _tail(cfg)}
     shapes["final_norm"] = {"scale": (d,)}
     return shapes
 
 
-def _stacked(mats, G: int):
-    """A mixer's {name: (shape, fan_in)} (nested for a shared expert) as
-    its stacked [G, ...] shapes."""
-    return {n: _stacked(m, G) if isinstance(m, dict) else (G,) + m[0]
+def _stacked(mats, lead: tuple):
+    """A mixer's {name: (shape, init)} (nested for a shared expert) as its
+    shapes behind `lead`: (G,) stacked, () held once."""
+    return {n: _stacked(m, lead) if isinstance(m, dict) else lead + m[0]
             for n, m in mats.items()}
 
 
 def _leaves_of(mats, path=()):
-    """(path, shape, fan_in) of a mixer's leaves, in `param_shapes` order;
-    fan_in None marks a float32 scale of ones."""
+    """(path, shape, init) of a mixer's leaves, in `param_shapes` order;
+    init is a fan-in (a drawn matrix) or a key of CONSTANTS (a float32
+    constant: None ones, "zeros", "a_log")."""
     for n, m in mats.items():
         if isinstance(m, dict):
             yield from _leaves_of(m, path + (n,))
@@ -101,11 +142,16 @@ def _leaves_of(mats, path=()):
             yield path + (n,), m[0], m[1]
 
 
+def _drawn(init) -> bool:
+    return isinstance(init, int)
+
+
 def _is_f32_path(path) -> bool:
-    """Leaves kept in float32 whatever the weights' dtype: norm scales and
-    the qk-norm scales, as the rmsnorm kernel takes them."""
+    """Leaves kept in float32 whatever the weights' dtype: norm scales,
+    the qk-norm scales, as the rmsnorm kernel takes them, and Mamba-2's
+    decay rates, biases, skip and gated-norm scale."""
     return ("norm" in path or "final_norm" in path
-            or path[-1] in attention.SCALES)
+            or path[-1] in attention.SCALES or path[-1] in ssm.F32_LEAVES)
 
 
 def _set(tree, path, value):
@@ -149,44 +195,58 @@ def init_params(cfg: ModelConfig,
     if generator is None or isinstance(generator, int):
         seed = 0 if generator is None else generator
         generator = torch.Generator(device=dev).manual_seed(seed)
-    G, d = cfg.n_groups, cfg.d_model
     shapes = param_shapes(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(shapes["embed"], generator, dev, dtype)}
     if "unembed" in shapes:
         params["unembed"] = embed_init(shapes["unembed"], generator, dev,
                                        dtype)
-    params["groups"] = {}
-    for k, spec in _sublayers(cfg):
-        # drawn layer by layer, each matrix straight into its slot of the
-        # stacked [G, ...] tensor, so no second copy of a sublayer exists;
-        # the qk-norm scales are float32 ones, as the reference sets them
-        leaves = list(_leaves_of(_MIXERS[spec.kind].param_shapes(cfg, spec)))
-        mixer: Dict[str, Any] = {}
-        for path, shape, fan_in in leaves:
-            _set(mixer, path, torch.ones((G,) + shape, dtype=torch.float32,
-                                         device=dev) if fan_in is None
-                 else torch.empty((G,) + shape, dtype=dtype, device=dev))
-        for g in range(G):
-            for path, shape, fan_in in leaves:
-                if fan_in is None:
-                    continue
-                slot = _at_path(mixer, path)[g]
-                if math.prod(shape) <= DRAW_SLICE_ELEMENTS:
-                    slot.copy_(dense_init(shape, fan_in, generator, dev,
-                                          dtype))
-                    continue
-                # one leading-axis slice (one expert) at a time
-                for e in range(shape[0]):
-                    slot[e] = dense_init(shape[1:], fan_in, generator, dev,
-                                         dtype)
-        params["groups"][k] = {
-            "norm": {"scale": torch.ones((G, d), dtype=torch.float32,
-                                         device=dev)},
-            "mixer": mixer}
-    params["final_norm"] = {"scale": torch.ones((d,), dtype=torch.float32,
+
+    def sub(spec, n):
+        return _init_sublayer(cfg, spec, n, generator, dev, dtype)
+    # the groups, then the shared sublayers, then the tail, each in order
+    params["groups"] = {k: sub(spec, cfg.n_groups)
+                        for k, spec in _sublayers(cfg) if not _shared(spec)}
+    if "shared" in shapes:
+        params["shared"] = {k: sub(spec, None) for k, spec in _sublayers(cfg)
+                            if _shared(spec)}
+    if "tail" in shapes:
+        params["tail"] = {k: sub(spec, None) for k, spec in _tail(cfg)}
+    params["final_norm"] = {"scale": torch.ones((cfg.d_model,),
+                                                dtype=torch.float32,
                                                 device=dev)}
     return params
+
+
+def _init_sublayer(cfg: ModelConfig, spec, n: Optional[int], generator,
+                   dev, dtype):
+    """One sublayer's {"norm", "mixer"}: stacked [n, ...] (n layers drawn
+    layer by layer, each matrix straight into its slot, so no second copy
+    of a sublayer exists), or held once when n is None. Constant leaves
+    (the norm scales, qk-norm scales and Mamba-2's) are float32, as the
+    reference sets them."""
+    lead = () if n is None else (n,)
+    leaves = list(_leaves_of(_MIXERS[spec.kind].param_shapes(cfg, spec)))
+    mixer: Dict[str, Any] = {}
+    for path, shape, init in leaves:
+        _set(mixer, path, torch.empty(lead + shape, dtype=dtype, device=dev)
+             if _drawn(init) else CONSTANTS[init](lead + shape, dev))
+    for g in range(n or 1):
+        for path, shape, fan_in in leaves:
+            if not _drawn(fan_in):
+                continue
+            slot = _at_path(mixer, path)
+            slot = slot if n is None else slot[g]
+            if math.prod(shape) <= DRAW_SLICE_ELEMENTS:
+                slot.copy_(dense_init(shape, fan_in, generator, dev, dtype))
+                continue
+            # one leading-axis slice (one expert) at a time
+            for e in range(shape[0]):
+                slot[e] = dense_init(shape[1:], fan_in, generator, dev,
+                                     dtype)
+    return {"norm": {"scale": torch.ones(lead + (cfg.d_model,),
+                                         dtype=torch.float32, device=dev)},
+            "mixer": mixer}
 
 
 def params_from_jax(tree, cfg: ModelConfig, device=None,
@@ -222,20 +282,36 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None):
     """Zero caches, grouped like params: {"groups": {key: [G,...]},
-    "tail": {}}. Runs on CUDA unless `device` says otherwise."""
+    "tail": {key: [...]}}: attention's K and V in `dtype`, Mamba-2's
+    state in float32 and its conv window in `dtype`. Runs on CUDA unless
+    `device` says otherwise."""
     check_supported(cfg)
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"KV cache dtype {dtype} is not ported yet (int8 KV waits)")
     dev = resolve_device(device)
-    groups = {}
-    for k, spec in _sublayers(cfg):
-        if spec.kind == "attn":             # FFN and MoE hold no cache
-            shape = (cfg.n_groups,) + attention.cache_shape(spec, batch,
-                                                            max_len)
-            groups[k] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    return {"groups": groups, "tail": {}}
+
+    def sub(spec, lead):
+        # FFN and MoE hold no cache
+        if spec.kind == "attn":
+            shape = lead + attention.cache_shape(spec, batch, max_len)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if spec.kind == "mamba2":
+            return {n: torch.zeros(lead + shape, device=dev,
+                                   dtype=torch.float32 if n == "ssm"
+                                   else dtype)
+                    for n, shape in ssm.cache_shapes(cfg, spec,
+                                                     batch).items()}
+        return None
+    caches = {"groups": {}, "tail": {}}
+    for part, subs, lead in (("groups", _sublayers(cfg), (cfg.n_groups,)),
+                             ("tail", _tail(cfg), ())):
+        for k, spec in subs:
+            c = sub(spec, lead)
+            if c is not None:
+                caches[part][k] = c
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +329,11 @@ def _sub_apply(params, x, spec, cfg: ModelConfig, ctx: Ctx, cache=None,
     else:
         h, x = apply_add_norm(params["norm"], x, residual, cfg.norm,
                               cfg.norm_eps, ctx.plain)
-    if spec.kind == "attn":
-        out, _ = attention.apply(params["mixer"], h, spec, cfg, ctx, cache)
+    mixer = _MIXERS[spec.kind]
+    if spec.kind in _CACHED:
+        out, _ = mixer.apply(params["mixer"], h, spec, cfg, ctx, cache)
     else:
-        out = _MIXERS[spec.kind].apply(params["mixer"], h, spec, cfg, ctx)
+        out = mixer.apply(params["mixer"], h, spec, cfg, ctx)
     return x, out
 
 
@@ -266,17 +343,31 @@ def _index(tree, g: int):
     return tree[g]
 
 
-def run_stack(params, x, cfg: ModelConfig, ctx: Ctx, caches=None):
-    """The group stack; caches (if any) are updated in place. Returns
-    (x, out): the stream before the last sublayer's residual add, and that
-    sublayer's output (None for an empty stack); `_final_norm` adds them."""
-    out = None
+def stack(params, cfg: ModelConfig, caches=None):
+    """(spec, params, cache) of every sublayer in stack order: the G
+    groups, each reading a shared sublayer's one weight set and its own
+    slice of the stacked ones and of the caches, then the tail. The cache
+    is None for a sublayer that holds none (or when `caches` is None)."""
     for g in range(cfg.n_groups):
         for k, spec in _sublayers(cfg):
-            p = _index(params["groups"][k], g)
+            p = (params["shared"][k] if _shared(spec)
+                 else _index(params["groups"][k], g))
             c = (_index(caches["groups"][k], g)
                  if caches is not None and k in caches["groups"] else None)
-            x, out = _sub_apply(p, x, spec, cfg, ctx, c, out)
+            yield spec, p, c
+    for k, spec in _tail(cfg):
+        c = (caches["tail"].get(k) if caches is not None else None)
+        yield spec, params["tail"][k], c
+
+
+def run_stack(params, x, cfg: ModelConfig, ctx: Ctx, caches=None):
+    """The group stack, then the tail; caches (if any) are updated in
+    place. Returns (x, out): the stream before the last sublayer's
+    residual add, and that sublayer's output (None for an empty stack);
+    `_final_norm` adds them."""
+    out = None
+    for spec, p, c in stack(params, cfg, caches):
+        x, out = _sub_apply(p, x, spec, cfg, ctx, c, out)
     return x, out
 
 
@@ -347,16 +438,21 @@ def prefill(params, cfg: ModelConfig, tokens, cache,
 
 def decode_step(params, cfg: ModelConfig, token, cache, index,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                plain: bool = False):
+                plain: bool = False, active=None):
     """One decode step. token [B,1]; index [B] per-slot fill pointers (or
-    an int for all slots). Returns (cache, logits [B,V]); the cache is
-    updated in place."""
+    an int for all slots); `active` [B] bool, the slots that decode (None:
+    every slot): a recurrent sublayer writes its new state only there, so
+    a parked slot's state holds (attention writes every slot's K/V at its
+    pending position, which the next real decode rewrites). Returns
+    (cache, logits [B,V]); the cache is updated in place."""
     B = token.shape[0]
     x = _embed_tokens(params, cfg, token, compute_dtype)
     idx = torch.as_tensor(index, device=token.device)
     idx = (idx.expand(B) if idx.dim() == 0 else idx).to(torch.int64)
+    if active is not None:
+        active = torch.as_tensor(active, device=token.device)
     ctx = Ctx(mode="decode", positions=idx[:, None], cache_index=idx,
-              compute_dtype=compute_dtype, plain=plain)
+              compute_dtype=compute_dtype, plain=plain, active=active)
     x, out = run_stack(params, x, cfg, ctx, caches=cache)
     return cache, _logits(params, cfg,
                           _final_norm(params, cfg, x, out, plain))[:, 0]

@@ -26,15 +26,26 @@ its KV blob and restart metadata every N decode steps (and on every
 pause); `restore_checkpoint` resumes a session from that state.
 
 The paused-KV blob is the reference package's: the cache leaves in
-`jax.tree.leaves` order (dict keys sorted: groups before tail, `k` before
-`v`), each flattened as float32 and concatenated. Its byte count prices
-the modeled fetch, so the two packages see the same tiers and stalls.
+`jax.tree.leaves` order (dict keys sorted: groups before tail, `conv`
+before `ssm`, `k` before `v`), each flattened as float32 and
+concatenated. A slot is dim 1 of a group leaf [G,B,...] and dim 0 of a
+tail leaf [B,...]. Its byte count prices the modeled fetch, so the two
+packages see the same tiers and stalls.
 
-Prompt lengths are right-padded to power-of-two buckets (the reference
-does so to compile once per bucket; the port keeps it so that both
-packages write the same pad-token KV into the slot and pause the same
-blob). The causal mask keeps real positions pad-independent, and
-`prefill(last_index=...)` returns the last *real* token's logits.
+When every sublayer is attention, FFN or MoE, prompt lengths are
+right-padded to power-of-two buckets (the reference does so to compile
+once per bucket; the port keeps it so that both packages write the same
+pad-token KV into the slot and pause the same blob). The causal mask
+keeps real positions pad-independent, and `prefill(last_index=...)`
+returns the last *real* token's logits. A config with recurrent state
+(Mamba-2) prefills at the prompt's exact length, as the reference does:
+pads would advance the state.
+
+A parked slot keeps its recurrent state: `step` passes the decoding
+slots as `active`, and a recurrent sublayer writes its new state only
+there. (The reference documents the same contract for `park`, but its
+fixed-shape decode advances a parked slot's recurrent state on its stale
+token; the port does not copy that.)
 
 Multi-host mode (sharded fabric): pass `store=fabric.host_view(host)`
 (what `repro_torch.platform.Platform.engine` does) and the engine's store
@@ -96,6 +107,12 @@ def _at(tree, path):
     return tree
 
 
+def _slot_of(leaf, path, slot: int):
+    """One slot's view of a cache leaf at `path` ("groups"/... [G,B,...]:
+    the slot is dim 1; "tail"/... [B,...]: dim 0)."""
+    return leaf[:, slot] if path[0] == "groups" else leaf[slot]
+
+
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  max_slots: int = 4, max_len: int = 256,
@@ -122,6 +139,11 @@ class DecodeEngine:
         self.active = np.zeros(max_slots, bool)
         self.last_token = np.zeros(max_slots, np.int32)  # decode inputs
         self.slot_req: Dict[int, Request] = {}
+        # prompt-length bucketing is sound only when no cached sublayer
+        # carries recurrent state (pads would advance it)
+        self._bucket_prompts = all(
+            spec.kind in ("attn", "ffn", "moe")
+            for *_ignored, spec in cfg.sublayers())
         self.policy = policy or TieringPolicy(tau_hot=0.05, tau_be=5.0)
         # a fabric host view carries its host; a single-host store is host 0
         self.host = getattr(store, "host", 0)
@@ -165,7 +187,8 @@ class DecodeEngine:
 
     def admit(self, req: Request):
         """Prefill a request into a free slot: a batch-1 prefill of the
-        pow2-bucketed prompt into a fresh cache, spliced into the slot."""
+        prompt (pow2-bucketed when sound, else at its exact length) into
+        a fresh cache, spliced into the slot."""
         free = self._free_slots()
         if not free:
             raise RuntimeError("no free slots")
@@ -174,7 +197,8 @@ class DecodeEngine:
         if not 0 < S < self.max_len:
             raise ValueError(f"prompt of {S} tokens does not fit "
                              f"max_len={self.max_len}")
-        L = min(_next_pow2(S), self.max_len - 1)
+        L = (min(_next_pow2(S), self.max_len - 1) if self._bucket_prompts
+             else S)
         tokens = np.zeros(L, np.int64)
         tokens[:S] = req.prompt
         tmp_cache = model_lib.init_cache(self.cfg, 1, self.max_len,
@@ -183,9 +207,11 @@ class DecodeEngine:
         tmp_cache, logits = model_lib.prefill(
             self.params, self.cfg,
             torch.as_tensor(tokens[None], device=self.device), tmp_cache,
-            compute_dtype=self.dtype, last_index=S - 1)
-        for path, dst in _leaves(self.cache["groups"]):
-            dst[:, slot].copy_(_at(tmp_cache["groups"], path)[:, 0])
+            compute_dtype=self.dtype,
+            last_index=S - 1 if self._bucket_prompts else None)
+        for path, dst in _leaves(self.cache):
+            _slot_of(dst, path, slot).copy_(
+                _slot_of(_at(tmp_cache, path), path, 0))
         self.lengths[slot] = S
         self.live[slot] = True
         self.active[slot] = True
@@ -199,11 +225,10 @@ class DecodeEngine:
         return slot
 
     def _slot_blob(self, slot: int):
-        """(float32 blob, leaf layout) of a slot's KV block."""
-        blk = {"groups": {}, "tail": {}}
-        for path, leaf in _leaves(self.cache["groups"]):
-            blk["groups"].setdefault(path[0], {})[path[1]] = leaf[:, slot]
-        flat = list(_leaves(blk))
+        """(float32 blob, leaf layout) of a slot's cache block (its KV and
+        recurrent state), leaves in `jax.tree.leaves` order."""
+        flat = [(path, _slot_of(leaf, path, slot))
+                for path, leaf in _leaves(self.cache)]
         blob = torch.cat([t.float().reshape(-1) for _, t in flat])
         layout = [(p, tuple(t.shape), t.dtype) for p, t in flat]
         return blob.cpu().numpy(), layout
@@ -379,7 +404,7 @@ class DecodeEngine:
         off = 0
         for path, shape, _dtype in layout:
             n = int(np.prod(shape))
-            dst = _at(self.cache, path)[:, slot]
+            dst = _slot_of(_at(self.cache, path), path, slot)
             dst.copy_(flat[off:off + n].view(shape))
             off += n
         self.lengths[slot] = length
@@ -395,8 +420,10 @@ class DecodeEngine:
     def step(self):
         """One decode step for all live, non-parked slots. Parked and dead
         slots ride through the fixed-shape decode but their state is
-        masked out — the garbage KV written at their pending position is
-        overwritten by the first real decode after unpark/admit."""
+        masked out: the garbage KV written at their pending position is
+        overwritten by the first real decode after unpark/admit, and a
+        recurrent sublayer writes new state only for the decoding slots
+        (`active`), so a parked slot's state holds."""
         act = self.live & self.active
         if not act.any():
             return
@@ -405,7 +432,7 @@ class DecodeEngine:
             self.params, self.cfg,
             torch.as_tensor(self.last_token[:, None], device=dev),
             self.cache, torch.as_tensor(self.lengths, device=dev),
-            compute_dtype=self.dtype)
+            compute_dtype=self.dtype, active=torch.as_tensor(act))
         self.steps += 1
         if self.step_time:
             # modeled decode compute overlaps in-flight KV transfers

@@ -11,9 +11,12 @@ qk-norm, and a mixture-of-experts sublayer: 8 experts top-2 reduced, 128
 top-8 at full width, static capacity with drops) and
 llama4-maverick-400b-a17b (a group of two layers, a dense FFN layer and
 an MoE layer of top-1 routing with an always-on shared expert; GQA 2:1
-reduced, 5:1 at full width). Native init draws each stacked weight in
-place, bit for bit as a draw-then-stack loop would, and a stack above
-`DRAW_SLICE_ELEMENTS` one expert at a time.
+reduced, 5:1 at full width) and zamba2-7b (Mamba-2 layers, an attention
+and FFN pair whose weights all groups share, a non-repeating tail of
+Mamba-2 layers; MHA). Native init draws each stacked weight in place, bit
+for bit as a draw-then-stack loop would, and a stack above
+`DRAW_SLICE_ELEMENTS` one expert at a time. Caches compare leaf by leaf,
+the tail's and Mamba-2's recurrent state included.
 
 Logits compare at atol 1e-4: the same float32 function in two frameworks
 (the reference additionally carries gemma's scaled embedding in float64,
@@ -31,7 +34,6 @@ from repro.parallel.sharding import single_device_rules
 from repro_torch.configs import ARCHS, PORTED, get_config
 from repro_torch.models import model as TM
 from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
-from repro_torch.models import attention
 from repro_torch.models.config import AttnSpec
 from repro_torch.models.layers import Ctx
 
@@ -40,11 +42,18 @@ ATOL = 1e-4
 DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
          "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656,
          "qwen3-moe-235b-a22b": 235_093_634_560,
-         "llama4-maverick-400b-a17b": 397_691_950_080}
+         "llama4-maverick-400b-a17b": 397_691_950_080,
+         "zamba2-7b": 6_635_849_952}
 
 
 def _has_moe(cfg) -> bool:
     return any(s.kind == "moe" for _, _, _, s in cfg.sublayers())
+
+
+def _recurrent(cfg) -> bool:
+    """A config with recurrent state (Mamba-2), which carries each step's
+    rounding into every later step."""
+    return any(s.kind == "mamba2" for _, _, _, s in cfg.sublayers())
 
 
 def _no_drop(cfg):
@@ -60,9 +69,27 @@ def _no_drop(cfg):
         for layer in cfg.pattern))
 
 
-def _attn_keys(cfg):
-    """The cache's keys: every attention sublayer of the group."""
-    return [k for k, spec in TM._sublayers(cfg) if spec.kind == "attn"]
+def _cache_keys(cfg):
+    """The cache's keys by part: every attention and Mamba-2 sublayer of
+    the group, and of the tail."""
+    return {"groups": [k for k, spec in TM._sublayers(cfg)
+                       if spec.kind in TM._CACHED],
+            "tail": [k for k, spec in TM._tail(cfg)
+                     if spec.kind in TM._CACHED]}
+
+
+def _assert_caches_close(tc, jc, cfg, atol=ATOL):
+    """The port's cache against the reference's, leaf by leaf (K/V, the
+    recurrent state and the conv window), in both parts."""
+    for part, keys in _cache_keys(cfg).items():
+        assert sorted(tc[part]) == sorted(jc[part]) == keys, part
+        for key in keys:
+            assert sorted(tc[part][key]) == sorted(jc[part][key])
+            for leaf, got in tc[part][key].items():
+                want = np.asarray(jc[part][key][leaf])
+                assert got.shape == want.shape, (part, key, leaf)
+                np.testing.assert_allclose(got.numpy(), want, atol=atol,
+                                           err_msg=f"{part} {key} {leaf}")
 
 
 @pytest.fixture(scope="module", params=sorted(DENSE))
@@ -103,13 +130,7 @@ def test_prefill_logits_match_reference(setup, B, S, last):
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
                         compute_dtype=torch.float32, last_index=last)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
-    assert sorted(tc["groups"]) == sorted(jc["groups"]) == _attn_keys(cfg)
-    for key in _attn_keys(cfg):
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(
-                tc["groups"][key][leaf].numpy(),
-                np.asarray(jc["groups"][key][leaf]), atol=ATOL,
-                err_msg=f"{key} {leaf}")
+    _assert_caches_close(tc, jc, cfg)
 
 
 def test_per_slot_decode_logits_match_reference(setup):
@@ -135,12 +156,7 @@ def test_per_slot_decode_logits_match_reference(setup):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
                                    err_msg=f"decode step {step}")
         index = index + 1
-    for key in _attn_keys(cfg):
-        for leaf in ("k", "v"):
-            np.testing.assert_allclose(
-                tc["groups"][key][leaf].numpy(),
-                np.asarray(jc["groups"][key][leaf]), atol=ATOL,
-                err_msg=f"{key} {leaf}")
+    _assert_caches_close(tc, jc, cfg)
 
 
 def test_query_width_unlike_d_model_matches_reference():
@@ -259,7 +275,18 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
     prefill's: every prompt token's). Reduced qwen3-moe holds 23 of the
     32 slot-steps (at least MIN_ROUTED must be), its held logits within
     6.8e-3, and compares the greedy token at 13 of them; one it leaves
-    out (margin 0.004) is 0.093 off, a swapped expert."""
+    out (margin 0.004) is 0.093 off, a swapped expert.
+
+    Recurrent state carries every step's rounding into the next: reduced
+    zamba2-7b's bf16 logits lie 0.0078-0.0153 from its own float32 run
+    (the reference's, and the port's alike), against 0.007 for
+    deepseek-7b. For a recurrent config the reference also runs in
+    float32 on the same tokens, and each step's tolerance is the larger
+    of BF16_ATOL and twice the reference's own bf16 distance from it
+    (the rule `_first_step` holds the kernels to on the card); a config
+    without recurrent state keeps BF16_ATOL. Reduced zamba2-7b: 0.0107
+    observed against bounds of 0.0157-0.0307, and 14 slot-steps held to
+    the greedy token."""
     jcfg, cfg, jp, tp, rules = setup
     seen = _route_margins(monkeypatch, cfg)
     B, S, steps = 2, 12, 16
@@ -270,6 +297,14 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
     tc = TM.init_cache(cfg, B, 32, dtype=torch.bfloat16, device="cpu")
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
                         compute_dtype=torch.bfloat16)
+    # a recurrent config's reference also runs in float32 on the same
+    # tokens: its distance from the bf16 run is the step's noise floor
+    floor = _recurrent(cfg)
+    if floor:
+        jc32 = JM.init_cache(jcfg, B, 32, dtype=jnp.float32)
+        jc32, jl32 = JM.prefill(jp, jcfg, rules,
+                                {"tokens": jnp.asarray(toks)}, jc32,
+                                compute_dtype=jnp.float32)
     index = np.full(B, S, np.int32)
     separated = routed = 0
     for step in range(steps):
@@ -277,10 +312,13 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
         held = _held(seen, B)
         j = np.asarray(jl, np.float32)
         t = tl.float().numpy()
-        np.testing.assert_allclose(t[held], j[held], atol=BF16_ATOL,
+        tol = BF16_ATOL
+        if floor:
+            tol = max(tol, 2 * float(np.abs(j - np.asarray(jl32)).max()))
+        np.testing.assert_allclose(t[held], j[held], atol=tol,
                                    err_msg=f"decode step {step}")
         top2 = np.sort(j, axis=-1)[:, -2:]
-        sep = held & (top2[:, 1] - top2[:, 0] > 2 * BF16_ATOL)
+        sep = held & (top2[:, 1] - top2[:, 0] > 2 * tol)
         np.testing.assert_array_equal(t.argmax(-1)[sep], j.argmax(-1)[sep],
                                       err_msg=f"greedy token, step {step}")
         separated += int(sep.sum())
@@ -292,6 +330,10 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
         tc, tl = TM.decode_step(tp, cfg, torch.from_numpy(tok), tc,
                                 torch.from_numpy(index),
                                 compute_dtype=torch.bfloat16)
+        if floor:
+            jc32, jl32 = JM.decode_step(jp, jcfg, rules, jnp.asarray(tok),
+                                        jc32, jnp.asarray(index),
+                                        compute_dtype=jnp.float32)
         index = index + 1
     if _has_moe(cfg):
         assert routed >= MIN_ROUTED, routed
@@ -338,18 +380,14 @@ def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
     else:
         ctx = Ctx(mode=mode, positions=TM._positions(B, S, tokens.device),
                   compute_dtype=dtype, plain=True)
-    for g in range(cfg.n_groups):
-        for k, spec in TM._sublayers(cfg):
-            p = TM._index(tp["groups"][k], g)
-            c = (TM._index(cache["groups"][k], g)
-                 if cache is not None and k in cache["groups"] else None)
-            h = reference_rmsnorm(x, p["norm"]["scale"], cfg.norm_eps)
-            if spec.kind == "attn":
-                out, _ = attention.apply(p["mixer"], h, spec, cfg, ctx, c)
-            else:
-                out = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg,
-                                                  ctx)
-            x = x + out
+    for spec, p, c in TM.stack(tp, cfg, cache):
+        h = reference_rmsnorm(x, p["norm"]["scale"], cfg.norm_eps)
+        if spec.kind in TM._CACHED:
+            out, _ = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg,
+                                                 ctx, c)
+        else:
+            out = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg, ctx)
+        x = x + out
     if mode == "prefill":
         i = S - 1 if last is None else last
         x = x[:, i:i + 1]
@@ -388,10 +426,11 @@ def test_fused_residual_adds_are_bit_identical_on_the_cpu(setup, dtype):
                         index=torch.from_numpy(index))
         assert torch.equal(got, want), f"decode step {step}"
         index = index + 1
-    for k in got_c["groups"]:
-        for leaf in ("k", "v"):
-            assert torch.equal(got_c["groups"][k][leaf],
-                               want_c["groups"][k][leaf])
+    for part in ("groups", "tail"):
+        assert sorted(got_c[part]) == sorted(want_c[part])
+        for k, leaves in got_c[part].items():
+            for leaf, t in leaves.items():
+                assert torch.equal(t, want_c[part][k][leaf]), (part, k, leaf)
 
 
 def test_forward_matches_reference(setup):
@@ -429,7 +468,8 @@ def test_native_init_distributions(dtype):
 def _drawn_then_stacked(cfg, seed, dtype, bound=None):
     """Native init as a loop that draws all G layers' matrices of a
     sublayer into a list (layer 0's in `param_shapes` order, then layer
-    1's, ...) and stacks them: the weights `init_params` must give. A
+    1's, ...) and stacks them: the weights `init_params` must give; then
+    each shared sublayer's and each tail sublayer's once, unstacked. A
     matrix of more than `bound` elements (None: no bound) is drawn as its
     leading-axis slices, each a draw of the slice's shape from where the
     generator stands, then stacked."""
@@ -442,22 +482,31 @@ def _drawn_then_stacked(cfg, seed, dtype, bound=None):
             return dense_init(shape, fan_in, gen, "cpu", dtype)
         return torch.stack([dense_init(shape[1:], fan_in, gen, "cpu", dtype)
                             for _ in range(shape[0])])
+
+    def sublayer(spec, n):
+        # constant leaves (the qk-norm scales, Mamba-2's) are not drawn; a
+        # shared expert's leaves are nested, so leaves are keyed by paths
+        mats = list(TM._leaves_of(TM._MIXERS[spec.kind].param_shapes(cfg,
+                                                                     spec)))
+        layers = [{p: draw(shape, init) if TM._drawn(init) else
+                   TM.CONSTANTS[init](shape, "cpu")
+                   for p, shape, init in mats} for _ in range(n or 1)]
+        if n is None:
+            return layers[0]
+        return {p: torch.stack([m[p] for m in layers]) for p, _, _ in mats}
     shapes = TM.param_shapes(cfg)
     want = {"embed": embed_init(shapes["embed"], gen, "cpu", dtype)}
     if "unembed" in shapes:
         want["unembed"] = embed_init(shapes["unembed"], gen, "cpu", dtype)
-    want["groups"] = {}
-    for k, spec in TM._sublayers(cfg):
-        # the qk-norm scales (fan_in None) are ones, not drawn; a shared
-        # expert's leaves are nested, so leaves are keyed by their paths
-        mats = list(TM._leaves_of(TM._MIXERS[spec.kind].param_shapes(cfg,
-                                                                     spec)))
-        layers = [{n: draw(shape, fan_in) if fan_in is not None else
-                   torch.ones(shape, dtype=torch.float32)
-                   for n, shape, fan_in in mats}
-                  for _ in range(cfg.n_groups)]
-        want["groups"][k] = {n: torch.stack([m[n] for m in layers])
-                             for n, _, _ in mats}
+    want["groups"] = {k: sublayer(spec, cfg.n_groups)
+                      for k, spec in TM._sublayers(cfg)
+                      if not getattr(spec, "shared", False)}
+    shared = {k: sublayer(spec, None) for k, spec in TM._sublayers(cfg)
+              if getattr(spec, "shared", False)}
+    if shared:
+        want["shared"] = shared
+    if cfg.tail:
+        want["tail"] = {k: sublayer(spec, None) for k, spec in TM._tail(cfg)}
     return want
 
 
@@ -468,6 +517,10 @@ def _paths(tree, path=()):
             yield from _paths(v, path + (n,))
         else:
             yield path + (n,)
+
+
+# Mamba-2's float32 leaves beside its gated-norm scale (norm_scale)
+MAMBA_F32 = ("a_log", "dt_bias", "d_skip", "conv_b")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -483,13 +536,16 @@ def test_native_init_stacks_in_place(arch, dtype):
     for name in ("embed", "unembed"):
         if name in want:
             assert torch.equal(got[name], want[name]), name
-    for k, mixer in want["groups"].items():
-        assert sorted(_paths(got["groups"][k]["mixer"])) == sorted(mixer)
-        for n, t in mixer.items():
-            g = TM._at_path(got["groups"][k]["mixer"], n)
-            want_dtype = torch.float32 if n[-1].endswith("_scale") else dtype
-            assert g.dtype == t.dtype == want_dtype, (k, n)
-            assert torch.equal(g, t), (k, n)
+    for part in ("groups", "shared", "tail"):
+        assert sorted(got.get(part, {})) == sorted(want.get(part, {}))
+        for k, mixer in want.get(part, {}).items():
+            assert sorted(_paths(got[part][k]["mixer"])) == sorted(mixer)
+            for n, t in mixer.items():
+                g = TM._at_path(got[part][k]["mixer"], n)
+                want_dtype = (torch.float32 if n[-1].endswith("_scale")
+                              or n[-1] in MAMBA_F32 else dtype)
+                assert g.dtype == t.dtype == want_dtype, (part, k, n)
+                assert torch.equal(g, t), (part, k, n)
 
 
 ARCH_2 = "llama4-maverick-400b-a17b"     # a group of two layers
@@ -510,7 +566,7 @@ def test_native_init_draws_a_stack_above_the_bound_one_expert_at_a_time(
     big = {arch: max(math.prod(shape) for _, spec in TM._sublayers(
         get_config(arch)) for _, shape, fan_in in TM._leaves_of(
             TM._MIXERS[spec.kind].param_shapes(get_config(arch), spec))
-        if fan_in is not None) for arch in DENSE}
+        if TM._drawn(fan_in)) for arch in DENSE}
     assert big[ARCH_2] == 128 * 5120 * 8192 > TM.DRAW_SLICE_ELEMENTS
     assert all(n <= TM.DRAW_SLICE_ELEMENTS for a, n in big.items()
                if a != ARCH_2), big
@@ -592,9 +648,91 @@ def test_int8_kv_cache_is_not_ported_yet():
 
 def test_unported_sublayer_kinds_raise():
     import dataclasses
-    from repro_torch.models.config import Mamba2Spec
+    from repro_torch.models.config import MLstmSpec
     cfg = get_config("gemma-2b", reduced=True)
     bad = dataclasses.replace(cfg, pattern=(
-        (AttnSpec(n_heads=4, n_kv=1, head_dim=32), Mamba2Spec()),))
-    with pytest.raises(NotImplementedError, match="mamba2"):
+        (AttnSpec(n_heads=4, n_kv=1, head_dim=32), MLstmSpec(n_heads=4)),))
+    with pytest.raises(NotImplementedError, match="mlstm"):
         TM.init_cache(bad, 1, 8, device="cpu")
+
+
+ARCH_SSM = "zamba2-7b"
+
+
+def test_params_from_jax_takes_shared_and_tail():
+    """zamba2's tree: the non-shared sublayers stacked [G, ...] under
+    "groups" (the shared keys absent there), the shared attention and FFN
+    once under "shared", the tail's Mamba-2 layers unstacked under "tail".
+    The reference's tree comes over leaf for leaf (float32 leaves exact
+    at dtype bf16, matrices cast), and the port's native tree goes through
+    numpy and back unchanged."""
+    jcfg = j_get_config(ARCH_SSM, reduced=True)
+    cfg = get_config(ARCH_SSM, reduced=True)
+    jp = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(1),
+                                                 jcfg)[0])
+    tp = TM.params_from_jax(jp, cfg, device="cpu", dtype=torch.bfloat16)
+    shared = [k for k, s in TM._sublayers(cfg) if getattr(s, "shared", 0)]
+    assert shared == sorted(tp["shared"]) == ["L1S0", "L1S1"]
+    assert sorted(tp["groups"]) == ["L0S0", "L1S2"]
+    assert sorted(tp["tail"]) == ["L0S0"]
+    assert tp["groups"]["L0S0"]["mixer"]["w_in"].shape[0] == cfg.n_groups
+    assert tp["shared"]["L1S0"]["mixer"]["wq"].dim() == 3
+    assert tp["tail"]["L0S0"]["mixer"]["a_log"].dim() == 1
+    n = 0
+    for path in _paths(jp):
+        got, want = TM._at_path(tp, path), TM._at_path(jp, path)
+        f32 = TM._is_f32_path(path)
+        assert got.dtype == (torch.float32 if f32 else torch.bfloat16), path
+        assert torch.equal(got, torch.from_numpy(np.array(want)).to(
+            got.dtype)), path
+        n += got.numel()
+    assert n == sum(t.numel() for t in _tensors(tp))
+    native = TM.init_params(cfg, 5, device="cpu", dtype=torch.bfloat16)
+    back = TM.params_from_jax(_map(native, lambda t: t.float().numpy()),
+                              cfg, device="cpu", dtype=torch.bfloat16)
+    for path in _paths(native):
+        assert torch.equal(TM._at_path(back, path),
+                           TM._at_path(native, path)), path
+
+
+def _tensors(tree):
+    for v in tree.values():
+        yield from (_tensors(v) if isinstance(v, dict) else (v,))
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_native_init_gives_mamba_constants_in_float32(dtype):
+    """Native init sets Mamba-2's constant leaves as the reference does
+    (conv_b and dt_bias zeros, d_skip and norm_scale ones, a_log =
+    log(linspace(1, 16, H)), to the reference's float32 rounding: within
+    an ulp), in float32 at any dtype, in every group and the tail; the
+    drawn matrices (w_in, conv_w, w_out) follow `dtype`."""
+    jcfg = j_get_config(ARCH_SSM, reduced=True)
+    cfg = get_config(ARCH_SSM, reduced=True)
+    jp = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0),
+                                                 jcfg)[0])
+    tp = TM.init_params(cfg, 0, device="cpu", dtype=dtype)
+    mixers = [("groups", k) for k, s in TM._sublayers(cfg)
+              if s.kind == "mamba2"] + [("tail", k) for k, _ in TM._tail(cfg)]
+    assert len(mixers) == 3
+    for part, k in mixers:
+        m, jm = tp[part][k]["mixer"], jp[part][k]["mixer"]
+        for name in ("conv_b", "dt_bias", "d_skip", "norm_scale"):
+            assert m[name].dtype == torch.float32, (part, k, name)
+            np.testing.assert_array_equal(m[name].numpy(), jm[name],
+                                          err_msg=f"{part} {k} {name}")
+        assert m["a_log"].dtype == torch.float32
+        np.testing.assert_allclose(m["a_log"].numpy(), jm["a_log"],
+                                   rtol=2 ** -23, atol=0)
+        for name in ("w_in", "conv_w", "w_out"):
+            assert m[name].dtype == dtype and m[name].shape == \
+                jm[name].shape, (part, k, name)
+        np.testing.assert_array_equal(
+            m["a_log"].reshape(-1, 8).numpy(),
+            np.broadcast_to(np.log(np.linspace(1.0, 16.0, 8)).astype(
+                np.float32), (m["a_log"].numel() // 8, 8)))

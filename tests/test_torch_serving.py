@@ -1,11 +1,14 @@
 """The PyTorch port's DecodeEngine against the JAX reference engine on the
 same weights (each ported config, reduced, float32: gemma-2b,
-deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b and
+deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b,
 llama4-maverick-400b-a17b, whose MoE routes the pads of each prefill
 bucket and the dead slots of each decode step as the reference's does,
-and whose blob holds both attention layers of its group), in the
-tiered-KV serving scenario of examples/serve_tiered_kv.py with a DRAM
-tier that holds only 1.5 KV blobs, so paused sessions really reach flash.
+and whose blob holds both attention layers of its group, and zamba2-7b,
+whose blob holds its Mamba-2 state and conv windows beside the shared
+attention's K/V of each group, the tail's too, and whose prompts prefill
+at their exact length), in the tiered-KV serving scenario of
+examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
+blobs, so paused sessions really reach flash.
 
 Tokens, tiers, stalls and every counter of the store and its runtime
 must be identical: the modeled path is the same Python on both sides,
@@ -40,7 +43,7 @@ STEP = 5e-3
 @pytest.fixture(scope="module",
                 params=["deepseek-7b", "gemma-2b", "granite-20b",
                         "llama4-maverick-400b-a17b", "mistral-nemo-12b",
-                        "qwen3-moe-235b-a22b"])
+                        "qwen3-moe-235b-a22b", "zamba2-7b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
@@ -49,10 +52,24 @@ def weights(request):
     return jcfg, cfg, jp, tp
 
 
+def _blob_bytes(cfg):
+    """A paused slot's blob, float32: every attention sublayer's K and V
+    and every Mamba-2 sublayer's state and conv window, a group's times
+    its groups, the tail's once."""
+    def sub(s):
+        if s.kind == "attn":
+            return 2 * s.n_kv * MAX_LEN * s.head_dim
+        if s.kind == "mamba2":
+            d_in = s.expand * cfg.d_model
+            return (d_in // s.head_dim * s.d_state * s.head_dim
+                    + (s.d_conv - 1) * (d_in + 2 * s.n_groups * s.d_state))
+        return 0
+    return 4 * sum(sub(s) * (cfg.n_groups if where == "pattern" else 1)
+                   for where, _, _, s in cfg.sublayers())
+
+
 def _scenario(make_engine, Req, Policy, Tier, Clock, Store, Spec, cfg):
-    # every attention sublayer's K and V of one slot, float32
-    blob = sum(2 * cfg.n_groups * s.n_kv * MAX_LEN * s.head_dim * 4
-               for layer in cfg.pattern for s in layer if s.kind == "attn")
+    blob = _blob_bytes(cfg)
     clock = Clock()
     policy = Policy(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0)
     store = Store(policy, clock=clock, specs={
@@ -140,13 +157,91 @@ def test_store_and_queue_stats_identical(runs):
     assert flash["demotions"] >= 1
 
 
-def test_paused_blobs_match(runs):
+def test_paused_blobs_match(runs, weights):
     ref, port = runs
     assert port["blobs"].keys() == ref["blobs"].keys()
     for key, want in ref["blobs"].items():
         got = port["blobs"][key]
         assert got.dtype == np.float32 and got.nbytes == want.nbytes
+        assert got.nbytes == _blob_bytes(weights[1])
         np.testing.assert_allclose(got, want, atol=1e-5, err_msg=str(key))
+
+
+def _recurrent(cfg) -> bool:
+    return any(s.kind == "mamba2" for _, _, _, s in cfg.sublayers())
+
+
+def test_prefill_length_follows_the_reference(weights, monkeypatch):
+    """admit prefills a pow2 bucket when every sublayer is attention, FFN
+    or MoE, and a recurrent config's prompt at its exact length (pads
+    would advance its state), with the last real token's logits read."""
+    _, cfg, _, tp = weights
+    seen = []
+    prefill = TM.prefill
+
+    def noted(params, cfg_, tokens, cache, **kw):
+        seen.append((tokens.shape[1], kw.get("last_index")))
+        return prefill(params, cfg_, tokens, cache, **kw)
+    monkeypatch.setattr(TM, "prefill", noted)
+    eng = TEngine(cfg, tp, max_slots=2, max_len=MAX_LEN, device="cpu")
+    for n in (5, 9):
+        eng.admit(TReq(rid=f"p{n}", prompt=np.ones(n, np.int32)))
+    want = ([(5, None), (9, None)] if _recurrent(cfg)
+            else [(8, 4), (16, 8)])
+    assert seen == want
+
+
+def _park_run(make_engine, Req, cfg, park):
+    """Two sessions on two slots; with `park`, the first is parked after
+    two steps while the second decodes three more, then unparked. Returns
+    the first session's tokens."""
+    rng = np.random.default_rng(5)
+    a, b = (Req(rid=rid, prompt=rng.integers(1, cfg.vocab, n).astype(
+        np.int32), max_new=10) for rid, n in (("a", 7), ("b", 9)))
+    eng = make_engine()
+    eng.admit(a)
+    eng.admit(b)
+    for _ in range(2):
+        eng.step()
+    if park:
+        eng.park("a")
+        for _ in range(3):
+            eng.step()
+        eng.unpark("a")
+    while eng.live.any():
+        eng.step()
+    return a.generated
+
+
+def test_parked_session_resumes_its_unbroken_tokens(weights):
+    """`park` keeps a session's slot and its state; after `unpark` it
+    decodes the tokens of the run without the park. The port holds this
+    for every config: its decode step writes recurrent state only for the
+    decoding slots. The reference documents the same contract, but its
+    fixed-shape decode advances a parked slot's Mamba-2 state on the
+    slot's stale token, so for zamba2 its parked session's tokens leave
+    the unbroken run after the unpark (a reference quirk the port does
+    not copy); for the attention configs they do not."""
+    jcfg, cfg, jp, tp = weights
+    rules = single_device_rules()
+
+    def port():
+        return TEngine(cfg, tp, max_slots=2, max_len=MAX_LEN, device="cpu")
+
+    def ref():
+        return JEngine(jcfg, jp, rules, max_slots=2, max_len=MAX_LEN)
+    whole = _park_run(port, TReq, cfg, park=False)
+    assert _park_run(port, TReq, cfg, park=True) == whole
+    ref_whole = _park_run(ref, JReq, jcfg, park=False)
+    assert ref_whole == whole
+    ref_parked = _park_run(ref, JReq, jcfg, park=True)
+    if _recurrent(cfg):
+        assert ref_parked != ref_whole
+        # the first two steps' tokens and the prefill's agree; the quirk
+        # shows only after the unpark
+        assert ref_parked[:3] == ref_whole[:3]
+    else:
+        assert ref_parked == ref_whole
 
 
 def test_pause_resume_roundtrip_matches_uninterrupted(weights):
