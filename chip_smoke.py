@@ -231,7 +231,8 @@ Drives the port's serving path on the card and checks it, in phases:
      the plain path on its own routing and counts the choices that
      differ; the first decode window notes every step's expert ids, and
      one decode step's expert products are timed in place against the
-     bound of reading every expert (57.98 GB); (d) the first 64 steps'
+     bound of reading every expert (57.98 GB); (c) at 3 of the 12 layers
+     (views of the first 3 groups' weights); (d) the first 64 steps'
      ids x 12 layers replay through `Platform.expert_store` (economic
      policy priced at one expert's 37,748,736 B, every expert on flash),
      pipelined and through the reference test's fetch loop, on the card
@@ -275,8 +276,22 @@ Drives the port's serving path on the card and checks it, in phases:
      attention applications, the float32 Mamba-2 state and the conv
      windows (537,409,024 B at full depth and 1024 positions, 87,558,656
      B at 2 groups).
+ 21. full-width xlstm-350m (24 layers: 12 groups of an mLSTM layer, 4
+     heads of 512 with d_in 2048 and a [4,512,513] float32 matrix memory,
+     and an sLSTM layer, 4 heads of 256 with a GeGLU projection of 1365;
+     d_model 1024, no attention and no FFN, vocab 50304, tied; 0.78 GB of
+     random bf16 weights) through phase 20's path: (a) rmsnorm and
+     add_rmsnorm at [4,1024] and the prompts' exact lengths, and the
+     mLSTM's and sLSTM's inner norms on float32 rows ([4,2048] and
+     [S,2048], [4,1024] and [S,1024]); (b) at all 24 layers: 49 norms and
+     no attention kernel a prefill or step, the first-step check, the
+     example's flow, a pause of the 51,068,928 B blob (one size at any
+     context) to flash and its prefetched resume, the park check, three
+     decode windows, the profile, and the sLSTM scan's launches a cell
+     step and its host time a step; (c) at 3 of its 12 groups (a
+     prefill's scan is ~100,000 launches, host-bound).
 
-The first-step check (phases 4 and 13-20) holds the kernels to the plain
+The first-step check (phases 4 and 13-21) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -331,6 +346,7 @@ KERNELS = {
                      "src/repro/kernels/reuse_sketch/kernel.py:54"),
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
+ATTENTION_KERNELS = ("decode_attention", "flash_attention")
 # the full-width configs the script serves, by their published parameter
 # count at the depth served: gemma-2b in phases 4 and 9-10, deepseek-7b in
 # phase 13, mistral-nemo-12b in phase 16, granite-20b in phase 17, all at
@@ -349,16 +365,19 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "granite-20b": 20_013_766_656,
           "qwen3-moe-235b-a22b": 31_097_723_904,
           "llama4-maverick-400b-a17b": 18_553_267_200,
-          "zamba2-7b": 6_636_442_832}
+          "zamba2-7b": 6_636_442_832, "xlstm-350m": 391_730_272}
 # the config's analytic `param_count()` less the tensors native init
 # makes: zamba2-7b's leaves out each Mamba-2 layer's conv bias (7,296)
-# and skip (112) and counts each shared sublayer's norm twice (3,584 x 2)
-ANALYTIC_GAP = {"zamba2-7b": -81 * (7_296 + 112) + 2 * 3_584}
-# phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones),
-# 128 (qwen3-moe's qk-norm rows, one a head), the TPU kernel's largest and
-# one that is not a multiple of 8; rows of a step, of a decode step's
-# slots and of the largest prefill bucket
-RMS_DS = (64, 128, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
+# and skip (112) and counts each shared sublayer's norm twice (3,584 x 2);
+# xlstm-350m's counts each mLSTM's gate projection and bias as 4 x 4
+# heads, where w_gates [2048, 8] and b_gates [8] hold 16,392
+ANALYTIC_GAP = {"zamba2-7b": -81 * (7_296 + 112) + 2 * 3_584,
+                "xlstm-350m": -12 * (2048 * 8 + 8 - 16)}
+# phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones;
+# 1024: xlstm-350m's), 128 (qwen3-moe's qk-norm rows, one a head), the
+# TPU kernel's largest and one that is not a multiple of 8; rows of a
+# step, of a decode step's slots and of the largest prefill bucket
+RMS_DS = (64, 128, 1024, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
 RMS_ROWS = (1, MAX_SLOTS, MAX_LEN - 1)
 # phase 6: examples/kvstore_demo.py's store, and one at deployment size
 KV_DEMO_BUCKETS = 8192
@@ -1207,19 +1226,39 @@ def _applied(cfg):
         yield from [s] * (cfg.n_groups if where == "pattern" else 1)
 
 
+RECURRENT = ("mamba2", "mlstm", "slstm")    # sublayer kinds with state
+
+
 def _recurrent(cfg) -> bool:
-    """A config with recurrent state (Mamba-2): its engine prefills at the
-    exact prompt length."""
-    return any(s.kind == "mamba2" for _, _, _, s in cfg.sublayers())
+    """A config with recurrent state (Mamba-2, mLSTM, sLSTM): its engine
+    prefills at the exact prompt length."""
+    return any(s.kind in RECURRENT for _, _, _, s in cfg.sublayers())
 
 
 def _norms(cfg) -> int:
     """rmsnorm launches a forward: one before each sublayer and the final
     norm (the residual adds run inside them), two (q and k) in each
-    attention sublayer with qk-norm, and one (the gated norm, float32
-    rows of d_inner) in each Mamba-2 sublayer."""
+    attention sublayer with qk-norm, and one in each recurrent sublayer
+    (Mamba-2's gated norm and the mLSTM's inner norm on float32 rows of
+    d_inner, the sLSTM's on float32 rows of d_model)."""
     return sum(1 + 2 * bool(getattr(s, "qk_norm", False))
-               + (s.kind == "mamba2") for s in _applied(cfg)) + 1
+               + (s.kind in RECURRENT) for s in _applied(cfg)) + 1
+
+
+def _inner_norms(cfg):
+    """(label, width) of each recurrent sublayer kind's inner norm in
+    `cfg`, in pattern order, each kind once: float32 rows of that width,
+    one a token."""
+    seen = {}
+    for s in _applied(cfg):
+        if s.kind == "mamba2" and s.kind not in seen:
+            seen[s.kind] = ("Mamba-2 gated norm", s.expand * cfg.d_model)
+        elif s.kind == "mlstm" and s.kind not in seen:
+            seen[s.kind] = ("mLSTM inner norm",
+                            int(s.proj_factor * cfg.d_model))
+        elif s.kind == "slstm" and s.kind not in seen:
+            seen[s.kind] = ("sLSTM inner norm", cfg.d_model)
+    return list(seen.values())
 
 
 def _attn_specs(cfg):
@@ -1228,9 +1267,10 @@ def _attn_specs(cfg):
 
 
 def _ffn_spec(cfg):
-    """The pattern's first FFN or MoE sublayer's spec."""
-    return next(s for layer in cfg.pattern for s in layer
-                if s.kind in ("ffn", "moe"))
+    """The pattern's first FFN or MoE sublayer's spec (None: it has
+    neither)."""
+    return next((s for layer in cfg.pattern for s in layer
+                 if s.kind in ("ffn", "moe")), None)
 
 
 def _attn_layers(cfg) -> int:
@@ -1323,18 +1363,23 @@ def _profile_split(eng, prompts):
     host, so the share is given against the profiled wall and against the
     same work's wall without the profiler (host clock, synchronised).
     Returns the profiled decode step's device-kernel milliseconds (None
-    where the profiler saw no device time)."""
+    where the profiler saw no device time). A config without attention
+    must show no attention kernel in either."""
     from repro_torch.serving import Request
 
     def wall(fn):
         return _timed(fn)[1]
 
-    # prompts 0, 2 and 5 fall in bucket 1023, prompt 1 in 256; a recurrent
-    # config prefills each at its exact length
-    reqs = [Request(rid=f"prof{i}", prompt=prompts[i], max_new=MAX_NEW)
-            for i in (0, 1, 2, 5)]
+    # prompts 0 and 5 fall in bucket 1023, prompt 1 in 256; a recurrent
+    # config prefills each at its exact length. The prefill is timed and
+    # profiled on one prompt, twice: prompt 5, or prompt 6 (66 tokens) for
+    # a config with sLSTM layers, whose prefill is 14 launches a token a
+    # layer (~100,000 at 602 tokens, a trace ~25 s to read)
+    k = 6 if any(s.kind == "slstm" for s in _applied(eng.cfg)) else 5
+    reqs = [Request(rid=f"prof{i}", prompt=prompts[j], max_new=MAX_NEW)
+            for i, j in enumerate((0, 1, k, k))]
     pre = ("prefill, bucket 1023" if not _recurrent(eng.cfg) else
-           f"prefill, {len(prompts[5])} tokens")
+           f"prefill, {len(prompts[k])} tokens")
     eng.admit(reqs[0])                     # warm-up
     eng.admit(reqs[1])
     eng.step()
@@ -1360,12 +1405,17 @@ def _profile_split(eng, prompts):
         print(f"  profile {label}: {sum(e.count for e in kern)} device "
               f"operations, {n_rms} of them rmsnorm kernels")
         assert n_rms == _norms(eng.cfg), n_rms
+        if not _attn_layers(eng.cfg):
+            assert not any("attention" in e.key for e in kern), \
+                [(e.key, e.count) for e in kern if "attention" in e.key]
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
             t = e.self_device_time_total / 1e3
             print(f"    {t:9.4f} ms {100 * t / busy:5.1f}% x{e.count:<4d} "
                   f"{e.key[:90]}")
         if label.startswith("decode"):
             step_ms = busy
+            if not _attn_layers(eng.cfg):
+                continue
             dec = [e for e in kern if "decode_attention" in e.key]
             assert len(dec) == 1 and dec[0].count == _attn_layers(eng.cfg), \
                 [(e.key, e.count) for e in dec]
@@ -1403,8 +1453,10 @@ def _smi() -> str:
 
 def _slot_bytes(cfg, itemsize, max_len=MAX_LEN) -> int:
     """One slot's cache: every attention application's K and V and every
-    Mamba-2 sublayer's conv window at `itemsize` bytes an element, and
-    each Mamba-2 state in float32 (the cache holds it so in any dtype)."""
+    recurrent sublayer's conv window at `itemsize` bytes an element, and
+    each recurrent state in float32 (the cache holds it so in any dtype):
+    Mamba-2's [H,N,P], the mLSTM's matrix memory [H,P,P+1], the sLSTM's
+    h, c, n and m [H,P]."""
     def sub(s):
         if s.kind == "attn":
             return 2 * s.n_kv * max_len * s.head_dim * itemsize
@@ -1413,13 +1465,21 @@ def _slot_bytes(cfg, itemsize, max_len=MAX_LEN) -> int:
             return (4 * d_in * s.d_state
                     + itemsize * (s.d_conv - 1)
                     * (d_in + 2 * s.n_groups * s.d_state))
+        if s.kind == "mlstm":
+            d_in = int(s.proj_factor * cfg.d_model)
+            P = d_in // s.n_heads
+            return (4 * s.n_heads * P * (P + 1)
+                    + itemsize * (s.d_conv - 1) * d_in)
+        if s.kind == "slstm":
+            return (4 * 4 * cfg.d_model
+                    + itemsize * (s.d_conv - 1) * cfg.d_model)
         return 0
     return sum(sub(s) for s in _applied(cfg))
 
 
 def _blob_bytes(cfg, max_len=MAX_LEN) -> int:
     """A paused session's blob: every cache leaf of one slot (K/V of every
-    attention application, every Mamba-2 state and conv window, the
+    attention application, every recurrent state and conv window, the
     tail's too), as float32."""
     return _slot_bytes(cfg, 4, max_len)
 
@@ -3369,23 +3429,30 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-# (c)'s depth in phases 13, 16 and 17, a quarter of each config's layers
-# (its (b) serves all of them): the scheduler's run is host launches a
-# layer (38 s at deepseek-7b's 30 layers, 47 s at mistral-nemo-12b's 40,
-# 56 s at granite-20b's 52), and the whole script is held to 800 s with
-# phases 19 and 20 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
+# (c)'s depth in phases 13, 16, 17, 18 and 21, a quarter of each
+# config's layers (its (b) serves all of them): the scheduler's run is
+# host launches a layer (38 s at deepseek-7b's 30 layers, 47 s at
+# mistral-nemo-12b's 40, 56 s at granite-20b's 52, 26 s at qwen3-moe's
+# 12, 40.7 s at xlstm-350m's 24 before its sLSTM scan replayed CUDA
+# graphs, where a decode step is ~1,300 launches), and the whole script
+# is held to 800 s with phases 19-21 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
 # zamba2-7b's 13 groups and its tail (15 of 81 layers, two applications
 # of the shared attention): a decode step is ~3,900 launches at full
 # depth, 128 ms of host time (0.875 device-idle); its native init and
 # first-step check run all 81 layers
 ZAMBA_GROUPS = 2
 WORKLOAD_GROUPS = {"deepseek-7b": 8, "mistral-nemo-12b": 10,
-                   "granite-20b": 13, "zamba2-7b": ZAMBA_GROUPS}
+                   "granite-20b": 13, "qwen3-moe-235b-a22b": 3,
+                   "zamba2-7b": ZAMBA_GROUPS, "xlstm-350m": 3}
 SERVE_GROUPS = {"zamba2-7b": ZAMBA_GROUPS}
 MOE_ARCH = "qwen3-moe-235b-a22b"
 TOP1_ARCH = "llama4-maverick-400b-a17b"
 SSM_ARCH = "zamba2-7b"
-WINDOWS = 3                    # phases 13 and 16-20's decode windows
+XLSTM_ARCH = "xlstm-350m"
+# a paused session's blob where its size is known from the reference's
+# `init_cache` (jax.eval_shape): xlstm-350m's, the same at any context
+BLOB_BYTES = {"xlstm-350m": 51_068_928}
+WINDOWS = 3                    # phases 13 and 16-21's decode windows
 EXPERT_STEPS = 64              # phases 18 and 19 (d)'s decode steps replayed
 
 
@@ -3417,7 +3484,8 @@ def _dense_kernels(cfg, lengths_main, buckets):
     lengths, ragged ones and lengths 0 and past T, timed over one cache a
     layer (distinct caches, so each call finds its own cold in L2 as a
     layer does); flash_attention at every prefill bucket, in the
-    prefill's strided layout too."""
+    prefill's strided layout too. A config without attention (xlstm-350m)
+    takes rmsnorm's part alone."""
     import torch
     from repro_torch.kernels import (add_rmsnorm, decode_attention,
                                      flash_attention, rmsnorm)
@@ -3431,10 +3499,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    attn = _attn_specs(cfg)[0]
-    D, H, KV, hd = cfg.d_model, attn.n_heads, attn.n_kv, attn.head_dim
-    eps, scale = cfg.norm_eps, 1.0 / math.sqrt(hd)
-    bf16 = torch.bfloat16
+    D, eps, bf16 = cfg.d_model, cfg.norm_eps, torch.bfloat16
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -3454,6 +3519,11 @@ def _dense_kernels(cfg, lengths_main, buckets):
             assert torch.equal(summed, want_s), f"sum [{rows},{D}] {name}"
     for rows in (MAX_SLOTS, max(buckets)):
         _rmsnorm_times(D, eps, rows)
+    if not _attn_layers(cfg):
+        return
+    attn = _attn_specs(cfg)[0]
+    H, KV, hd = attn.n_heads, attn.n_kv, attn.head_dim
+    scale = 1.0 / math.sqrt(hd)
 
     # ---- decode attention: H / KV query heads a kv head -------------------
     ragged = torch.tensor([1, 77, 700, MAX_LEN], dtype=torch.int32,
@@ -3670,27 +3740,88 @@ def _qk_norm_rows(cfg, buckets):
         _rmsnorm_times(hd, eps, r, entries=("rmsnorm",))
 
 
-def _gated_norm_rows(cfg, buckets):
-    """rmsnorm at Mamba-2's gated norm, float32 rows of d_inner (the
-    gate's product y * silu(z), one row a token): a decode step's
-    [slots, d_in] and the largest prefill's [S, d_in], against its plain
-    version (TOL), then timed beside F.rms_norm and the byte bound."""
+def _inner_norm_rows(cfg, buckets):
+    """rmsnorm at each recurrent sublayer's inner norm (`_inner_norms`),
+    float32 rows, one a token: Mamba-2's gated norm (y * silu(z)) and the
+    mLSTM's at d_inner, the sLSTM's at d_model; a decode step's [slots,
+    D] and the largest prefill's [S, D], against its plain version
+    (TOL), then timed beside F.rms_norm and the byte bound."""
     import torch
     from repro_torch.kernels import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    mamba = next(s for s in _applied(cfg) if s.kind == "mamba2")
-    d_in, eps = mamba.expand * cfg.d_model, cfg.norm_eps
-    for rows in (MAX_SLOTS, max(buckets)):
-        x = torch.randn(rows, d_in, generator=gen, device=dev)
-        s = 1.0 + 0.1 * torch.randn(d_in, generator=gen, device=dev)
-        _check("rmsnorm", rmsnorm(x, s, eps), reference_rmsnorm(x, s, eps),
-               "float32", f"gated norm [{rows},{d_in}] float32")
-    for rows in (MAX_SLOTS, max(buckets)):
-        _rmsnorm_times(d_in, eps, rows, entries=("rmsnorm",),
-                       dtype=torch.float32)
+    eps = cfg.norm_eps
+    for label, D in _inner_norms(cfg):
+        for rows in (MAX_SLOTS, max(buckets)):
+            x = torch.randn(rows, D, generator=gen, device=dev)
+            s = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+            _check("rmsnorm", rmsnorm(x, s, eps),
+                   reference_rmsnorm(x, s, eps), "float32",
+                   f"{label} [{rows},{D}] float32")
+        for rows in (MAX_SLOTS, max(buckets)):
+            _rmsnorm_times(D, eps, rows, entries=("rmsnorm",),
+                           dtype=torch.float32)
+
+
+def _slstm_scan(cfg, S, card):
+    """The sLSTM prefill's scan on the card, where a recurrent prefill's
+    host time goes: the device operations of one cell step
+    (`xlstm.slstm_cell_` at a batch of one, as admit prefills), counted
+    under torch.profiler with their device time; S steps of one layer
+    step by step on the host clock (synchronised); and the same S steps
+    through `xlstm.scan`, which replays whole chunks of SCAN_CHUNK steps
+    as a CUDA graph, held to the step-by-step run (TOL) and timed. A
+    prefill of S tokens runs S steps in each sLSTM layer."""
+    import torch
+    from repro_torch.models import xlstm
+
+    spec = next(s for s in _applied(cfg) if s.kind == "slstm")
+    layers = sum(s.kind == "slstm" for s in _applied(cfg))
+    H, P = spec.n_heads, cfg.d_model // spec.n_heads
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    R = xlstm.recurrent_weights(torch.randn(
+        H, 4, P, P, generator=gen, device=dev) / math.sqrt(P))
+    pre0 = torch.randn(S, H, 1, 4 * P, generator=gen, device=dev)
+
+    def state():
+        return [torch.zeros(H, 1, P, device=dev) for _ in range(4)]
+
+    def by_step():
+        pre, (h, c, n, m) = pre0.clone(), state()
+        hs = torch.empty(S, H, 1, P, device=dev)
+        for t in range(S):
+            h = xlstm.slstm_cell_(pre[t], h, c, n, m, R, hs[t])
+        return hs, c, n, m
+
+    def chunked():
+        pre, (h, c, n, m) = pre0.clone(), state()
+        hs = torch.empty(S, H, 1, P, device=dev)
+        xlstm.scan(pre, R, h, c, n, m, hs)
+        return hs, c, n, m
+
+    want, got = by_step(), chunked()        # warm-up, and the graph's capture
+    for name, a, b in zip(("h", "c", "n", "m"), got, want):
+        _check("sLSTM scan", a, b, "float32",
+               f"{name}, CUDA graph vs step by step, S={S}")
+    pre, (h, c, n, m) = pre0.clone(), state()
+    kern, _ = _profiled(lambda: xlstm.slstm_cell_(pre[0], h, c, n, m, R,
+                                                  torch.empty_like(h)))
+    ops = sum(e.count for e in kern)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    wall = _timed(by_step)[1]
+    graph_wall = _timed(chunked)[1]
+    print(f"  sLSTM scan: one cell step at [{H},1,{4 * P}] launches {ops} "
+          f"device operations ({busy * 1e3:.1f} us of device time); {S} "
+          f"steps of one layer {wall * 1e3:.2f} ms step by step on the "
+          f"host clock ({wall / S * 1e6:.1f} us a step), "
+          f"{graph_wall * 1e3:.2f} ms through `scan` (CUDA graphs of "
+          f"{xlstm.SCAN_CHUNK} steps); a prefill of {S} tokens runs "
+          f"{S * layers} steps in its {layers} sLSTM layers, "
+          f"{S * layers * ops} launches [{card}]")
+    return ops, wall / S
 
 
 def _park_check(eng, prompts):
@@ -3933,8 +4064,12 @@ def phase_dense(cfg, prompts, label, long_context=False):
     with recurrent state (phase 20: zamba2-7b, Mamba-2 layers with a
     shared attention and FFN and a tail) prefills at the exact prompt
     lengths, so (a) takes those lengths for the buckets and adds the
-    gated norm's float32 rows, and (b) adds a park check. Returns the
-    launches of (b), (c) and (d)."""
+    gated norm's float32 rows, and (b) adds a park check. A config with
+    neither attention nor an FFN (phase 21: xlstm-350m, alternating mLSTM
+    and sLSTM) runs rmsnorm's part of (a) with the mLSTM's and sLSTM's
+    inner norms, asserts that no attention kernel launched in (b) or (c),
+    and adds the sLSTM scan's launches and time a step to (b). Returns
+    the launches of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -3950,16 +4085,34 @@ def phase_dense(cfg, prompts, label, long_context=False):
     torch.cuda.reset_peak_memory_stats()
     recurrent = _recurrent(cfg)
     lengths_main, buckets = _path_shapes(prompts, exact=recurrent)
-    attn = _attn_specs(cfg)[0]
+    attn = _attn_specs(cfg)[0] if _attn_layers(cfg) else None
+    ffn = _ffn_spec(cfg)
     blob = _blob_bytes(cfg)
+    assert blob == BLOB_BYTES.get(cfg.name, blob), blob
+    mixer = ("no attention" if attn is None else
+             f"{attn.n_heads} heads / {attn.n_kv} kv of {attn.head_dim}")
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{attn.n_heads} heads / {attn.n_kv} kv of {attn.head_dim}, "
-          f"{_ffn_spec(cfg).act} d_ff {_ffn_spec(cfg).d_ff}, vocab "
-          f"{cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
+          f"{mixer}, "
+          f"{'no FFN' if ffn is None else f'{ffn.act} d_ff {ffn.d_ff}'}, "
+          f"vocab {cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
           f"{blob} B; prompts {[len(p) for p in prompts]}, "
           f"{'prefill lengths' if recurrent else 'buckets'} "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
-    if recurrent:
+    xl = {s.kind: s for s in _applied(cfg) if s.kind in ("mlstm", "slstm")}
+    if xl:
+        m, sl = xl["mlstm"], xl["slstm"]
+        d_in = int(m.proj_factor * cfg.d_model)
+        print(f"  {cfg.name}: "
+              f"{sum(s.kind == 'mlstm' for s in _applied(cfg))} mLSTM "
+              f"layers of {m.n_heads} heads of {d_in // m.n_heads} (d_in "
+              f"{d_in}, state [{m.n_heads},{d_in // m.n_heads},"
+              f"{d_in // m.n_heads + 1}] float32, conv {m.d_conv}, chunk "
+              f"{m.chunk}), {sum(s.kind == 'slstm' for s in _applied(cfg))}"
+              f" sLSTM layers of {sl.n_heads} heads of "
+              f"{cfg.d_model // sl.n_heads} (GeGLU d_up "
+              f"{int(sl.proj_factor * cfg.d_model)}); {_norms(cfg)} norms "
+              f"a forward; a blob of one size at any context")
+    elif recurrent:
         m = next(s for s in _applied(cfg) if s.kind == "mamba2")
         d_in = m.expand * cfg.d_model
         print(f"  {cfg.name}: {sum(s.kind == 'mamba2' for s in _applied(cfg))}"
@@ -4000,10 +4153,10 @@ def phase_dense(cfg, prompts, label, long_context=False):
 
     print(f"  (a) the serving kernels at its shapes [{card}]")
     _dense_kernels(cfg, lengths_main, buckets)
-    if attn.qk_norm:
+    if attn is not None and attn.qk_norm:
         _qk_norm_rows(cfg, buckets)
     if recurrent:
-        _gated_norm_rows(cfg, buckets)
+        _inner_norm_rows(cfg, buckets)
     if long_context:
         _long_decode(cfg)
     peaks = {"(a)": torch.cuda.max_memory_allocated()}
@@ -4013,7 +4166,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
     params = _native_params(cfg)
     peaks["native init"] = torch.cuda.max_memory_allocated()
     # resets the peak: (b) from here is the check and the serving
-    per_prefill, per_step = _first_step(cfg, params, prompts[0])
+    (per_prefill, per_step), t_check = _timed(_first_step, cfg, params,
+                                              prompts[0])
+    parts = {"first-step check": t_check}
     assert per_prefill["flash_attention"] == _attn_layers(cfg), per_prefill
     assert per_step["decode_attention"] == _attn_layers(cfg), per_step
     bcfg, bparams = _at_depth(cfg, params, SERVE_GROUPS.get(cfg.name))
@@ -4034,7 +4189,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"(modeled) [{card}]")
     assert flow_tiers[-1] == Tier.FLASH.name, "the cold session's blob " \
         "did not reach FLASH"
-    tiers, t_pause, t_restore = _pause_resume(eng, platform.clock, prompts)
+    parts["example's flow"] = wall
+    (tiers, t_pause, t_restore), parts["pause and resume"] = _timed(
+        _pause_resume, eng, platform.clock, prompts)
     host = platform.fabric.hosts[0]
     dram, flash = host.stats[Tier.DRAM], host.stats[Tier.FLASH]
     assert dram.bytes_written >= blob and flash.bytes_written >= blob, \
@@ -4046,12 +4203,15 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{t_restore!r} s (host clock, synchronised) [{card}]")
     print(f"  kv_stall_time={eng.kv_stall_time!r} s after both flows "
           f"(modeled); store DRAM {dram}; FLASH {flash}")
+    assert eng._slot_blob(0)[0].nbytes == blob, "the engine's blob size"
     if recurrent:
         _, t_park = _timed(_park_check, eng, prompts)
+        parts["park check"] = t_park
         print(f"  park check: a session parked three steps while another "
               f"decoded, then unparked, decoded the tokens of the run "
               f"without the park ({t_park:.3f} s, host clock) [{card}]")
     tps = []
+    t_windows = time.perf_counter()
     for i in range(WINDOWS):
         # an MoE config's first window notes its decode steps' expert ids
         # for (d)
@@ -4060,12 +4220,18 @@ def phase_dense(cfg, prompts, label, long_context=False):
             tps.append(_decode_window(eng, prompts, f"w{i}-"))
         if moe is not None and i == 0:
             routings = _decode_routings(noted, cfg)[:EXPERT_STEPS]
+    parts["decode windows"] = time.perf_counter() - t_windows
     tps.sort()
     print(f"  decode windows, {MAX_SLOTS} slots live for {STEADY_NEW - 1} "
           f"steps each, tokens/s (host clock, synchronised): median "
           f"{tps[len(tps) // 2]!r}, range {tps[0]!r} - {tps[-1]!r} over "
           f"{len(tps)} windows [{card}]")
-    step_ms = _profile_split(eng, prompts)
+    step_ms, parts["profile"] = _timed(_profile_split, eng, prompts)
+    if xl:
+        parts["sLSTM scan"] = _timed(_slstm_scan, cfg, len(prompts[5]),
+                                     card)[1]
+    print(f"  (b)'s parts, host clock: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + f" [{card}]")
     if moe is not None:
         _expert_products(eng, prompts, card)
     peaks["(b)"] = torch.cuda.max_memory_allocated()
@@ -4075,7 +4241,10 @@ def phase_dense(cfg, prompts, label, long_context=False):
     wcfg, wparams = _at_depth(cfg, params, WORKLOAD_GROUPS.get(cfg.name))
     blob = _blob_bytes(wcfg)
     depth = ("" if wcfg is cfg else
-             f" at {wcfg.n_layers} of its {cfg.n_layers} layers")
+             f" at {wcfg.n_layers} of its {cfg.n_layers} layers (views of "
+             f"the first {wcfg.n_groups} groups' weights: the run's wall is "
+             f"host launches a layer, and the whole script is held to 800 "
+             f"s)")
     print(f"  (c) Platform.scheduler -> run(Platform.jobs()){depth} "
           f"[{card}]")
     torch.cuda.reset_peak_memory_stats()
@@ -4103,7 +4272,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
     parts = "(b), (c) and (d)" if moe is not None else "(b) and (c)"
     print(f"  launches in {label} {parts}: {json.dumps(counts)}")
     for name, n in counts.items():
-        assert n > 0, f"{name} never launched in {label}"
+        if name in ATTENTION_KERNELS and attn is None:
+            assert n == 0, f"{name} launched {n} times in {label}, " \
+                f"a config without attention"
+        else:
+            assert n > 0, f"{name} never launched in {label}"
     del platform, sched, jobs, params, wparams
     torch.cuda.empty_cache()
     print(f"  {label} wall {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -4970,6 +5143,13 @@ def main() -> int:
     zamba = phase_dense(ssm_cfg, _prompts(ssm_cfg.vocab, N_REQUESTS + 2,
                                           np.random.default_rng(SEED)),
                         "phase 20")
+    xl_cfg = get_config(XLSTM_ARCH)
+    print(f"[21] full-width {XLSTM_ARCH} ({xl_cfg.n_layers} layers: "
+          f"alternating mLSTM and sLSTM, no attention) through the "
+          f"kernels, the platform and the scheduler")
+    xlstm = phase_dense(xl_cfg, _prompts(xl_cfg.vocab, N_REQUESTS + 2,
+                                         np.random.default_rng(SEED)),
+                        "phase 21")
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -4979,11 +5159,14 @@ def main() -> int:
                "phase9": served, "phase10": workload, "phase11": loops,
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
-               "phase18": qwen, "phase19": llama, "phase20": zamba}
+               "phase18": qwen, "phase19": llama, "phase20": zamba,
+               "phase21": xlstm}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
+    # a path that holds a kernel at 0 (phase 21's attention kernels) does
+    # not replace the newest path that ran it
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama, zamba):
-        counts.update(path)
+                 granite, qwen, llama, zamba, xlstm):
+        counts.update({name: n for name, n in path.items() if n})
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

@@ -5,7 +5,8 @@ The twin of the reference's `examples/serve_tiered_kv.py`: serves the
 reduced `--arch` config (a ported one; random weights from a seed) with
 continuous batching, then pauses sessions and shows the tiering policy
 placing their KV blocks (zamba2-7b's: its Mamba-2 state beside the
-shared attention's KV) across DRAM/flash by observed reuse interval,
+shared attention's KV; xlstm-350m's: its mLSTM and sLSTM states alone)
+across DRAM/flash by observed reuse interval,
 and resumes them transparently — including the async-prefetch restore
 path overlapping the flash fetch with decode on the platform's
 deterministic virtual clock. The modeled lines (tiers, stall, `[tier
@@ -19,7 +20,8 @@ facade — no clock/policy/store threading. It decodes on CUDA unless
 
   PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
       [--arch deepseek-7b | mistral-nemo-12b | granite-20b |
-       qwen3-moe-235b-a22b | llama4-maverick-400b-a17b | zamba2-7b]
+       qwen3-moe-235b-a22b | llama4-maverick-400b-a17b | zamba2-7b |
+       xlstm-350m]
       [--device cpu]
 """
 import argparse

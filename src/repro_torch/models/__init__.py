@@ -1,2 +1,3 @@
-from . import attention, config, ffn, layers, model, moe, ssm  # noqa
-from .config import AttnSpec, FfnSpec, Mamba2Spec, ModelConfig, MoeSpec  # noqa
+from . import attention, config, ffn, layers, model, moe, ssm, xlstm  # noqa
+from .config import (AttnSpec, FfnSpec, Mamba2Spec, MLstmSpec,  # noqa
+                     ModelConfig, MoeSpec, SLstmSpec)

@@ -17,11 +17,13 @@ numpy arrays), so both packages compute the same function; `init_params`
 draws the same distributions natively on the device. Caches are grouped
 the same way: {"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}},
 "tail": {"L0S0": {"ssm": [B,H,N,P], "conv": [B,W-1,C]}}}; a shared
-attention sublayer keeps a cache for each of its G applications.
+attention sublayer keeps a cache for each of its G applications. An
+xLSTM stack's caches hold, a sublayer, the mLSTM's {"C": [G,B,H,P,P+1],
+"conv"} or the sLSTM's {"h", "c", "n", "m": [G,B,H,P], "conv"}.
 
-The port builds attention, FFN, MoE and Mamba-2 stacks; the xLSTM
-sublayer kinds and the attention features `attention.check_supported`
-lists raise NotImplementedError.
+The port builds attention, FFN, MoE, Mamba-2 and xLSTM (mLSTM and sLSTM)
+stacks; the attention features `attention.check_supported` lists raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,13 +34,16 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from . import attention, ffn, moe, ssm
+from . import attention, ffn, moe, ssm, xlstm
 from .config import ModelConfig
 from .layers import Ctx, apply_add_norm, apply_norm, dense_init, embed_init
 
-_MIXERS = {"attn": attention, "ffn": ffn, "moe": moe, "mamba2": ssm}
-# sublayer kinds that hold a cache (updated in place by their `apply`)
-_CACHED = ("attn", "mamba2")
+_MIXERS = {"attn": attention, "ffn": ffn, "moe": moe, "mamba2": ssm,
+           "mlstm": xlstm.mlstm, "slstm": xlstm.slstm}
+# sublayer kinds that hold a cache (updated in place by their `apply`);
+# all but attention carry recurrent state ("conv" windows in the cache
+# dtype, every other leaf float32)
+_CACHED = ("attn", "mamba2", "mlstm", "slstm")
 
 # constant leaves of a mixer's `param_shapes` (an init that is not a
 # fan-in), float32 whatever the weights' dtype
@@ -53,7 +58,24 @@ CONSTANTS = {
     "a_log": lambda shape, dev: torch.log(torch.linspace(
         1.0, 16.0, shape[-1], dtype=torch.float64, device=dev)).to(
             torch.float32).expand(shape).contiguous(),
+    # the gate biases, linspace(3, 6, w) for the forget gates and zeros
+    # for the others: the mLSTM's (i | f) of H each, the sLSTM's (z | i |
+    # f | o) of d_model each
+    "mlstm_gates": lambda shape, dev: _gate_bias(shape, dev, 1, 0),
+    "slstm_gates": lambda shape, dev: _gate_bias(shape, dev, 2, 1),
 }
+
+
+def _gate_bias(shape, dev, before: int, after: int):
+    """zeros(before * w), linspace(3, 6, w), zeros(after * w) along the
+    last axis, w = shape[-1] / (before + 1 + after); in float64, rounded
+    once (as a_log)."""
+    w = shape[-1] // (before + 1 + after)
+    f64 = dict(dtype=torch.float64, device=dev)
+    bias = torch.cat([torch.zeros(before * w, **f64),
+                      torch.linspace(3.0, 6.0, w, **f64),
+                      torch.zeros(after * w, **f64)])
+    return bias.to(torch.float32).expand(shape).contiguous()
 
 
 def _key(li: int, si: int) -> str:
@@ -148,10 +170,12 @@ def _drawn(init) -> bool:
 
 def _is_f32_path(path) -> bool:
     """Leaves kept in float32 whatever the weights' dtype: norm scales,
-    the qk-norm scales, as the rmsnorm kernel takes them, and Mamba-2's
-    decay rates, biases, skip and gated-norm scale."""
+    the qk-norm scales, as the rmsnorm kernel takes them, Mamba-2's
+    decay rates, biases, skip and gated-norm scale, and xLSTM's gate
+    biases and inner-norm scales."""
     return ("norm" in path or "final_norm" in path
-            or path[-1] in attention.SCALES or path[-1] in ssm.F32_LEAVES)
+            or path[-1] in attention.SCALES or path[-1] in ssm.F32_LEAVES
+            or path[-1] in xlstm.F32_LEAVES)
 
 
 def _set(tree, path, value):
@@ -282,8 +306,9 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None):
     """Zero caches, grouped like params: {"groups": {key: [G,...]},
-    "tail": {key: [...]}}: attention's K and V in `dtype`, Mamba-2's
-    state in float32 and its conv window in `dtype`. Runs on CUDA unless
+    "tail": {key: [...]}}: attention's K and V in `dtype`; a recurrent
+    sublayer's state (Mamba-2's, the mLSTM's C, the sLSTM's h, c, n, m)
+    in float32 and its conv window in `dtype`. Runs on CUDA unless
     `device` says otherwise."""
     check_supported(cfg)
     if dtype not in (torch.float32, torch.bfloat16):
@@ -297,12 +322,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             shape = lead + attention.cache_shape(spec, batch, max_len)
             return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        if spec.kind == "mamba2":
+        if spec.kind in _CACHED:
             return {n: torch.zeros(lead + shape, device=dev,
-                                   dtype=torch.float32 if n == "ssm"
-                                   else dtype)
-                    for n, shape in ssm.cache_shapes(cfg, spec,
-                                                     batch).items()}
+                                   dtype=dtype if n == "conv"
+                                   else torch.float32)
+                    for n, shape in _MIXERS[spec.kind].cache_shapes(
+                        cfg, spec, batch).items()}
         return None
     caches = {"groups": {}, "tail": {}}
     for part, subs, lead in (("groups", _sublayers(cfg), (cfg.n_groups,)),

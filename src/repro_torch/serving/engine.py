@@ -38,8 +38,11 @@ once per bucket; the port keeps it so that both packages write the same
 pad-token KV into the slot and pause the same blob). The causal mask
 keeps real positions pad-independent, and `prefill(last_index=...)`
 returns the last *real* token's logits. A config with recurrent state
-(Mamba-2) prefills at the prompt's exact length, as the reference does:
-pads would advance the state.
+(Mamba-2, xLSTM's mLSTM and sLSTM) prefills at the prompt's exact length,
+as the reference does: pads would advance the state. An xLSTM stack holds
+no KV at all: its blob is its mLSTM matrix memories, sLSTM states and
+conv windows, one size whatever the context (`C` before `conv`, then
+`c`, `conv`, `h`, `m`, `n`, in the tree's order).
 
 A parked slot keeps its recurrent state: `step` passes the decoding
 slots as `active`, and a recurrent sublayer writes its new state only

@@ -1,6 +1,6 @@
 """deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b,
-llama4-maverick-400b-a17b and zamba2-7b (reduced, float32) through the
-port's
+llama4-maverick-400b-a17b, zamba2-7b and xlstm-350m (reduced, float32)
+through the port's
 entry points against the JAX reference's: the `serve_tiered_kv` twin with
 `--arch` against the reference script with the same flag, and the
 declared tenant pack through Platform.compile -> Platform.scheduler ->
@@ -12,9 +12,10 @@ tests/test_torch_model.py and tests/test_torch_serving.py.
 What must match: the twin's lines from `[tiering]` on (tiers, stall and
 both report tables: modeled, so exact); the scheduler's outcome, trace,
 ledger and tau_be as `_both` holds them (integers and tokens equal,
-floats to 1e-12 relative). zamba2-7b's sessions that the scheduler
-parked are held to the port's own lock-step run instead of the
-reference's tokens (see `_declared_workload_matches_reference`)."""
+floats to 1e-12 relative). The recurrent configs' (zamba2-7b's,
+xlstm-350m's) sessions that the scheduler parked are held to the port's
+own lock-step run instead of the reference's tokens (see
+`_declared_workload_matches_reference`)."""
 import pathlib
 import runpy
 import sys
@@ -27,7 +28,8 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b",
-         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b")
+         "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b",
+         "xlstm-350m")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -79,9 +79,11 @@ def _sides(arch):
     tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                             device="cpu")
     rules = single_device_rules()
-    # a config with recurrent state (Mamba-2), whose parked sessions the
-    # reference advances on a stale token (see _declared_workload...)
-    recurrent = any(s.kind == "mamba2" for *_, s in cfg.sublayers())
+    # a config with recurrent state (Mamba-2, xLSTM), whose parked
+    # sessions the reference advances on a stale token (see
+    # _declared_workload...)
+    recurrent = any(s.kind in ("mamba2", "mlstm", "slstm")
+                    for *_, s in cfg.sublayers())
     ref = types.SimpleNamespace(
         S=JS, Policy=JPolicy, Store=JStore, Clock=JClock, Fabric=JFabric,
         Request=JReq, vocab=jcfg.vocab, recurrent=recurrent,
@@ -504,9 +506,9 @@ def _declared_workload_matches_reference(sides, isolation):
     trace, ledger, summary, tau_be and the sessions the scheduler parked
     equal, and the pack's invariants.
 
-    A config with recurrent state (zamba2-7b) differs in one place: the
-    reference's decode step advances a parked slot's Mamba-2 state on its
-    stale token, so a session it parked decodes other tokens after the
+    A config with recurrent state (zamba2-7b, xlstm-350m) differs in one
+    place: the reference's decode step advances a parked slot's recurrent
+    state on its stale token, so a session it parked decodes other tokens after the
     unpark; the port keeps a parked slot's state. There every session's
     tokens but the parked ones' equal the reference's, and the parked
     sessions' tokens equal the port's own `run_lockstep` (which never
