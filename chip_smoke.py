@@ -290,8 +290,25 @@ Drives the port's serving path on the card and checks it, in phases:
      decode windows, the profile, and the sLSTM scan's launches a cell
      step and its host time a step; (c) at 3 of its 12 groups (a
      prefill's scan is ~100,000 launches, host-bound).
+ 22. full-width qwen2-vl-2b (28 layers, d_model 1536, GQA of 12 query
+     heads on 2 kv heads of 128 with M-RoPE, sections (16, 24, 24) of
+     the 64 frequencies, SwiGLU d_ff 8960, vocab 151936, tied, rope
+     theta 1e6; 3.09 GB of random bf16 weights) through phase 16's path:
+     (a) rmsnorm at [4,1536] and [1023,1536], decode attention at q
+     [4,12,128] and k,v [4,2,1024,128] (six query heads in a head group
+     of 8), flash attention at q [1,12,S,128] and k,v [1,2,S,128], and
+     decode attention at the config's 32,768 positions; (b) as phase 16,
+     served on tokens alone as the reference engine serves the config
+     (its three position streams the index), plus a vision-prefix check:
+     256 patch embeddings (a 16 x 16 grid) and 767 tokens, S = 1,023,
+     with t the index and h, w the grid over the image, prefilled and
+     decoded one step through the kernels and through the plain path,
+     both logits held by the first-step rule, 28 flash launches a
+     prefill, 28 decode-attention launches a step and 57 norms each, the
+     prefill's wall and kernel time printed; (c) as phase 16, at 7 of its
+     28 layers.
 
-The first-step check (phases 4 and 13-21) holds the kernels to the plain
+The first-step check (phases 4 and 13-22) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -365,7 +382,8 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "granite-20b": 20_013_766_656,
           "qwen3-moe-235b-a22b": 31_097_723_904,
           "llama4-maverick-400b-a17b": 18_553_267_200,
-          "zamba2-7b": 6_636_442_832, "xlstm-350m": 391_730_272}
+          "zamba2-7b": 6_636_442_832, "xlstm-350m": 391_730_272,
+          "qwen2-vl-2b": 1_543_656_960}
 # the config's analytic `param_count()` less the tensors native init
 # makes: zamba2-7b's leaves out each Mamba-2 layer's conv bias (7,296)
 # and skip (112) and counts each shared sublayer's norm twice (3,584 x 2);
@@ -374,7 +392,7 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
 ANALYTIC_GAP = {"zamba2-7b": -81 * (7_296 + 112) + 2 * 3_584,
                 "xlstm-350m": -12 * (2048 * 8 + 8 - 16)}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones;
-# 1024: xlstm-350m's), 128 (qwen3-moe's qk-norm rows, one a head), the
+# 1024: xlstm-350m's; 1536: qwen2-vl-2b's), 128 (qwen3-moe's qk-norm rows, one a head), the
 # TPU kernel's largest and one that is not a multiple of 8; rows of a
 # step, of a decode step's slots and of the largest prefill bucket
 RMS_DS = (64, 128, 1024, 1536, 2048, 4096, 5120, 6144, 8192, 2050)
@@ -3429,13 +3447,14 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-# (c)'s depth in phases 13, 16, 17, 18 and 21, a quarter of each
+# (c)'s depth in phases 13, 16, 17, 18, 21 and 22, a quarter of each
 # config's layers (its (b) serves all of them): the scheduler's run is
 # host launches a layer (38 s at deepseek-7b's 30 layers, 47 s at
 # mistral-nemo-12b's 40, 56 s at granite-20b's 52, 26 s at qwen3-moe's
 # 12, 40.7 s at xlstm-350m's 24 before its sLSTM scan replayed CUDA
-# graphs, where a decode step is ~1,300 launches), and the whole script
-# is held to 800 s with phases 19-21 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
+# graphs, where a decode step is ~1,300 launches, 28.2 s at
+# qwen2-vl-2b's 28, when the whole script took 856.6 s), and the whole
+# script is held near 800 s with phases 19-22 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
 # zamba2-7b's 13 groups and its tail (15 of 81 layers, two applications
 # of the shared attention): a decode step is ~3,900 launches at full
 # depth, 128 ms of host time (0.875 device-idle); its native init and
@@ -3443,16 +3462,25 @@ MQA_ARCH = "granite-20b"
 ZAMBA_GROUPS = 2
 WORKLOAD_GROUPS = {"deepseek-7b": 8, "mistral-nemo-12b": 10,
                    "granite-20b": 13, "qwen3-moe-235b-a22b": 3,
-                   "zamba2-7b": ZAMBA_GROUPS, "xlstm-350m": 3}
+                   "zamba2-7b": ZAMBA_GROUPS, "xlstm-350m": 3,
+                   "qwen2-vl-2b": 7}
 SERVE_GROUPS = {"zamba2-7b": ZAMBA_GROUPS}
 MOE_ARCH = "qwen3-moe-235b-a22b"
 TOP1_ARCH = "llama4-maverick-400b-a17b"
 SSM_ARCH = "zamba2-7b"
 XLSTM_ARCH = "xlstm-350m"
+VL_ARCH = "qwen2-vl-2b"
+# phase 22's vision-prefix prompt: a VISION_GRID x VISION_GRID grid of
+# patch embeddings, then text to MAX_LEN - 1 positions; over the image
+# h = VISION_OFFSETS[0] + row and w = VISION_OFFSETS[1] + column, and t
+# the index everywhere (the case in which the reference's mask is
+# index-causal, as the port's kernels are)
+VISION_GRID = 16
+VISION_OFFSETS = (3, 5)
 # a paused session's blob where its size is known from the reference's
 # `init_cache` (jax.eval_shape): xlstm-350m's, the same at any context
 BLOB_BYTES = {"xlstm-350m": 51_068_928}
-WINDOWS = 3                    # phases 13 and 16-21's decode windows
+WINDOWS = 3                    # phases 13 and 16-22's decode windows
 EXPERT_STEPS = 64              # phases 18 and 19 (d)'s decode steps replayed
 
 
@@ -3824,6 +3852,104 @@ def _slstm_scan(cfg, S, card):
     return ops, wall / S
 
 
+def _vision_inputs(cfg):
+    """Phase 22's prompt on the card: VISION_GRID^2 patch embeddings
+    [1,S_vis,D] (normal x 0.02 in bf16 from SEED, as the reference's
+    `concrete_batch` draws them), text tokens to MAX_LEN - 1 positions
+    in all, and their [3,1,S] positions (see VISION_OFFSETS)."""
+    import numpy as np
+    import torch
+
+    n_img = VISION_GRID ** 2
+    S = MAX_LEN - 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    vis = torch.randn((1, n_img, cfg.d_model), generator=gen,
+                      device="cuda", dtype=torch.bfloat16) * 0.02
+    toks = np.random.default_rng(SEED).integers(1, cfg.vocab, S - n_img)
+    row, col = np.divmod(np.arange(n_img), VISION_GRID)
+    pos = np.broadcast_to(np.arange(S), (3, S)).copy()
+    pos[1, :n_img] = VISION_OFFSETS[0] + row
+    pos[2, :n_img] = VISION_OFFSETS[1] + col
+    return (torch.as_tensor(toks[None], device="cuda"), vis,
+            torch.as_tensor(pos[:, None], device="cuda"))
+
+
+def _vision_check(cfg, params, card):
+    """A vision-prefix prefill and one decode step through the kernels
+    against the plain path on the same bf16 weights, by `_first_step`'s
+    rule (within twice the plain bf16 path's distance from the float32
+    path): the last logits, then the logits of a decode step of the
+    kernel path's greedy token at the cache index, on all three M-RoPE
+    streams as the reference decodes. A prefill launches flash attention
+    once a layer at S = MAX_LEN - 1 and no decode attention, a step decode
+    attention once a layer; both make `_norms` rmsnorm launches. Prints
+    the prefill's wall (host clock, synchronised) and its device kernel
+    time under the profiler."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+
+    toks, vis, pos = _vision_inputs(cfg)
+    S = toks.shape[1] + vis.shape[1]
+    assert S == MAX_LEN - 1, S
+
+    def run(dtype, plain, tok=None):
+        cache = M.init_cache(cfg, 1, MAX_LEN, dtype, "cuda")
+        _, pre = M.prefill(params, cfg, toks, cache, compute_dtype=dtype,
+                           plain=plain, vision_embeds=vis, positions=pos)
+        if tok is None:
+            tok = pre.argmax(-1, keepdim=True)
+        _, dec = M.decode_step(params, cfg, tok, cache, S,
+                               compute_dtype=dtype, plain=plain)
+        return pre.float(), dec.float(), tok
+
+    kern_pre, kern_dec, tok = run(torch.bfloat16, False)
+    plain = run(torch.bfloat16, True, tok)
+    truth = run(torch.float32, True, tok)
+    for i, what in enumerate(("prefill's last", "decode step's")):
+        kern = (kern_pre, kern_dec)[i]
+        err = float((kern - plain[i]).abs().max())
+        noise = float((plain[i] - truth[i]).abs().max())
+        print(f"  vision prefix: the {what} logits [1,{cfg.vocab}] "
+              f"({vis.shape[1]} patches + {toks.shape[1]} tokens): kernels "
+              f"vs plain bf16 max_abs_err={err:.4e}; plain bf16 vs float32 "
+              f"{noise:.4e}; argmax {int(kern.argmax())} / "
+              f"{int(plain[i].argmax())} / {int(truth[i].argmax())}")
+        assert err <= 2 * noise, (what, err, noise)
+    del plain, truth
+    n_attn, n_norm = _attn_layers(cfg), _norms(cfg)
+    cache = M.init_cache(cfg, 1, MAX_LEN, torch.bfloat16, "cuda")
+    kernels.reset_launch_counts()
+    _, wall = _timed(lambda: M.prefill(params, cfg, toks, cache,
+                                       vision_embeds=vis, positions=pos))
+    per_prefill = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    M.decode_step(params, cfg, tok, cache, S)
+    per_step = kernels.launch_counts()
+    print(f"  vision prefix: launches of the prefill {per_prefill}, of a "
+          f"decode step {per_step}")
+    serving = {"rmsnorm": n_norm, "flash_attention": n_attn,
+               "decode_attention": 0}
+    assert {k: per_prefill[k] for k in serving} == serving, per_prefill
+    serving.update(flash_attention=0, decode_attention=n_attn)
+    assert {k: per_step[k] for k in serving} == serving, per_step
+    kern, prof_wall = _profiled(lambda: M.prefill(
+        params, cfg, toks, cache, vision_embeds=vis, positions=pos))
+    busy = sum(e.self_device_time_total for e in kern) / 1e3     # ms
+    # the kernel's own name: flash_wgmma_kernel in bf16
+    flash = sum(e.self_device_time_total for e in kern
+                if "flash_" in e.key) / 1e3
+    n_flash = sum(e.count for e in kern if "flash_" in e.key)
+    print(f"  vision prefix: a prefill of S = {S} in {wall * 1e3:.3f} ms "
+          f"of wall (host clock, synchronised); under the profiler "
+          f"{busy:.3f} ms of device kernels in {prof_wall * 1e3:.3f} ms, "
+          f"{n_flash} flash attention kernels {flash:.4f} ms, device-idle "
+          f"share {1 - busy / (wall * 1e3):.3f} of the unprofiled wall "
+          f"[{card}]")
+    assert not busy or n_flash == n_attn, n_flash
+    torch.cuda.empty_cache()
+
+
 def _park_check(eng, prompts):
     """Two sessions (the prompts after the six served) decode without a
     break, then again with the first parked three steps in while the
@@ -4048,7 +4174,7 @@ def phase_dense(cfg, prompts, label, long_context=False):
     use, one prefill and one decode step profiled; (c) one run of phase 10's
     declared workload through Platform.scheduler -> run(Platform.jobs()),
     at the first WORKLOAD_GROUPS groups of the weights where the config
-    has an entry (phases 13, 16, 17 and 20), and (b)'s serving after the
+    has an entry (phases 13, 16-18 and 20-22), and (b)'s serving after the
     first-step check at the first SERVE_GROUPS groups where the config
     has one (phase 20). Peak device memory by part (native
     init apart from (b)). An MoE config (phase 18: qwen3-moe-235b-a22b, GQA of 64 query heads on 4 kv
@@ -4068,8 +4194,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
     neither attention nor an FFN (phase 21: xlstm-350m, alternating mLSTM
     and sLSTM) runs rmsnorm's part of (a) with the mLSTM's and sLSTM's
     inner norms, asserts that no attention kernel launched in (b) or (c),
-    and adds the sLSTM scan's launches and time a step to (b). Returns
-    the launches of (b), (c) and (d)."""
+    and adds the sLSTM scan's launches and time a step to (b). A "vlm"
+    config (phase 22: qwen2-vl-2b, M-RoPE, GQA of 12 query heads on 2 kv
+    heads of 128, SwiGLU, tied) adds a vision-prefix prefill and decode
+    step to (b), held to the plain path after the first-step check.
+    Returns the launches of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.policy import Tier
@@ -4169,6 +4298,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
     (per_prefill, per_step), t_check = _timed(_first_step, cfg, params,
                                               prompts[0])
     parts = {"first-step check": t_check}
+    if cfg.modality == "vlm":
+        parts["vision-prefix check"] = _timed(_vision_check, cfg, params,
+                                              card)[1]
     assert per_prefill["flash_attention"] == _attn_layers(cfg), per_prefill
     assert per_step["decode_attention"] == _attn_layers(cfg), per_step
     bcfg, bparams = _at_depth(cfg, params, SERVE_GROUPS.get(cfg.name))
@@ -5150,6 +5282,14 @@ def main() -> int:
     xlstm = phase_dense(xl_cfg, _prompts(xl_cfg.vocab, N_REQUESTS + 2,
                                          np.random.default_rng(SEED)),
                         "phase 21")
+    vl_cfg = get_config(VL_ARCH)
+    print(f"[22] full-width {VL_ARCH} ({vl_cfg.n_layers} layers, M-RoPE, "
+          f"GQA of 12 query heads on 2) through the kernels, the platform "
+          f"and the scheduler, a vision-prefix prefill, and decode "
+          f"attention at its {vl_cfg.max_seq}-position context")
+    vl = phase_dense(vl_cfg, _prompts(vl_cfg.vocab, N_REQUESTS + 2,
+                                      np.random.default_rng(SEED)),
+                     "phase 22", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -5160,12 +5300,12 @@ def main() -> int:
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
                "phase18": qwen, "phase19": llama, "phase20": zamba,
-               "phase21": xlstm}
+               "phase21": xlstm, "phase22": vl}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     # a path that holds a kernel at 0 (phase 21's attention kernels) does
     # not replace the newest path that ran it
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama, zamba, xlstm):
+                 granite, qwen, llama, zamba, xlstm, vl):
         counts.update({name: n for name, n in path.items() if n})
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

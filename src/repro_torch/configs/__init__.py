@@ -1,8 +1,8 @@
 """Architecture registry: the reference package's 10 architectures (+
 reduced smoke variants). `get_config` builds those the port can already
 run and raises NotImplementedError for the others. The dense
-attention + FFN family, the MoE family, the Mamba-2 hybrid and xLSTM are
-ported one config at a time."""
+attention + FFN family, the MoE family, the Mamba-2 hybrid, xLSTM and the
+vision-language backbone (qwen2-vl-2b) are ported one config at a time."""
 from __future__ import annotations
 
 import importlib
@@ -23,11 +23,12 @@ ARCHS = (
 
 # archs with a config module in this package: the dense attention + FFN
 # family, the MoE configs, zamba2's Mamba-2 stack with its shared
-# attention and xlstm's mLSTM / sLSTM stack (without the features
-# models.model does not build yet), one config at a time
+# attention, xlstm's mLSTM / sLSTM stack and qwen2-vl's M-RoPE backbone
+# with its vision prefix (without the features models.model does not
+# build yet), one config at a time
 PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b",
           "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b",
-          "xlstm-350m")
+          "xlstm-350m", "qwen2-vl-2b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

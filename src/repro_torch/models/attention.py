@@ -1,6 +1,8 @@
-"""GQA/MQA/MHA self-attention with RoPE and a KV cache, through the
-flash-attention kernel (prefill, train forward) and the decode-attention
-kernel (decode).
+"""GQA/MQA/MHA self-attention with RoPE (or qwen2-vl's M-RoPE) and a KV
+cache, through the flash-attention kernel (prefill, train forward) and
+the decode-attention kernel (decode). Both kernels mask by the cache
+index (index-causal), as the TPU kernels do, whatever the positions that
+rotate q and k.
 
 KV caches are laid out [B, n_kv, max_len, head_dim] (kv-heads before seq),
 as in the reference package, so a paused session's KV block is the same
@@ -18,7 +20,7 @@ from ..kernels.decode_attention.ref import reference_decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import reference_attention
 from .config import AttnSpec, ModelConfig
-from .layers import Ctx, apply_rope, rms_norm_heads
+from .layers import Ctx, apply_mrope, apply_rope, rms_norm_heads
 
 # per-head q/k norm scales (qk_norm): float32 [head_dim] leaves, ones at
 # init, as the rmsnorm kernel takes its scale
@@ -29,7 +31,7 @@ def check_supported(spec: AttnSpec) -> None:
     """Raise NotImplementedError for the attention features this port
     does not build yet (no ported config uses them)."""
     unported = {
-        "rope != 'rope' (M-RoPE, no rope)": spec.rope != "rope",
+        "rope='none'": spec.rope == "none",
         "cross-attention": spec.cross,
         "non-causal self-attention": not spec.causal,
         "sliding_window": spec.sliding_window != 0,
@@ -61,6 +63,15 @@ def cache_shape(spec: AttnSpec, batch: int, max_len: int):
     return (batch, spec.n_kv, max_len, spec.head_dim)
 
 
+def _rotary(x, spec: AttnSpec, cfg: ModelConfig, positions):
+    """x [B,S,H,hd] rotated as `spec.rope` says: RoPE at positions [B,S],
+    M-RoPE at [3,B,S]."""
+    if spec.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta,
+                           spec.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def apply(params, x, spec: AttnSpec, cfg: ModelConfig, ctx: Ctx,
           cache=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x [B,S,D] (already normed). Returns (attn_out [B,S,D], cache).
@@ -81,10 +92,8 @@ def apply(params, x, spec: AttnSpec, cfg: ModelConfig, ctx: Ctx,
                            ctx.plain)
         k = rms_norm_heads(k.transpose(1, 2).contiguous(), params["k_scale"],
                            cfg.norm_eps, ctx.plain).transpose(1, 2)
-    pos = ctx.positions
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k.transpose(1, 2), pos,
-                   cfg.rope_theta).transpose(1, 2)
+    q = _rotary(q, spec, cfg, ctx.positions)
+    k = _rotary(k.transpose(1, 2), spec, cfg, ctx.positions).transpose(1, 2)
     scale = 1.0 / math.sqrt(spec.head_dim)
     flash = reference_attention if ctx.plain else flash_attention
 

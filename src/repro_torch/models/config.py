@@ -5,8 +5,8 @@ layer is a tuple of *sublayers* (pre-norm residual units). Groups are
 homogeneous, so their parameters stack along a leading [G] axis exactly as
 in the reference package (the same tree moves between the two packages).
 
-Sublayer kinds (the port builds `attn`, `ffn`, `moe` and `mamba2` so far;
-`models.model` raises NotImplementedError for the rest):
+Sublayer kinds (the port builds every one; `models.model` raises
+NotImplementedError for the attention features it does not build yet):
   AttnSpec    multi-head attention (GQA/MQA/MHA, RoPE or M-RoPE, optional
               cross-attention and cross-stack weight sharing)
   FfnSpec     dense gated/plain MLP

@@ -17,7 +17,7 @@ class Ctx:
     """Per-call context threaded through every sublayer."""
 
     mode: str                          # "train" | "prefill" | "decode"
-    positions: torch.Tensor            # [B,S] int64
+    positions: torch.Tensor            # [B,S] int64; [3,B,S] for M-RoPE
     cache_index: Optional[torch.Tensor] = None   # [B] int64 fill pointers
     compute_dtype: torch.dtype = torch.bfloat16
     # True: the plain PyTorch versions of the kernels, on any device (the
@@ -86,24 +86,41 @@ def rms_norm_heads(x, scale, eps: float = 1e-6, plain: bool = False):
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def _rope_angles(positions, dim: int, theta: float):
-    """positions [...]; returns (sin, cos) each [..., dim/2] in f32."""
-    half = dim // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
-    ang = positions[..., None].float() * freqs
-    return torch.sin(ang), torch.cos(ang)
+def _rope_freqs(half: int, theta: float, device):
+    """The rotary frequencies theta^(-i/half), i < half, in f32."""
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def _rotate(x, ang):
+    """x [B,S,H,D] rotated by angles ang [B,S,D/2] in f32: pairs (x_i,
+    x_{i+half}), out in x's dtype."""
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x, positions, theta: float):
     """x [B,S,H,D]; positions [B,S]. Rotates pairs (x_i, x_{i+half})."""
-    d = x.shape[-1]
-    sin, cos = _rope_angles(positions, d, theta)       # [B,S,half]
-    sin = sin[:, :, None, :]
-    cos = cos[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    freqs = _rope_freqs(x.shape[-1] // 2, theta, positions.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions, theta: float, sections):
+    """M-RoPE (qwen2-vl): x [B,S,H,D]; positions [3,B,S] (t, h, w). The
+    D/2 frequencies split into `sections` bands, band j rotated by
+    stream j; with three equal streams this is `apply_rope` bit for
+    bit."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    pos = positions.float()
+    # each frequency's position: stream j over the j-th band, [B,S,half]
+    # (broadcast views, so no index tensor reaches the device)
+    pos = torch.cat([pos[j, ..., None].expand(*pos.shape[1:], n)
+                     for j, n in enumerate(sections)], dim=-1)
+    return _rotate(x, pos * _rope_freqs(half, theta, positions.device))
 
 
 # ---------------------------------------------------------------------------

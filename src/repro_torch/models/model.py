@@ -21,9 +21,11 @@ attention sublayer keeps a cache for each of its G applications. An
 xLSTM stack's caches hold, a sublayer, the mLSTM's {"C": [G,B,H,P,P+1],
 "conv"} or the sLSTM's {"h", "c", "n", "m": [G,B,H,P], "conv"}.
 
-The port builds attention, FFN, MoE, Mamba-2 and xLSTM (mLSTM and sLSTM)
-stacks; the attention features `attention.check_supported` lists raise
-NotImplementedError.
+The port builds attention (with RoPE or M-RoPE), FFN, MoE, Mamba-2 and
+xLSTM (mLSTM and sLSTM) stacks, on text or on a vision prefix ("vlm":
+precomputed patch embeddings put before the text, qwen2-vl's stub
+frontend). Encoder stacks, the "audio" modality and the attention
+features `attention.check_supported` lists raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("final_logit_softcap is not ported yet")
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    if cfg.modality != "text":
+    if cfg.modality not in ("text", "vlm"):
         raise NotImplementedError(f"modality {cfg.modality!r} is not "
                                   f"ported yet")
     for _, _, _, spec in cfg.sublayers():
@@ -423,17 +425,48 @@ def _logits(params, cfg: ModelConfig, x):
     return torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
 
 
-def _positions(B: int, S: int, device, offset: int = 0):
-    return (torch.arange(S, device=device) + offset)[None].expand(B, S)
+def _mrope(cfg: ModelConfig) -> bool:
+    return any(s.kind == "attn" and s.rope == "mrope"
+               for _, _, _, s in cfg.sublayers())
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, device):
+    """The default positions, the index: [B,S], or [3,B,S] (the same
+    index on the t, h and w streams) for a config with M-RoPE."""
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    return pos[None].expand(3, B, S) if _mrope(cfg) else pos
+
+
+def _decode_positions(cfg: ModelConfig, idx):
+    """A decode step's positions, each slot's fill index idx [B]: [B,1],
+    or [3,B,1] for M-RoPE (the reference's rule: the cache index on all
+    three streams, also after a vision prefix)."""
+    pos = idx[:, None]
+    return pos[None].expand(3, *pos.shape) if _mrope(cfg) else pos
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, dtype, vision_embeds):
+    """The embedded tokens, behind the vision prefix [B,S_vis,D] (cast to
+    `dtype`) for a "vlm" config; any other config ignores it, as the
+    reference does."""
+    x = _embed_tokens(params, cfg, tokens, dtype)
+    if cfg.modality == "vlm" and vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(dtype), x], dim=1)
+    return x
 
 
 def forward(params, cfg: ModelConfig, tokens,
             compute_dtype: torch.dtype = torch.bfloat16,
-            plain: bool = False):
-    """Train-mode forward (no cache). tokens [B,S] -> logits [B,S,V]."""
-    B, S = tokens.shape
-    x = _embed_tokens(params, cfg, tokens, compute_dtype)
-    ctx = Ctx(mode="train", positions=_positions(B, S, tokens.device),
+            plain: bool = False, *, vision_embeds=None, positions=None):
+    """Train-mode forward (no cache). tokens [B,S_tok] -> logits [B,S,V],
+    S counting a "vlm" config's vision prefix `vision_embeds`
+    [B,S_vis,D]. `positions` ([B,S], or [3,B,S] for M-RoPE) replaces the
+    index; the mask stays index-causal."""
+    x = _embed_inputs(params, cfg, tokens, compute_dtype, vision_embeds)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(cfg, B, S, tokens.device)
+    ctx = Ctx(mode="train", positions=positions,
               compute_dtype=compute_dtype, plain=plain)
     x, out = run_stack(params, x, cfg, ctx)
     return _logits(params, cfg, _final_norm(params, cfg, x, out, plain))
@@ -441,17 +474,23 @@ def forward(params, cfg: ModelConfig, tokens,
 
 def prefill(params, cfg: ModelConfig, tokens, cache,
             compute_dtype: torch.dtype = torch.bfloat16,
-            last_index: Optional[int] = None, plain: bool = False):
-    """Fill the cache from a prompt. tokens [B,S]. Returns (cache,
-    last_logits [B,V]); the cache is updated in place.
+            last_index: Optional[int] = None, plain: bool = False, *,
+            vision_embeds=None, positions=None):
+    """Fill the cache from a prompt. tokens [B,S_tok], behind a "vlm"
+    config's vision prefix `vision_embeds` [B,S_vis,D]; `positions`
+    replaces the index, as in `forward`. Returns (cache, last_logits
+    [B,V]); the cache is updated in place.
 
     `last_index` selects which position's logits to return instead of the
-    final one — the serving engine right-pads prompts to power-of-two
-    buckets and needs the logits of the last *real* token; causality
-    keeps positions < last_index unaffected by pads."""
-    B, S = tokens.shape
-    x = _embed_tokens(params, cfg, tokens, compute_dtype)
-    ctx = Ctx(mode="prefill", positions=_positions(B, S, tokens.device),
+    final one, counted over the whole sequence, prefix included — the
+    serving engine right-pads prompts to power-of-two buckets and needs
+    the logits of the last *real* token; causality keeps positions <
+    last_index unaffected by pads."""
+    x = _embed_inputs(params, cfg, tokens, compute_dtype, vision_embeds)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(cfg, B, S, tokens.device)
+    ctx = Ctx(mode="prefill", positions=positions,
               compute_dtype=compute_dtype, plain=plain)
     x, out = run_stack(params, x, cfg, ctx, caches=cache)
     i = S - 1 if last_index is None else int(last_index)
@@ -465,7 +504,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, index,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 plain: bool = False, active=None):
     """One decode step. token [B,1]; index [B] per-slot fill pointers (or
-    an int for all slots); `active` [B] bool, the slots that decode (None:
+    an int for all slots), also the step's positions (on all three
+    streams for M-RoPE); `active` [B] bool, the slots that decode (None:
     every slot): a recurrent sublayer writes its new state only there, so
     a parked slot's state holds (attention writes every slot's K/V at its
     pending position, which the next real decode rewrites). Returns
@@ -476,8 +516,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, index,
     idx = (idx.expand(B) if idx.dim() == 0 else idx).to(torch.int64)
     if active is not None:
         active = torch.as_tensor(active, device=token.device)
-    ctx = Ctx(mode="decode", positions=idx[:, None], cache_index=idx,
-              compute_dtype=compute_dtype, plain=plain, active=active)
+    ctx = Ctx(mode="decode", positions=_decode_positions(cfg, idx),
+              cache_index=idx, compute_dtype=compute_dtype, plain=plain,
+              active=active)
     x, out = run_stack(params, x, cfg, ctx, caches=cache)
     return cache, _logits(params, cfg,
                           _final_norm(params, cfg, x, out, plain))[:, 0]

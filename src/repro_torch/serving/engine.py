@@ -44,6 +44,11 @@ no KV at all: its blob is its mLSTM matrix memories, sLSTM states and
 conv windows, one size whatever the context (`C` before `conv`, then
 `c`, `conv`, `h`, `m`, `n`, in the tree's order).
 
+A "vlm" config (qwen2-vl-2b) is served as the reference engine serves
+it: a request is its tokens alone, with no vision prefix, so its M-RoPE
+positions are the index on all three streams, and its prompts are
+bucketed as any attention config's.
+
 A parked slot keeps its recurrent state: `step` passes the decoding
 slots as `active`, and a recurrent sublayer writes its new state only
 there. (The reference documents the same contract for `park`, but its

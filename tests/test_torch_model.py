@@ -14,7 +14,10 @@ an MoE layer of top-1 routing with an always-on shared expert; GQA 2:1
 reduced, 5:1 at full width) and zamba2-7b (Mamba-2 layers, an attention
 and FFN pair whose weights all groups share, a non-repeating tail of
 Mamba-2 layers; MHA) and xlstm-350m (alternating mLSTM and sLSTM
-sublayers, no attention and no FFN). Native init draws each stacked
+sublayers, no attention and no FFN) and qwen2-vl-2b (M-RoPE, GQA 2:1
+reduced and 6:1 at full width, SwiGLU, tied embeddings; served on tokens
+alone, so its three position streams are the index; the vision prefix
+is held in tests/test_torch_mrope.py). Native init draws each stacked
 weight in place, bit for bit as a draw-then-stack loop would, and a
 stack above `DRAW_SLICE_ELEMENTS` one expert at a time. Caches compare
 leaf by leaf, the tail's and the recurrent state (Mamba-2's, the mLSTM's
@@ -45,7 +48,8 @@ DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
          "mistral-nemo-12b": 12_247_782_400, "granite-20b": 20_013_766_656,
          "qwen3-moe-235b-a22b": 235_093_634_560,
          "llama4-maverick-400b-a17b": 397_691_950_080,
-         "zamba2-7b": 6_635_849_952, "xlstm-350m": 391_533_760}
+         "zamba2-7b": 6_635_849_952, "xlstm-350m": 391_533_760,
+         "qwen2-vl-2b": 1_543_656_960}
 
 
 def _has_moe(cfg) -> bool:
@@ -386,10 +390,11 @@ def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
     x = TM._embed_tokens(tp, cfg, tokens, dtype)
     if mode == "decode":
         idx = torch.as_tensor(index).to(torch.int64)
-        ctx = Ctx(mode=mode, positions=idx[:, None], cache_index=idx,
-                  compute_dtype=dtype, plain=True)
+        ctx = Ctx(mode=mode, positions=TM._decode_positions(cfg, idx),
+                  cache_index=idx, compute_dtype=dtype, plain=True)
     else:
-        ctx = Ctx(mode=mode, positions=TM._positions(B, S, tokens.device),
+        ctx = Ctx(mode=mode,
+                  positions=TM._positions(cfg, B, S, tokens.device),
                   compute_dtype=dtype, plain=True)
     for spec, p, c in TM.stack(tp, cfg, cache):
         h = reference_rmsnorm(x, p["norm"]["scale"], cfg.norm_eps)
@@ -641,7 +646,7 @@ def test_params_from_jax_rejects_a_mismatched_tree(setup):
 
 @pytest.mark.parametrize("change", [
     dict(sliding_window=16), dict(logit_softcap=30.0),
-    dict(rope="mrope"), dict(cross=True)])
+    dict(rope="none"), dict(cross=True)])
 def test_unported_attention_features_raise(change):
     import dataclasses
     cfg = get_config("gemma-2b", reduced=True)

@@ -8,7 +8,8 @@ whose blob holds its Mamba-2 state and conv windows beside the shared
 attention's K/V of each group, the tail's too, and xlstm-350m, whose
 blob is its mLSTM matrix memories, sLSTM states and conv windows, of one
 size whatever the context; both recurrent configs' prompts prefill at
-their exact length), in the tiered-KV serving scenario of
+their exact length, and qwen2-vl-2b, served on tokens alone as the
+reference engine serves it, M-RoPE on the index), in the tiered-KV serving scenario of
 examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
 blobs, so paused sessions really reach flash.
 
@@ -46,8 +47,8 @@ STEP = 5e-3
 @pytest.fixture(scope="module",
                 params=["deepseek-7b", "gemma-2b", "granite-20b",
                         "llama4-maverick-400b-a17b", "mistral-nemo-12b",
-                        "qwen3-moe-235b-a22b", "xlstm-350m",
-                        "zamba2-7b"])
+                        "qwen2-vl-2b", "qwen3-moe-235b-a22b",
+                        "xlstm-350m", "zamba2-7b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
