@@ -307,8 +307,32 @@ Drives the port's serving path on the card and checks it, in phases:
      prefill, 28 decode-attention launches a step and 57 norms each, the
      prefill's wall and kernel time printed; (c) as phase 16, at 7 of its
      28 layers.
+ 23. full-width whisper-medium (24 encoder layers over 1,500 frame
+     embeddings with sinusoidal positions and non-causal self-attention;
+     24 decoder layers of causal self-attention with no positions at all
+     (rope "none"), cross-attention onto the encoder's 1,500 rows and a
+     GELU FFN of 4096; d_model 1024, MHA of 16 heads of 64, LayerNorm,
+     vocab 51865, tied; 1.52 GB of random bf16 weights) through phase
+     16's path, its prompts prefilled at their exact lengths on zero
+     frames as its engine does: (a) flash attention causal at the
+     prompts' lengths and non-causal at the encoder's [1,16,1500,64], at
+     cross-attention from S = 1, 23 and the prompts' lengths onto 1,500
+     rows, at T <= 64, S > T and GQA 4:1, decode attention on the self
+     cache [4,16,1024,64] and on the cross cache [4,16,1500,64] (every
+     slot's length 1,500), and at the config's 32,768 positions, each
+     against its plain version, timed beside SDPA and the bound, and no
+     rmsnorm (its path has none); (b) at all 48 layers: 72 flash
+     launches a prefill, 48 decode-attention launches a step and no
+     rmsnorm, the first-step check, then an audio check (random frames
+     [1,1500,1024] from the seed with a prompt, prefilled and decoded a
+     step through the kernels and the plain path by the first-step rule,
+     the encoder's wall and kernel time printed), the example's flow and
+     a pause of the 496,238,592 B blob (its bf16 cross and self K/V
+     widened to float32) to flash and its prefetched resume, decode
+     windows and the profile; (c) at 6 of its 24 decoder layers, the
+     encoder at full depth.
 
-The first-step check (phases 4 and 13-22) holds the kernels to the plain
+The first-step check (phases 4 and 13-23) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
 path, which runs on the bf16 weights themselves (each cast to float32
 only while it is used), so no phase holds a float32 copy of a model's
@@ -342,6 +366,10 @@ MAX_SLOTS = 4
 MAX_LEN = 1024
 STEP_TIME = 5e-3
 STEADY_NEW = 200               # tokens a request in phase 9's windows
+# tokens a request in the windows of phases 13 and 16-23: with 200 the
+# whole script took 950.7 s of its 1,200 on an NVIDIA H100 80GB HBM3 at
+# 700 W once phase 23 joined it, 254 s of it in those phases' windows
+DENSE_STEADY_NEW = 120
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's ~2 GHz SM clock
 # kernel vs plain version: both accumulate in float32; float32 outputs
 # differ only by summation order, bfloat16 outputs additionally by one
@@ -383,14 +411,17 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "qwen3-moe-235b-a22b": 31_097_723_904,
           "llama4-maverick-400b-a17b": 18_553_267_200,
           "zamba2-7b": 6_636_442_832, "xlstm-350m": 391_730_272,
-          "qwen2-vl-2b": 1_543_656_960}
+          "qwen2-vl-2b": 1_543_656_960, "whisper-medium": 758_002_688}
 # the config's analytic `param_count()` less the tensors native init
 # makes: zamba2-7b's leaves out each Mamba-2 layer's conv bias (7,296)
 # and skip (112) and counts each shared sublayer's norm twice (3,584 x 2);
 # xlstm-350m's counts each mLSTM's gate projection and bias as 4 x 4
-# heads, where w_gates [2048, 8] and b_gates [8] hold 16,392
+# heads, where w_gates [2048, 8] and b_gates [8] hold 16,392;
+# whisper-medium's counts a norm as its scale and leaves out the 122
+# layernorm biases (24 x 3 + 1 in the decoder, 24 x 2 + 1 in the encoder)
 ANALYTIC_GAP = {"zamba2-7b": -81 * (7_296 + 112) + 2 * 3_584,
-                "xlstm-350m": -12 * (2048 * 8 + 8 - 16)}
+                "xlstm-350m": -12 * (2048 * 8 + 8 - 16),
+                "whisper-medium": -122 * 1024}
 # phase 3, rmsnorm: d_model of the repo's configs (64: the reduced ones;
 # 1024: xlstm-350m's; 1536: qwen2-vl-2b's), 128 (qwen3-moe's qk-norm rows, one a head), the
 # TPU kernel's largest and one that is not a multiple of 8; rows of a
@@ -585,30 +616,33 @@ def _decode_record(q, caches, lengths, scale, err) -> dict:
         bound_ms=b_ms, bound_by=b_by)
 
 
-def _flash_record(ins, scale, err) -> dict:
+def _flash_record(ins, scale, err, causal=True) -> dict:
     """flash_attention's times over `ins`, distinct (q, k, v) of one
-    prefill bucket: kernel (device and with launch), plain version,
-    causal SDPA, and the bound of q, k, v and out's bytes and the causal
-    pairs' products."""
+    prefill bucket (or, not `causal`, of one encoder or cross-attention
+    shape): kernel (device and with launch), plain version, SDPA of the
+    same mask, and the bound of q, k, v and out's bytes and the products
+    of the pairs each query sees (the causal half, or all S x T)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ref import reference_attention
 
     _, H, S, hd = ins[0][0].shape
-    KV = ins[0][1].shape[1]
+    KV, T = ins[0][1].shape[1:3]
     size = ins[0][0].element_size()
-    pairs = S * (S + 1) // 2
-    nbytes = (2 * S * H * hd + 2 * S * KV * hd) * size
+    pairs = S * (S + 1) // 2 if causal else S * T
+    nbytes = (2 * S * H * hd + 2 * T * KV * hd) * size
     b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, ins[0][0].dtype)
-    kern = [lambda t=t: flash_attention(*t, scale=scale) for t in ins]
+    kern = [lambda t=t: flash_attention(*t, scale=scale, causal=causal)
+            for t in ins]
+    mode = "" if causal else " non-causal"
     return dict(
-        shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{S},{hd}] bf16",
+        shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{T},{hd}] bf16{mode}",
         max_abs_err=err, ms=_time_ms(kern, iters=20),
         launch_ms=_time_ms(kern, iters=20, queued=False),
         plain_ms=_time_ms([lambda t=t: reference_attention(
-            *t, scale=scale) for t in ins], iters=10),
+            *t, scale=scale, causal=causal) for t in ins], iters=10),
         library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
-            *t, is_causal=True, scale=scale, enable_gqa=True)
+            *t, is_causal=causal, scale=scale, enable_gqa=True)
             for t in ins], iters=20),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -1153,7 +1187,9 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     (every weight reaches the compute through `.to(compute_dtype)`, so
     each matrix is float32 only while it is used; bf16 -> float32 is
     exact, so this is the float32 path on a float32 copy, without the
-    copy). Prints the peak device memory of the check. Returns the
+    copy). A config with an encoder prefills on zero frames, as its
+    engine does, so both stacks run through the kernels and the plain
+    path. Prints the peak device memory of the check. Returns the
     launches per prefill and per decode step.
 
     Routing is a discrete choice: an MoE config's plain paths replay the
@@ -1168,8 +1204,9 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     from repro_torch.models import model as M
 
     S = len(prompt)
-    # a recurrent config prefills at the exact length, as its engine does
-    assert bucket is None or not _recurrent(cfg), bucket
+    # a recurrent config, or one with an encoder, prefills at the exact
+    # length, as its engine does
+    assert bucket is None or not _exact(cfg), bucket
     tokens = np.zeros(bucket or S, np.int64)
     tokens[:S] = prompt
     p0 = torch.as_tensor(tokens[None], device="cuda")
@@ -1177,7 +1214,8 @@ def _first_step(cfg, params, prompt, max_len=MAX_LEN, bucket=None):
     def first_logits(weights, dtype, plain):
         cache = M.init_cache(cfg, 1, max_len, dtype, "cuda")
         return M.prefill(weights, cfg, p0, cache, compute_dtype=dtype,
-                         last_index=S - 1, plain=plain)[1].float()
+                         last_index=S - 1, plain=plain,
+                         frames=_zero_frames(cfg, dtype))[1].float()
 
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -1253,12 +1291,33 @@ def _recurrent(cfg) -> bool:
     return any(s.kind in RECURRENT for _, _, _, s in cfg.sublayers())
 
 
+def _exact(cfg) -> bool:
+    """The engine prefills at the exact prompt length (no power-of-two
+    bucket): a recurrent config, or one with an encoder (the reference
+    buckets only without one)."""
+    return _recurrent(cfg) or cfg.encoder is not None
+
+
+def _zero_frames(cfg, dtype):
+    """The frames the engine prefills a config with an encoder on, zeros
+    [1, n_frames, d_model] (the reference engine's), or None."""
+    import torch
+    if cfg.encoder is None:
+        return None
+    return torch.zeros((1, cfg.encoder.n_frames, cfg.d_model), dtype=dtype,
+                       device="cuda")
+
+
 def _norms(cfg) -> int:
     """rmsnorm launches a forward: one before each sublayer and the final
     norm (the residual adds run inside them), two (q and k) in each
     attention sublayer with qk-norm, and one in each recurrent sublayer
     (Mamba-2's gated norm and the mLSTM's inner norm on float32 rows of
-    d_inner, the sLSTM's on float32 rows of d_model)."""
+    d_inner, the sLSTM's on float32 rows of d_model). None under
+    LayerNorm (whisper's), whose plain float32 ops no TPU kernel
+    computes."""
+    if cfg.norm != "rmsnorm":
+        return 0
     return sum(1 + 2 * bool(getattr(s, "qk_norm", False))
                + (s.kind in RECURRENT) for s in _applied(cfg)) + 1
 
@@ -1297,6 +1356,21 @@ def _attn_layers(cfg) -> int:
     group's (two at llama4's, one at every other config's) times its
     groups, with the tail's."""
     return sum(s.kind == "attn" for s in _applied(cfg))
+
+
+def _enc_attn_layers(cfg) -> int:
+    """The encoder's attention applications (none without an encoder):
+    one flash_attention launch each a prefill, non-causal."""
+    if cfg.encoder is None:
+        return 0
+    return cfg.encoder.n_groups * sum(
+        s.kind == "attn" for layer in cfg.encoder.pattern for s in layer)
+
+
+def _flash_launches(cfg) -> int:
+    """flash_attention launches a prefill: the decoder's attention
+    applications (a cross-attention's too) and the encoder's."""
+    return _attn_layers(cfg) + _enc_attn_layers(cfg)
 
 
 def _moe_layers(cfg) -> int:
@@ -1396,7 +1470,7 @@ def _profile_split(eng, prompts):
     k = 6 if any(s.kind == "slstm" for s in _applied(eng.cfg)) else 5
     reqs = [Request(rid=f"prof{i}", prompt=prompts[j], max_new=MAX_NEW)
             for i, j in enumerate((0, 1, k, k))]
-    pre = ("prefill, bucket 1023" if not _recurrent(eng.cfg) else
+    pre = ("prefill, bucket 1023" if not _exact(eng.cfg) else
            f"prefill, {len(prompts[k])} tokens")
     eng.admit(reqs[0])                     # warm-up
     eng.admit(reqs[1])
@@ -1470,14 +1544,16 @@ def _smi() -> str:
 
 
 def _slot_bytes(cfg, itemsize, max_len=MAX_LEN) -> int:
-    """One slot's cache: every attention application's K and V and every
+    """One slot's cache: every attention application's K and V (a
+    cross-attention's of the encoder's n_frames rows) and every
     recurrent sublayer's conv window at `itemsize` bytes an element, and
     each recurrent state in float32 (the cache holds it so in any dtype):
     Mamba-2's [H,N,P], the mLSTM's matrix memory [H,P,P+1], the sLSTM's
     h, c, n and m [H,P]."""
     def sub(s):
         if s.kind == "attn":
-            return 2 * s.n_kv * max_len * s.head_dim * itemsize
+            rows = cfg.encoder.n_frames if s.cross else max_len
+            return 2 * s.n_kv * rows * s.head_dim * itemsize
         if s.kind == "mamba2":
             d_in = s.expand * cfg.d_model
             return (4 * d_in * s.d_state
@@ -1572,15 +1648,15 @@ def _example_flow(eng, clock, prompts):
     return [r.generated for r in done], [t.name for t in tiers], wall
 
 
-def _decode_window(eng, prompts, tag: str) -> float:
+def _decode_window(eng, prompts, tag: str, new: int = STEADY_NEW) -> float:
     """Decode tokens/s with every slot in use, on the host clock,
-    synchronised: MAX_SLOTS requests of STEADY_NEW tokens are admitted
+    synchronised: MAX_SLOTS requests of `new` tokens are admitted
     (their prefills outside the window), then the timed steps run until
     all finish together."""
     import torch
     from repro_torch.serving import Request
 
-    reqs = [Request(rid=f"{tag}{i}", prompt=p, max_new=STEADY_NEW)
+    reqs = [Request(rid=f"{tag}{i}", prompt=p, max_new=new)
             for i, p in enumerate(prompts[:MAX_SLOTS])]
     for r in reqs:
         eng.admit(r)
@@ -1592,7 +1668,7 @@ def _decode_window(eng, prompts, tag: str) -> float:
         eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    assert all(len(r.generated) == STEADY_NEW for r in reqs)
+    assert all(len(r.generated) == new for r in reqs)
     return (sum(len(r.generated) for r in reqs) - before) / wall
 
 
@@ -3447,14 +3523,16 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-# (c)'s depth in phases 13, 16, 17, 18, 21 and 22, a quarter of each
+# (c)'s depth in phases 13, 16, 17, 18 and 21-23, a quarter of each
 # config's layers (its (b) serves all of them): the scheduler's run is
 # host launches a layer (38 s at deepseek-7b's 30 layers, 47 s at
 # mistral-nemo-12b's 40, 56 s at granite-20b's 52, 26 s at qwen3-moe's
 # 12, 40.7 s at xlstm-350m's 24 before its sLSTM scan replayed CUDA
 # graphs, where a decode step is ~1,300 launches, 28.2 s at
 # qwen2-vl-2b's 28, when the whole script took 856.6 s), and the whole
-# script is held near 800 s with phases 19-22 in it. Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
+# script is held near 850 s with phases 19-23 in it (whisper-medium's
+# (c) at 6 of its 24 decoder layers from its first run, its encoder at
+# full depth). Phase 20 serves (b) and (c) at ZAMBA_GROUPS of
 # zamba2-7b's 13 groups and its tail (15 of 81 layers, two applications
 # of the shared attention): a decode step is ~3,900 launches at full
 # depth, 128 ms of host time (0.875 device-idle); its native init and
@@ -3463,13 +3541,14 @@ ZAMBA_GROUPS = 2
 WORKLOAD_GROUPS = {"deepseek-7b": 8, "mistral-nemo-12b": 10,
                    "granite-20b": 13, "qwen3-moe-235b-a22b": 3,
                    "zamba2-7b": ZAMBA_GROUPS, "xlstm-350m": 3,
-                   "qwen2-vl-2b": 7}
+                   "qwen2-vl-2b": 7, "whisper-medium": 6}
 SERVE_GROUPS = {"zamba2-7b": ZAMBA_GROUPS}
 MOE_ARCH = "qwen3-moe-235b-a22b"
 TOP1_ARCH = "llama4-maverick-400b-a17b"
 SSM_ARCH = "zamba2-7b"
 XLSTM_ARCH = "xlstm-350m"
 VL_ARCH = "qwen2-vl-2b"
+AUDIO_ARCH = "whisper-medium"
 # phase 22's vision-prefix prompt: a VISION_GRID x VISION_GRID grid of
 # patch embeddings, then text to MAX_LEN - 1 positions; over the image
 # h = VISION_OFFSETS[0] + row and w = VISION_OFFSETS[1] + column, and t
@@ -3478,9 +3557,23 @@ VL_ARCH = "qwen2-vl-2b"
 VISION_GRID = 16
 VISION_OFFSETS = (3, 5)
 # a paused session's blob where its size is known from the reference's
-# `init_cache` (jax.eval_shape): xlstm-350m's, the same at any context
-BLOB_BYTES = {"xlstm-350m": 51_068_928}
-WINDOWS = 3                    # phases 13 and 16-22's decode windows
+# `init_cache` (jax.eval_shape): xlstm-350m's, the same at any context;
+# whisper-medium's at MAX_LEN positions, its bf16 leaves (147,456,000 B
+# of cross K/V of the 1,500 encoder rows, one size at any context, and
+# 100,663,296 B of self K/V) widened to float32
+BLOB_BYTES = {"xlstm-350m": 51_068_928, "whisper-medium": 496_238_592}
+# phase 23's non-causal flash attention beside the encoder's and the
+# prompts' shapes: (S, T, kv heads, what): one query and a ragged prompt
+# onto the encoder's rows, T within one 64-key tile (the bf16 kernel's
+# second warpgroup then has no tile) with S below and above it, S above
+# T across tiles, and GQA 4:1 onto the encoder's rows
+AUDIO_FLASH_EDGES = ((1, None, None, "cross, one query"),
+                     (23, None, None, "cross, ragged S"),
+                     (23, 40, None, "T <= 64"),
+                     (100, 40, None, "S > T, T <= 64"),
+                     (300, 130, None, "S > T"),
+                     (77, None, 4, "GQA 4:1"))
+WINDOWS = 3                    # phases 13 and 16-23's decode windows
 EXPERT_STEPS = 64              # phases 18 and 19 (d)'s decode steps replayed
 
 
@@ -3513,7 +3606,8 @@ def _dense_kernels(cfg, lengths_main, buckets):
     layer (distinct caches, so each call finds its own cold in L2 as a
     layer does); flash_attention at every prefill bucket, in the
     prefill's strided layout too. A config without attention (xlstm-350m)
-    takes rmsnorm's part alone."""
+    takes rmsnorm's part alone, and one under LayerNorm (whisper-medium,
+    whose path launches no rmsnorm) its attention parts alone."""
     import torch
     from repro_torch.kernels import (add_rmsnorm, decode_attention,
                                      flash_attention, rmsnorm)
@@ -3533,7 +3627,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # ---- rmsnorm and add_rmsnorm ------------------------------------------
-    for dt in (torch.float32, bf16):
+    for dt in ((torch.float32, bf16) if _norms(cfg) else ()):
         name = str(dt).split(".")[1]
         for rows in (MAX_SLOTS, max(buckets)):
             x, r = randn(rows, D, dtype=dt), randn(rows, D, dtype=dt)
@@ -3545,7 +3639,7 @@ def _dense_kernels(cfg, lengths_main, buckets):
             _check("add_rmsnorm", normed, want_n, name,
                    f"[{rows},{D}] {name}")
             assert torch.equal(summed, want_s), f"sum [{rows},{D}] {name}"
-    for rows in (MAX_SLOTS, max(buckets)):
+    for rows in ((MAX_SLOTS, max(buckets)) if _norms(cfg) else ()):
         _rmsnorm_times(D, eps, rows)
     if not _attn_layers(cfg):
         return
@@ -3950,6 +4044,187 @@ def _vision_check(cfg, params, card):
     torch.cuda.empty_cache()
 
 
+def _audio_kernels(cfg, buckets):
+    """The attention of an encoder-decoder (whisper-medium) at its own
+    shapes, beyond `_dense_kernels`' causal flash and self-cache decode:
+    flash_attention with causal=False at the encoder's self-attention
+    (q, k, v [1,H,F,hd], F the n_frames rows), at its cross-attention
+    from each prompt length and `AUDIO_FLASH_EDGES`' shapes onto the F
+    rows (and the prefill's own layout, k and v a transposed projection),
+    in float32 and bf16 against the plain version (TOL), then timed in
+    bf16 at the encoder's shape and at S = 1, 23 and the longest prompt
+    beside SDPA (is_causal=False) and the bound; decode_attention on the
+    cross cache, q [slots,H,hd] on k, v [slots,KV,F,hd] with every slot's
+    length F, checked and timed over distinct caches (past L2)."""
+    import torch
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    enc = next(s for layer in cfg.encoder.pattern for s in layer
+               if s.kind == "attn")
+    cross = next(s for s in _attn_specs(cfg) if s.cross)
+    assert not enc.causal and not cross.causal, (enc, cross)
+    H, KV, hd, F_ = cross.n_heads, cross.n_kv, cross.head_dim, \
+        cfg.encoder.n_frames
+    scale = 1.0 / math.sqrt(hd)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = [(F_, F_, KV, "encoder self-attention")]
+    cases += [(S, F_, KV, "cross, a prompt's length") for S in buckets]
+    cases += [(S, T or F_, kv or KV, what)
+              for S, T, kv, what in AUDIO_FLASH_EDGES]
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for S, T, kv, what in cases:
+            q, k, v = (randn(1, n, t, hd, dtype=dt)
+                       for n, t in ((H, S), (kv, T), (kv, T)))
+            _check("flash_attention",
+                   flash_attention(q, k, v, scale=scale, causal=False),
+                   reference_attention(q, k, v, scale=scale, causal=False),
+                   name, f"non-causal S={S} T={T} KV={kv} {name}")
+        # the cross-attention's layout at prefill: q a transposed [B,S,H,hd]
+        # projection, k and v transposed [B,F,KV,hd] projections
+        S = max(buckets)
+        q = randn(1, S, H, hd, dtype=dt).transpose(1, 2)
+        k, v = (randn(1, F_, KV, hd, dtype=dt).transpose(1, 2)
+                for _ in "kv")
+        _check("flash_attention",
+               flash_attention(q, k, v, scale=scale, causal=False),
+               reference_attention(q, k, v, scale=scale, causal=False),
+               name, f"non-causal strided views S={S} T={F_} {name}")
+    for S in (F_, 1, 23, max(buckets)):
+        ins = [tuple(randn(1, n, t, hd, dtype=torch.bfloat16)
+                     for n, t in ((H, S), (KV, F_), (KV, F_)))
+               for _ in range(4)]
+        err = _check("flash_attention",
+                     flash_attention(*ins[0], scale=scale, causal=False),
+                     reference_attention(*ins[0], scale=scale,
+                                         causal=False),
+                     "bfloat16", f"timed non-causal S={S} T={F_} bf16")
+        _print_record("flash_attention",
+                      _flash_record(ins, scale, err, causal=False))
+
+    full = torch.full((MAX_SLOTS,), F_, dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        q = randn(MAX_SLOTS, H, hd, dtype=dt)
+        k, v = (randn(MAX_SLOTS, KV, F_, hd, dtype=dt) for _ in "kv")
+        _check("decode_attention",
+               decode_attention(q, k, v, full, scale=scale),
+               reference_decode_attention(q, k, v, full, scale=scale),
+               name, f"cross cache T={F_} lengths {F_} {name}")
+    one = 2 * MAX_SLOTS * KV * F_ * hd * 2
+    caches = [tuple(randn(MAX_SLOTS, KV, F_, hd, dtype=torch.bfloat16)
+                    for _ in "kv") for _ in range(L2_BYTES // one + 2)]
+    q = randn(MAX_SLOTS, H, hd, dtype=torch.bfloat16)
+    err = _check("decode_attention",
+                 decode_attention(q, *caches[0], full, scale=scale),
+                 reference_decode_attention(q, *caches[0], full,
+                                            scale=scale),
+                 "bfloat16", f"timed cross cache T={F_} bf16")
+    _print_record("decode_attention",
+                  _decode_record(q, caches, full, scale, err))
+    del caches
+    torch.cuda.empty_cache()
+
+
+def _audio_check(cfg, params, prompt, card):
+    """Random frame embeddings [1, n_frames, d_model] (unit normal in bf16
+    from SEED, the scale of the sinusoidal table they are added to; the
+    reference's `concrete_batch` draws them at 0.02, under which they move
+    the logits by about the bf16 noise, 0.031 against 0.026 on an H100)
+    and `prompt` prefilled and decoded one step through the kernels
+    against the plain path on the same bf16 weights, by `_first_step`'s
+    rule
+    (within twice the plain bf16 path's distance from the float32 path):
+    the prefill's last logits, then a decode step's of the kernel path's
+    greedy token. The engine only feeds zero frames, so this is where
+    input that is not zero reaches the encoder on the card; the logits'
+    distance from those of zero frames is printed. A prefill launches
+    flash attention once an encoder layer (non-causal) and twice a
+    decoder layer (causal self-, non-causal cross-attention), no decode
+    attention and no rmsnorm; a step decode attention twice a decoder
+    layer. Prints the encoder's wall (host clock, synchronised) and its
+    device kernel time under the profiler."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import Ctx
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = torch.randn((1, cfg.encoder.n_frames, cfg.d_model),
+                         generator=gen, device="cuda", dtype=torch.bfloat16)
+    toks = torch.as_tensor(prompt[None].astype("int64"), device="cuda")
+    S = toks.shape[1]
+
+    def run(dtype, plain, fr, tok=None):
+        cache = M.init_cache(cfg, 1, MAX_LEN, dtype, "cuda")
+        _, pre = M.prefill(params, cfg, toks, cache, compute_dtype=dtype,
+                           plain=plain, frames=fr)
+        if tok is None:
+            tok = pre.argmax(-1, keepdim=True)
+        _, dec = M.decode_step(params, cfg, tok, cache, S,
+                               compute_dtype=dtype, plain=plain)
+        return pre.float(), dec.float(), tok
+
+    kern_pre, kern_dec, tok = run(torch.bfloat16, False, frames)
+    plain = run(torch.bfloat16, True, frames, tok)
+    truth = run(torch.float32, True, frames, tok)
+    silent = run(torch.bfloat16, False, torch.zeros_like(frames), tok)
+    for i, what in enumerate(("prefill's last", "decode step's")):
+        kern = (kern_pre, kern_dec)[i]
+        err = float((kern - plain[i]).abs().max())
+        noise = float((plain[i] - truth[i]).abs().max())
+        moved = float((kern - silent[i]).abs().max())
+        print(f"  audio: the {what} logits [1,{cfg.vocab}] (frames [1,"
+              f"{cfg.encoder.n_frames},{cfg.d_model}], {S} tokens): "
+              f"kernels vs plain bf16 max_abs_err={err:.4e}; plain bf16 vs "
+              f"float32 {noise:.4e}; argmax {int(kern.argmax())} / "
+              f"{int(plain[i].argmax())} / {int(truth[i].argmax())}; "
+              f"{moved:.4e} from the logits on zero frames")
+        assert err <= 2 * noise, (what, err, noise)
+        assert bool(torch.isfinite(kern).all()), what
+    del plain, truth, silent
+    cache = M.init_cache(cfg, 1, MAX_LEN, torch.bfloat16, "cuda")
+    kernels.reset_launch_counts()
+    M.prefill(params, cfg, toks, cache, frames=frames)
+    per_prefill = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    M.decode_step(params, cfg, tok, cache, S)
+    per_step = kernels.launch_counts()
+    print(f"  audio: launches of the prefill {per_prefill}, of a decode "
+          f"step {per_step}")
+    serving = {"rmsnorm": 0, "flash_attention": _flash_launches(cfg),
+               "decode_attention": 0}
+    assert {k: per_prefill[k] for k in serving} == serving, per_prefill
+    serving.update(flash_attention=0, decode_attention=_attn_layers(cfg))
+    assert {k: per_step[k] for k in serving} == serving, per_step
+    ctx = Ctx(mode="train", positions=None, compute_dtype=torch.bfloat16)
+    _, wall = _timed(M.run_encoder, params, frames, cfg, ctx)
+    _, wall = _timed(M.run_encoder, params, frames, cfg, ctx)
+    kern, prof_wall = _profiled(lambda: M.run_encoder(params, frames, cfg,
+                                                      ctx))
+    busy = sum(e.self_device_time_total for e in kern) / 1e3     # ms
+    flash = sum(e.self_device_time_total for e in kern
+                if "flash_" in e.key) / 1e3
+    n_flash = sum(e.count for e in kern if "flash_" in e.key)
+    print(f"  audio: the encoder ({cfg.encoder.n_groups} layers over "
+          f"{cfg.encoder.n_frames} frames) in {wall * 1e3:.3f} ms of wall "
+          f"(host clock, synchronised, second run); under the profiler "
+          f"{busy:.3f} ms of device kernels in {prof_wall * 1e3:.3f} ms, "
+          f"{n_flash} flash attention kernels {flash:.4f} ms, device-idle "
+          f"share {1 - busy / (wall * 1e3):.3f} of the unprofiled wall "
+          f"[{card}]")
+    assert not busy or n_flash == _enc_attn_layers(cfg), n_flash
+    torch.cuda.empty_cache()
+
+
 def _park_check(eng, prompts):
     """Two sessions (the prompts after the six served) decode without a
     break, then again with the first parked three steps in while the
@@ -4197,7 +4472,17 @@ def phase_dense(cfg, prompts, label, long_context=False):
     and adds the sLSTM scan's launches and time a step to (b). A "vlm"
     config (phase 22: qwen2-vl-2b, M-RoPE, GQA of 12 query heads on 2 kv
     heads of 128, SwiGLU, tied) adds a vision-prefix prefill and decode
-    step to (b), held to the plain path after the first-step check.
+    step to (b), held to the plain path after the first-step check. An
+    encoder-decoder (phase 23: whisper-medium, 24 encoder and 24 decoder
+    layers of MHA, 16 heads of 64, the decoder's cross-attention onto the
+    encoder's 1,500 rows, LayerNorm, GELU, tied) prefills at the exact
+    prompt lengths on zero frames, as its engine does: (a) adds
+    `_audio_kernels` (non-causal flash attention, decode attention on the
+    cross cache) and skips rmsnorm, which its path never launches; (b)
+    counts 72 flash launches a prefill (24 of them the encoder's) and adds
+    `_audio_check` on random frames after the first-step check; (c) cuts
+    the decoder's groups and keeps the encoder at its full depth (it runs
+    once an admission).
     Returns the launches of (b), (c) and (d)."""
     import torch
     from repro_torch import kernels
@@ -4213,7 +4498,7 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     torch.cuda.reset_peak_memory_stats()
     recurrent = _recurrent(cfg)
-    lengths_main, buckets = _path_shapes(prompts, exact=recurrent)
+    lengths_main, buckets = _path_shapes(prompts, exact=_exact(cfg))
     attn = _attn_specs(cfg)[0] if _attn_layers(cfg) else None
     ffn = _ffn_spec(cfg)
     blob = _blob_bytes(cfg)
@@ -4225,8 +4510,17 @@ def phase_dense(cfg, prompts, label, long_context=False):
           f"{'no FFN' if ffn is None else f'{ffn.act} d_ff {ffn.d_ff}'}, "
           f"vocab {cfg.vocab}, tied {cfg.tie_embeddings}; a paused blob "
           f"{blob} B; prompts {[len(p) for p in prompts]}, "
-          f"{'prefill lengths' if recurrent else 'buckets'} "
+          f"{'prefill lengths' if _exact(cfg) else 'buckets'} "
           f"{buckets}, decode lengths {lengths_main.tolist()}")
+    if cfg.encoder is not None:
+        print(f"  {cfg.name}: an encoder of {cfg.encoder.n_groups} layers "
+              f"over {cfg.encoder.n_frames} frames (non-causal "
+              f"self-attention, sinusoidal positions), each decoder layer "
+              f"self-attention (rope {attn.rope}), cross-attention onto the"
+              f" encoder's rows and an FFN; {cfg.norm}; "
+              f"{_flash_launches(cfg)} flash attention launches a prefill, "
+              f"{_attn_layers(cfg)} decode attention launches a step, "
+              f"{_norms(cfg)} rmsnorm launches")
     xl = {s.kind: s for s in _applied(cfg) if s.kind in ("mlstm", "slstm")}
     if xl:
         m, sl = xl["mlstm"], xl["slstm"]
@@ -4286,6 +4580,8 @@ def phase_dense(cfg, prompts, label, long_context=False):
         _qk_norm_rows(cfg, buckets)
     if recurrent:
         _inner_norm_rows(cfg, buckets)
+    if cfg.encoder is not None:
+        _audio_kernels(cfg, buckets)
     if long_context:
         _long_decode(cfg)
     peaks = {"(a)": torch.cuda.max_memory_allocated()}
@@ -4301,7 +4597,11 @@ def phase_dense(cfg, prompts, label, long_context=False):
     if cfg.modality == "vlm":
         parts["vision-prefix check"] = _timed(_vision_check, cfg, params,
                                               card)[1]
-    assert per_prefill["flash_attention"] == _attn_layers(cfg), per_prefill
+    if cfg.encoder is not None:
+        parts["audio check"] = _timed(_audio_check, cfg, params, prompts[0],
+                                      card)[1]
+    assert per_prefill["flash_attention"] == _flash_launches(cfg), \
+        per_prefill
     assert per_step["decode_attention"] == _attn_layers(cfg), per_step
     bcfg, bparams = _at_depth(cfg, params, SERVE_GROUPS.get(cfg.name))
     if bcfg is not cfg:
@@ -4349,12 +4649,14 @@ def phase_dense(cfg, prompts, label, long_context=False):
         # for (d)
         with (_routes() if moe is not None and i == 0
               else contextlib.nullcontext()) as noted:
-            tps.append(_decode_window(eng, prompts, f"w{i}-"))
+            tps.append(_decode_window(eng, prompts, f"w{i}-",
+                                      DENSE_STEADY_NEW))
         if moe is not None and i == 0:
             routings = _decode_routings(noted, cfg)[:EXPERT_STEPS]
     parts["decode windows"] = time.perf_counter() - t_windows
     tps.sort()
-    print(f"  decode windows, {MAX_SLOTS} slots live for {STEADY_NEW - 1} "
+    print(f"  decode windows, {MAX_SLOTS} slots live for "
+          f"{DENSE_STEADY_NEW - 1} "
           f"steps each, tokens/s (host clock, synchronised): median "
           f"{tps[len(tps) // 2]!r}, range {tps[0]!r} - {tps[-1]!r} over "
           f"{len(tps)} windows [{card}]")
@@ -4375,8 +4677,8 @@ def phase_dense(cfg, prompts, label, long_context=False):
     depth = ("" if wcfg is cfg else
              f" at {wcfg.n_layers} of its {cfg.n_layers} layers (views of "
              f"the first {wcfg.n_groups} groups' weights: the run's wall is "
-             f"host launches a layer, and the whole script is held to 800 "
-             f"s)")
+             f"host launches a layer, and the whole script is held near "
+             f"850 s)")
     print(f"  (c) Platform.scheduler -> run(Platform.jobs()){depth} "
           f"[{card}]")
     torch.cuda.reset_peak_memory_stats()
@@ -4407,6 +4709,9 @@ def phase_dense(cfg, prompts, label, long_context=False):
         if name in ATTENTION_KERNELS and attn is None:
             assert n == 0, f"{name} launched {n} times in {label}, " \
                 f"a config without attention"
+        elif name == "rmsnorm" and not _norms(cfg):
+            assert n == 0, f"rmsnorm launched {n} times in {label}, " \
+                f"a config under {cfg.norm}"
         else:
             assert n > 0, f"{name} never launched in {label}"
     del platform, sched, jobs, params, wparams
@@ -5290,6 +5595,16 @@ def main() -> int:
     vl = phase_dense(vl_cfg, _prompts(vl_cfg.vocab, N_REQUESTS + 2,
                                       np.random.default_rng(SEED)),
                      "phase 22", long_context=True)
+    au_cfg = get_config(AUDIO_ARCH)
+    print(f"[23] full-width {AUDIO_ARCH} ({au_cfg.encoder.n_groups} "
+          f"encoder and {au_cfg.n_layers} decoder layers, cross-attention "
+          f"onto {au_cfg.encoder.n_frames} frames, LayerNorm) through the "
+          f"kernels, the platform and the scheduler, an audio prefill on "
+          f"random frames, and decode attention at its "
+          f"{au_cfg.max_seq}-position context")
+    audio = phase_dense(au_cfg, _prompts(au_cfg.vocab, N_REQUESTS + 2,
+                                         np.random.default_rng(SEED)),
+                        "phase 23", long_context=True)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -5300,12 +5615,12 @@ def main() -> int:
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
                "phase18": qwen, "phase19": llama, "phase20": zamba,
-               "phase21": xlstm, "phase22": vl}
+               "phase21": xlstm, "phase22": vl, "phase23": audio}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
-    # a path that holds a kernel at 0 (phase 21's attention kernels) does
-    # not replace the newest path that ran it
+    # a path that holds a kernel at 0 (phase 21's attention kernels, phase
+    # 23's rmsnorm) does not replace the newest path that ran it
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama, zamba, xlstm, vl):
+                 granite, qwen, llama, zamba, xlstm, vl, audio):
         counts.update({name: n for name, n in path.items() if n})
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

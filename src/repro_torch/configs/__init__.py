@@ -1,8 +1,10 @@
 """Architecture registry: the reference package's 10 architectures (+
 reduced smoke variants). `get_config` builds those the port can already
 run and raises NotImplementedError for the others. The dense
-attention + FFN family, the MoE family, the Mamba-2 hybrid, xLSTM and the
-vision-language backbone (qwen2-vl-2b) are ported one config at a time."""
+attention + FFN family, the MoE family, the Mamba-2 hybrid, xLSTM, the
+vision-language backbone (qwen2-vl-2b) and the encoder-decoder
+(whisper-medium) are ported, one config at a time: every one of the
+ten."""
 from __future__ import annotations
 
 import importlib
@@ -23,12 +25,13 @@ ARCHS = (
 
 # archs with a config module in this package: the dense attention + FFN
 # family, the MoE configs, zamba2's Mamba-2 stack with its shared
-# attention, xlstm's mLSTM / sLSTM stack and qwen2-vl's M-RoPE backbone
-# with its vision prefix (without the features models.model does not
-# build yet), one config at a time
+# attention, xlstm's mLSTM / sLSTM stack, qwen2-vl's M-RoPE backbone
+# with its vision prefix and whisper's encoder and cross-attending
+# decoder (without the features models.model does not build yet), one
+# config at a time
 PORTED = ("gemma-2b", "deepseek-7b", "mistral-nemo-12b", "granite-20b",
           "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b",
-          "xlstm-350m", "qwen2-vl-2b")
+          "xlstm-350m", "qwen2-vl-2b", "whisper-medium")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -1,20 +1,28 @@
-// Flash-attention forward: causal GQA attention with an online softmax, so
-// the [S, T] score matrix never exists in device memory. Query i sees keys
-// 0..i (the serving path's prefill; the reference's non-causal mode has no
-// caller on it).
+// Flash-attention forward: GQA attention with an online softmax, so the
+// [S, T] score matrix never exists in device memory, in both of the
+// reference's modes. Causal (query i sees keys 0..i): the decoders'
+// self-attention at prefill. Non-causal (every query sees all T keys, and
+// T may differ from S): whisper's encoder self-attention over its 1,500
+// frames (S = T), and its decoder's cross-attention from a prompt of S
+// tokens onto the encoder's 1,500 rows (S != T).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention_fwd / _flash_fwd_kernel), whose grid walks the kv
-// blocks of each (batch, head, q block) in order with (m, l, acc) in VMEM
-// scratch, reads the kv head h // (H / KV), and skips blocks wholly above
-// the diagonal.
+// (flash_attention_fwd / _flash_fwd_kernel, `causal: bool`), whose grid
+// walks the kv blocks of each (batch, head, q block) in order with (m, l,
+// acc) in VMEM scratch, reads the kv head h // (H / KV), and, when causal,
+// skips blocks wholly above the diagonal.
 //
-// Bound on the H100: operations. A prefill of S tokens with H heads of
-// head_dim hd does 4 * S(S+1)/2 * hd * H flops (two products over the
-// causal half) against 2 * S * hd * (H + KV) bf16 values read and written:
-// at gemma-2b's S = 1023, H = 8, KV = 1, hd = 256 that is 4.3 GFLOP over
-// 9.4 MB, ~460 flops a byte, above the card's ~295, so the tensor cores
-// (NVIDIA's published 989 TFLOP/s dense bf16) bound it: 4.3 us.
+// Bound on the H100: operations where the products outweigh the bytes. A
+// causal prefill of S tokens with H heads of head_dim hd does
+// 4 * S(S+1)/2 * hd * H flops (two products over the causal half) against
+// 2 * S * hd * (H + KV) bf16 values read and written: at gemma-2b's
+// S = 1023, H = 8, KV = 1, hd = 256 that is 4.3 GFLOP over 9.4 MB, ~460
+// flops a byte, above the card's ~295, so the tensor cores (NVIDIA's
+// published 989 TFLOP/s dense bf16) bound it: 4.3 us. A non-causal call
+// does 4 * S * T * hd * H flops against (2 * S * H + 2 * T * KV) * hd
+// values: whisper's encoder [1,16,1500,64] 9.2 GFLOP, ~9.3 us on the
+// tensor cores; its cross-attention at S = 100 onto T = 1500 0.61 GFLOP
+// against 6.1 MB, so bytes bound it there (~1.8 us).
 //
 // Two kernels, chosen by the input type:
 //
@@ -67,11 +75,12 @@
 // form each row's max and sum, and the 4 x head_dim/32 output
 // accumulators stay in registers.
 //
-// Both: masks are those of kernel.py:59-65, k_idx < T and q_idx >= k_idx;
-// kv tiles past the diagonal are not loaded. Key and value rows past T are
-// zero in shared memory (the float32 kernel writes zeros, the TMA unit
-// fills them), and the k_idx < T mask stays explicit: a zero key scores 0,
-// not -inf.
+// Both: masks are those of kernel.py:59-65, k_idx < T, and q_idx >= k_idx
+// when causal; causal kv tiles past the diagonal are not loaded, and a
+// non-causal block walks all ceil(T / tile) of them. Key and value rows
+// past T are zero in shared memory (the float32 kernel writes zeros, the
+// TMA unit fills them), and the k_idx < T mask stays explicit: a zero key
+// scores 0, not -inf. Query rows past S are zero too and are not written.
 #include <math.h>
 #include <stdint.h>
 
@@ -99,7 +108,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int KV, int S, int T_, int hd, long long q_sb,
                  long long q_sh, long long q_ss, long long k_sb,
                  long long k_sh, long long k_st, long long v_sb,
-                 long long v_sh, long long v_st, float scale) {
+                 long long v_sh, long long v_st, float scale, int causal) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* q_s = smem;                 // [kBQ][ld]
@@ -131,8 +140,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + b * k_sb + g * k_sh;
   const float* vb = v + b * v_sb + g * v_sh;
-  // keys past the tile's last query row are above the diagonal
-  const int k_end = min(T_, q0 + kBQ);
+  // causal: keys past the tile's last query row are above the diagonal
+  const int k_end = causal ? min(T_, q0 + kBQ) : T_;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // previous tile consumed; q tile stored
     for (int i = threadIdx.x; i < kBK * hd; i += kFlashThreads) {
@@ -164,7 +173,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int qi = q0 + warp + 8 * i;
-      const bool ok = kj < T_ && qi >= kj;
+      const bool ok = kj < T_ && (!causal || qi >= kj);
       const float si = ok ? s[i] * scale : -INFINITY;
       // key 0 of the first tile is valid for every row, so m_new is
       // finite from the first tile on
@@ -271,7 +280,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 }
 
 // Online softmax of one score tile, in place: mask (only the block's last
-// tile can hold keys past T or above the diagonal), new row maxima m and
+// tile can hold keys past T or, when causal, above the diagonal), new row
+// maxima m and
 // sums l, the output rows rescaled, and p packed as the A operand of p v
 // (16 keys a step, two 8-key accumulator groups). A thread holds rows
 // q_row and q_row + 8 of its warp's 16; the quad of lanes sharing them
@@ -280,7 +290,7 @@ template <int HD>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], uint32_t (&p)[kTK / 16][4], float (&o)[HD / 2],
     float (&m)[2], float (&l)[2], int q_row, int k0, int T_, int tq,
-    bool edge, float sl2) {
+    bool edge, bool causal, float sl2) {
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int qi = q_row + 8 * ri;
@@ -291,15 +301,16 @@ __device__ __forceinline__ void softmax_tile(
       for (int e = 0; e < 2; ++e) {
         const int kj = k0 + nt * 8 + 2 * tq + e;
         float x = s[4 * nt + 2 * ri + e] * sl2;
-        if (edge && (kj >= T_ || kj > qi)) x = -INFINITY;
+        if (edge && (kj >= T_ || (causal && kj > qi))) x = -INFINITY;
         s[4 * nt + 2 * ri + e] = x;
         mx = fmaxf(mx, x);
       }
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // every row has a valid key in each tile (key 0, or a key at or
-    // below the diagonal), so m_new is finite from the first tile on
+    // every row has a valid key in each tile (its first key k0 < T, which
+    // is at or below the diagonal when causal), so m_new is finite from
+    // the first tile on
     const float m_new = fmaxf(m[ri], mx);
     const float corr = exp2f(m[ri] - m_new);
     float sum = 0.f;
@@ -337,7 +348,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, int H, int KV, int S,
-                   int T_, float sl2) {
+                   int T_, float sl2, int causal) {
   using L = FlashSmem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -359,9 +370,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = h / (H / KV);
   const int q0 = qt * kTQ;
   const int q_row = q0 + warp * 16 + gr;
-  // keys past the tile's last query row are above the diagonal; warpgroup
-  // 0 takes the first half of the kv tiles, warpgroup 1 the rest
-  const int n_tiles = (min(T_, q0 + kTQ) + kTK - 1) / kTK;
+  // causal: keys past the tile's last query row are above the diagonal;
+  // non-causal: all T keys (with T <= 64, one tile, and warpgroup 1 has
+  // none). Warpgroup 0 takes the first half of the kv tiles, warpgroup 1
+  // the rest
+  const int n_tiles = ((causal ? min(T_, q0 + kTQ) : T_) + kTK - 1) / kTK;
   const int half = (n_tiles + 1) / 2;
   const int j_begin = wg == 0 ? 0 : half;
   const int j_end = wg == 0 ? half : n_tiles;
@@ -402,7 +415,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_tile<HD>(k_s, &tm_k, bar_k, (j + 1) * kTK, g, b);
 
     softmax_tile<HD>(s, p, o, m, l, q_row, j * kTK, T_, tq,
-                     j == n_tiles - 1, sl2);
+                     j == n_tiles - 1, causal != 0, sl2);
 
     mbar_wait(bar_v, parity);
     fence_regs(o);        // the rescale and p stay before the fence
@@ -465,7 +478,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int B, int H, int KV, int S, int T_, int hd,
                const long long* qs, const long long* ks, const long long* vs,
-               float scale, cudaStream_t st) {
+               float scale, int causal, cudaStream_t st) {
   const size_t smem = flash_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -476,7 +489,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, KV, S, T_,
       hd, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      scale);
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,7 +497,7 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int H, int KV, int S, int T_, const long long* qs,
                 const long long* ks, const long long* vs, float scale,
-                cudaStream_t st) {
+                int causal, cudaStream_t st) {
   if (B > 65535 || (S + kTQ - 1) / kTQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
@@ -502,7 +515,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(H, B, (S + kTQ - 1) / kTQ);
   flash_wgmma_kernel<HD><<<grid, kWarpgroups * kWgThreads, smem, st>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), H, KV, S, T_,
-      scale * kLog2e);
+      scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,14 +525,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // *_sb, *_sh, *_st); the last dim of each is contiguous. out [B,H,S,hd]
 // contiguous. float32: hd % 32 == 0 and hd <= 256. bfloat16: hd 64, 128
 // or 256, 16-byte aligned base pointers and strides that are multiples of
-// 8 elements. T >= 1. Returns the cudaError_t of the launch (0 on
-// success).
+// 8 elements. T >= 1. causal != 0: query i sees keys 0..i; 0: all T keys.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KV, int S, int T, int hd, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st, float scale, int dtype,
-    void* stream) {
+    long long v_sb, long long v_sh, long long v_st, float scale, int causal,
+    int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0) return 0;
   const long long qs[3] = {q_sb, q_sh, q_ss};
@@ -528,17 +541,17 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
     return launch_f32(q, k, v, out, B, H, KV, S, T, hd, qs, ks, vs, scale,
-                      st);
+                      causal, st);
   if (dtype == kDtypeBF16) {
     if (hd == 256)
       return launch_bf16<256>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                              scale, st);
+                              scale, causal, st);
     if (hd == 128)
       return launch_bf16<128>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                              scale, st);
+                              scale, causal, st);
     if (hd == 64)
       return launch_bf16<64>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                             scale, st);
+                             scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,9 +7,11 @@ continuous batching, then pauses sessions and shows the tiering policy
 placing their KV blocks (zamba2-7b's: its Mamba-2 state beside the
 shared attention's KV; xlstm-350m's: its mLSTM and sLSTM states alone;
 qwen2-vl-2b's: its M-RoPE backbone's KV, prompts of tokens alone as the
-reference engine takes them) across DRAM/flash by observed reuse interval,
-and resumes them transparently — including the async-prefetch restore
-path overlapping the flash fetch with decode on the platform's
+reference engine takes them; whisper-medium's: its self K/V beside its
+cross-attention K/V of the encoder's rows, each prompt prefilled on zero
+frames as the reference engine does) across DRAM/flash by observed reuse
+interval, and resumes them transparently — including the async-prefetch
+restore path overlapping the flash fetch with decode on the platform's
 deterministic virtual clock. The modeled lines (tiers, stall, `[tier
 stats]`, `[runtime queues]`) are the reference's.
 
@@ -22,7 +24,7 @@ facade — no clock/policy/store threading. It decodes on CUDA unless
   PYTHONPATH=src python -m repro_torch.examples.serve_tiered_kv \
       [--arch deepseek-7b | mistral-nemo-12b | granite-20b |
        qwen3-moe-235b-a22b | llama4-maverick-400b-a17b | zamba2-7b |
-       xlstm-350m | qwen2-vl-2b]
+       xlstm-350m | qwen2-vl-2b | whisper-medium]
       [--device cpu]
 """
 import argparse

@@ -44,7 +44,7 @@ SIGNATURES = {
         [_P] * 7 + [_I] * 5 + [_LL] * 6 + [_F, _I, _P]),
     "flash_attention": (
         "flash_attention_fwd",
-        [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _P]),
+        [_P] * 4 + [_I] * 6 + [_LL] * 9 + [_F, _I, _I, _P]),
     "cuckoo_probe": ("cuckoo_probe_fwd",
                      [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P]),
     "ann_topk": ("ann_topk_fwd", [_P] * 7 + [_I, _LL] + [_I] * 4 + [_P]),

@@ -30,30 +30,33 @@ def kernel_head_dim(hd: int, dtype: torch.dtype) -> int:
 
 
 def padded_attention(attend: Callable, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, *, scale: float,
-                     head_dim: int) -> torch.Tensor:
-    """`attend(q, k, v, scale=scale)` at `head_dim`: q, k and v zero-padded
-    along head_dim, the output sliced back. Zero columns add nothing to
-    q.k, so the scores, and with them the softmax, are those at the true
-    head_dim (the caller's `scale` comes from it); v's zero columns give
-    output columns that the slice drops."""
+                     v: torch.Tensor, *, scale: float, head_dim: int,
+                     causal: bool = True) -> torch.Tensor:
+    """`attend(q, k, v, scale=scale, causal=causal)` at `head_dim`: q, k
+    and v zero-padded along head_dim, the output sliced back. Zero columns
+    add nothing to q.k, so the scores, and with them the softmax, are
+    those at the true head_dim (the caller's `scale` comes from it); v's
+    zero columns give output columns that the slice drops."""
     hd = q.shape[-1]
     if head_dim == hd:
-        return attend(q, k, v, scale=scale)
+        return attend(q, k, v, scale=scale, causal=causal)
     qp, kp, vp = (F.pad(t, (0, head_dim - hd)) for t in (q, k, v))
-    return attend(qp, kp, vp, scale=scale)[..., :hd].contiguous()
+    return attend(qp, kp, vp, scale=scale,
+                  causal=causal)[..., :hd].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float = None) -> torch.Tensor:
-    """Causal attention: q [B,H,S,hd]; k,v [B,KV,T,hd] -> [B,H,S,hd]
-    (contiguous); query i sees keys 0..i. Inputs may be strided views as
-    long as head_dim is contiguous; head_dim is at most 256 and is padded
-    to the kernel's next size (`kernel_head_dim`). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (or raises)."""
+                    scale: float = None, causal: bool = True) -> torch.Tensor:
+    """Attention: q [B,H,S,hd]; k,v [B,KV,T,hd] -> [B,H,S,hd]
+    (contiguous); causal: query i sees keys 0..i, else every one of the T
+    keys (an encoder's self-attention, cross-attention onto an encoder's
+    rows). Inputs may be strided views as long as head_dim is contiguous;
+    head_dim is at most 256 and is padded to the kernel's next size
+    (`kernel_head_dim`). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (or raises)."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not on_cuda("flash_attention", q, k, v):
-        return reference_attention(q, k, v, scale=s)
+        return reference_attention(q, k, v, scale=s, causal=causal)
     dtype_code("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q [B,H,S,hd], k = v [B,KV,T,hd]")
@@ -67,11 +70,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: head_dim must be contiguous")
     return padded_attention(_launch, q, k, v, scale=s,
-                            head_dim=kernel_head_dim(hd, q.dtype))
+                            head_dim=kernel_head_dim(hd, q.dtype),
+                            causal=causal)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            scale: float) -> torch.Tensor:
+            scale: float, causal: bool) -> torch.Tensor:
     """The kernel on checked CUDA tensors at one of its head_dims."""
     code = dtype_code("flash_attention", q, k, v)
     B, H, S, hd = q.shape
@@ -89,8 +93,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, KV, S, T, hd, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), float(scale), code,
-        stream_of(q.device))
+        v.stride(0), v.stride(1), v.stride(2), float(scale), int(causal),
+        code, stream_of(q.device))
     check("flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -1,10 +1,12 @@
-"""Shared building blocks: norms, RoPE, initializers, context."""
+"""Shared building blocks: norms, RoPE, sinusoidal positions,
+initializers, context."""
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +29,10 @@ class Ctx:
     # decode: [B] bool of the slots that decode; a recurrent sublayer
     # writes its new state only there (None: every slot)
     active: Optional[torch.Tensor] = None
+    # the encoder's output [B,F,D], which cross-attention projects to its
+    # K/V at prefill (None: no encoder, or a decode step, which reads
+    # them from the cache)
+    enc_out: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -53,11 +59,24 @@ def embed_init(shape, generator, device, dtype=torch.float32, std=0.02):
 # Norms
 # ---------------------------------------------------------------------------
 
+def layer_norm(x, params, eps: float):
+    """LayerNorm as the reference computes it: float32 mean and variance,
+    (x - mean) * rsqrt(var + eps) * scale + bias, out in x.dtype. No TPU
+    kernel computes it (the reference runs it in jnp), so these plain
+    float32 ops are its port, on the card as on the CPU."""
+    xf = x.float()
+    centred = xf - xf.mean(dim=-1, keepdim=True)
+    var = (centred * centred).mean(dim=-1, keepdim=True)
+    y = centred * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
 def apply_norm(params, x, kind: str, eps: float, plain: bool = False):
-    """RMSNorm in f32, output in x.dtype, through the rmsnorm kernel (or
-    its plain version when `plain`)."""
+    """The norm in f32, output in x.dtype: RMSNorm ("rmsnorm") through the
+    rmsnorm kernel (or its plain version when `plain`), any other kind
+    LayerNorm, as the reference reads it, through `layer_norm`."""
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        return layer_norm(x, params, eps)
     fn = reference_rmsnorm if plain else rmsnorm
     return fn(x, params["scale"], eps)
 
@@ -65,10 +84,12 @@ def apply_norm(params, x, kind: str, eps: float, plain: bool = False):
 def apply_add_norm(params, x, residual, kind: str, eps: float,
                    plain: bool = False):
     """The residual add and the norm after it: (norm(x + residual),
-    x + residual), the sum in x.dtype and the norm read from it, in one
-    launch of the rmsnorm kernel (or its plain version when `plain`)."""
+    x + residual), the sum in x.dtype and the norm read from it: in one
+    launch of the rmsnorm kernel (or its plain version when `plain`), or
+    the sum, then `layer_norm`, for LayerNorm."""
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+        summed = x + residual
+        return layer_norm(summed, params, eps), summed
     fn = reference_add_rmsnorm if plain else add_rmsnorm
     return fn(x, residual, params["scale"], eps)
 
@@ -121,6 +142,16 @@ def apply_mrope(x, positions, theta: float, sections):
     pos = torch.cat([pos[j, ..., None].expand(*pos.shape[1:], n)
                      for j, n in enumerate(sections)], dim=-1)
     return _rotate(x, pos * _rope_freqs(half, theta, positions.device))
+
+
+def sinusoidal_positions(n: int, d: int):
+    """Absolute sinusoidal table [n, d] float32 (whisper's encoder), the
+    reference's: computed in float64 numpy, rounded once."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -8,27 +8,36 @@ Three entry points share one stack implementation:
 
 Parameters are a plain dict shaped like the reference package's pytree:
 group params are stacked [G, ...] under {"groups": {"L0S0": {"norm",
-"mixer"}}}, beside "embed" and "final_norm"; a sublayer whose weights are
+"mixer"}}}, beside "embed" and "final_norm" (a norm holds its "scale",
+and a layernorm its "bias" too); a sublayer whose weights are
 shared across the groups (zamba2's attention and FFN) is held once,
 unstacked, under {"shared": {"L5S0": ...}} and absent from "groups", and
 the non-repeating tail's sublayers unstacked under {"tail": {"L0S0":
-...}}. `params_from_jax` takes the reference's `init_params` output (as
-numpy arrays), so both packages compute the same function; `init_params`
-draws the same distributions natively on the device. Caches are grouped
+...}}, and an encoder's stack under {"encoder": {"groups": {...},
+"final_norm"}}. `params_from_jax` takes the reference's `init_params`
+output (as numpy arrays), so both packages compute the same function;
+`init_params` draws the same distributions natively on the device.
+Caches are grouped
 the same way: {"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}},
 "tail": {"L0S0": {"ssm": [B,H,N,P], "conv": [B,W-1,C]}}}; a shared
-attention sublayer keeps a cache for each of its G applications. An
+attention sublayer keeps a cache for each of its G applications, and a
+cross-attention sublayer one of the encoder's rows, [G,B,KV,F,hd]. An
 xLSTM stack's caches hold, a sublayer, the mLSTM's {"C": [G,B,H,P,P+1],
 "conv"} or the sLSTM's {"h", "c", "n", "m": [G,B,H,P], "conv"}.
 
-The port builds attention (with RoPE or M-RoPE), FFN, MoE, Mamba-2 and
-xLSTM (mLSTM and sLSTM) stacks, on text or on a vision prefix ("vlm":
+The port builds attention (with RoPE, M-RoPE or none; causal or not;
+self- or cross-attention), FFN, MoE, Mamba-2 and xLSTM (mLSTM and sLSTM)
+stacks under RMSNorm or LayerNorm, on text, on a vision prefix ("vlm":
 precomputed patch embeddings put before the text, qwen2-vl's stub
-frontend). Encoder stacks, the "audio" modality and the attention
-features `attention.check_supported` lists raise NotImplementedError.
+frontend) or on audio ("audio": an encoder stack over precomputed frame
+embeddings [B,F,D] with sinusoidal positions, whisper's stub frontend,
+whose output the decoder's cross-attention reads). A final logit
+softcap, the int8 KV cache and the attention features
+`attention.check_supported` lists raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Union
 
@@ -38,7 +47,8 @@ import torch
 from .._device import resolve_device
 from . import attention, ffn, moe, ssm, xlstm
 from .config import ModelConfig
-from .layers import Ctx, apply_add_norm, apply_norm, dense_init, embed_init
+from .layers import (Ctx, apply_add_norm, apply_norm, dense_init,
+                     embed_init, sinusoidal_positions)
 
 _MIXERS = {"attn": attention, "ffn": ffn, "moe": moe, "mamba2": ssm,
            "mlstm": xlstm.mlstm, "slstm": xlstm.slstm}
@@ -86,16 +96,15 @@ def _key(li: int, si: int) -> str:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this port cannot build."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoder stacks are not ported yet")
     if cfg.final_logit_softcap:
         raise NotImplementedError("final_logit_softcap is not ported yet")
-    if cfg.norm != "rmsnorm":
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    if cfg.modality not in ("text", "vlm"):
+    if cfg.modality not in ("text", "vlm", "audio"):
         raise NotImplementedError(f"modality {cfg.modality!r} is not "
                                   f"ported yet")
-    for _, _, _, spec in cfg.sublayers():
+    for spec in ([spec for *_, spec in cfg.sublayers()]
+                 + [spec for _, spec in _encoder(cfg)]):
         if spec.kind not in _MIXERS:
             raise NotImplementedError(
                 f"sublayer kind {spec.kind!r} is not ported yet")
@@ -103,18 +112,27 @@ def check_supported(cfg: ModelConfig) -> None:
             attention.check_supported(spec)
 
 
-def _sublayers(cfg: ModelConfig):
-    """(key, spec) of the repeated group's sublayers, in pattern order."""
-    for li, layer in enumerate(cfg.pattern):
+def _keyed(layers):
+    """(key, spec) of a pattern's (or a tail's) sublayers, in order."""
+    for li, layer in enumerate(layers):
         for si, spec in enumerate(layer):
             yield _key(li, si), spec
+
+
+def _sublayers(cfg: ModelConfig):
+    """(key, spec) of the repeated group's sublayers, in pattern order."""
+    return _keyed(cfg.pattern)
 
 
 def _tail(cfg: ModelConfig):
     """(key, spec) of the non-repeating tail's sublayers, in order."""
-    for li, layer in enumerate(cfg.tail):
-        for si, spec in enumerate(layer):
-            yield _key(li, si), spec
+    return _keyed(cfg.tail)
+
+
+def _encoder(cfg: ModelConfig):
+    """(key, spec) of the encoder group's sublayers (none without an
+    encoder), in pattern order."""
+    return _keyed(cfg.encoder.pattern if cfg.encoder is not None else ())
 
 
 def _shared(spec) -> bool:
@@ -132,8 +150,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     shapes: Dict[str, Any] = {"embed": (cfg.vocab, d)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab, d)
+
     def sub(spec, lead):
-        return {"norm": {"scale": lead + (d,)},
+        return {"norm": _norm_shapes(cfg, lead),
                 "mixer": _stacked(_MIXERS[spec.kind].param_shapes(cfg, spec),
                                   lead)}
     shapes["groups"] = {k: sub(spec, (G,)) for k, spec in _sublayers(cfg)
@@ -144,8 +163,27 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         shapes["shared"] = shared
     if cfg.tail:
         shapes["tail"] = {k: sub(spec, ()) for k, spec in _tail(cfg)}
-    shapes["final_norm"] = {"scale": (d,)}
+    shapes["final_norm"] = _norm_shapes(cfg, ())
+    if cfg.encoder is not None:
+        lead = (cfg.encoder.n_groups,)
+        shapes["encoder"] = {
+            "groups": {k: sub(spec, lead) for k, spec in _encoder(cfg)},
+            "final_norm": _norm_shapes(cfg, ())}
     return shapes
+
+
+def _norm_shapes(cfg: ModelConfig, lead: tuple):
+    """A norm's leaves behind `lead`: its scale, and a layernorm's bias."""
+    names = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
+    return {n: lead + (cfg.d_model,) for n in names}
+
+
+def _norm_init(cfg: ModelConfig, lead: tuple, dev):
+    """A norm's constant leaves, float32 as the reference's `norm_init`
+    sets them: scale ones, a layernorm's bias zeros."""
+    return {n: (torch.ones if n == "scale" else torch.zeros)(
+        shape, dtype=torch.float32, device=dev)
+        for n, shape in _norm_shapes(cfg, lead).items()}
 
 
 def _stacked(mats, lead: tuple):
@@ -171,10 +209,10 @@ def _drawn(init) -> bool:
 
 
 def _is_f32_path(path) -> bool:
-    """Leaves kept in float32 whatever the weights' dtype: norm scales,
-    the qk-norm scales, as the rmsnorm kernel takes them, Mamba-2's
-    decay rates, biases, skip and gated-norm scale, and xLSTM's gate
-    biases and inner-norm scales."""
+    """Leaves kept in float32 whatever the weights' dtype: norm scales
+    (and a layernorm's biases), the qk-norm scales, as the rmsnorm kernel
+    takes them, Mamba-2's decay rates, biases, skip and gated-norm scale,
+    and xLSTM's gate biases and inner-norm scales."""
     return ("norm" in path or "final_norm" in path
             or path[-1] in attention.SCALES or path[-1] in ssm.F32_LEAVES
             or path[-1] in xlstm.F32_LEAVES)
@@ -205,13 +243,16 @@ def init_params(cfg: ModelConfig,
                 generator: Union[torch.Generator, int, None] = None,
                 device=None, dtype: torch.dtype = torch.float32):
     """Native random init with the reference's distributions (truncated
-    normal, fan-in scaled; embeddings at std 0.02; norm scales ones).
+    normal, fan-in scaled; embeddings at std 0.02; norm scales ones, a
+    layernorm's biases zeros).
 
     Matrices are stored in `dtype`; norm and qk-norm scales stay float32,
     as the kernels take them. `generator` is a torch.Generator on `device`
     or an int seed. Runs on CUDA unless `device` says otherwise. Each
     stacked weight is drawn layer by layer into its slot, and a slot above
-    DRAW_SLICE_ELEMENTS one leading-axis slice at a time.
+    DRAW_SLICE_ELEMENTS one leading-axis slice at a time. An encoder's
+    weights are drawn after all of the decoder's, so a config without one
+    draws what it drew before encoders were ported.
 
     The weights depend on the device: an int seed seeds that device's own
     generator, and the CUDA and CPU generators draw different numbers
@@ -238,9 +279,12 @@ def init_params(cfg: ModelConfig,
                             if _shared(spec)}
     if "tail" in shapes:
         params["tail"] = {k: sub(spec, None) for k, spec in _tail(cfg)}
-    params["final_norm"] = {"scale": torch.ones((cfg.d_model,),
-                                                dtype=torch.float32,
-                                                device=dev)}
+    params["final_norm"] = _norm_init(cfg, (), dev)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "groups": {k: sub(spec, cfg.encoder.n_groups)
+                       for k, spec in _encoder(cfg)},
+            "final_norm": _norm_init(cfg, (), dev)}
     return params
 
 
@@ -270,9 +314,7 @@ def _init_sublayer(cfg: ModelConfig, spec, n: Optional[int], generator,
             for e in range(shape[0]):
                 slot[e] = dense_init(shape[1:], fan_in, generator, dev,
                                      dtype)
-    return {"norm": {"scale": torch.ones(lead + (cfg.d_model,),
-                                         dtype=torch.float32, device=dev)},
-            "mixer": mixer}
+    return {"norm": _norm_init(cfg, lead, dev), "mixer": mixer}
 
 
 def params_from_jax(tree, cfg: ModelConfig, device=None,
@@ -308,20 +350,23 @@ def params_from_jax(tree, cfg: ModelConfig, device=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None):
     """Zero caches, grouped like params: {"groups": {key: [G,...]},
-    "tail": {key: [...]}}: attention's K and V in `dtype`; a recurrent
+    "tail": {key: [...]}}: attention's K and V in `dtype` (max_len rows;
+    a cross-attention sublayer's, the encoder's n_frames); a recurrent
     sublayer's state (Mamba-2's, the mLSTM's C, the sLSTM's h, c, n, m)
-    in float32 and its conv window in `dtype`. Runs on CUDA unless
-    `device` says otherwise."""
+    in float32 and its conv window in `dtype`.
+    Runs on CUDA unless `device` says otherwise."""
     check_supported(cfg)
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"KV cache dtype {dtype} is not ported yet (int8 KV waits)")
     dev = resolve_device(device)
+    enc_len = cfg.encoder.n_frames if cfg.encoder is not None else 0
 
     def sub(spec, lead):
         # FFN and MoE hold no cache
         if spec.kind == "attn":
-            shape = lead + attention.cache_shape(spec, batch, max_len)
+            shape = lead + attention.cache_shape(spec, batch, max_len,
+                                                 enc_len)
             return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
         if spec.kind in _CACHED:
@@ -398,6 +443,45 @@ def run_stack(params, x, cfg: ModelConfig, ctx: Ctx, caches=None):
     return x, out
 
 
+def run_encoder(params, frames, cfg: ModelConfig, ctx: Ctx):
+    """Whisper's encoder over precomputed frame embeddings frames [B,F,D]:
+    the sinusoidal table (cast to the frames' dtype first, as the
+    reference does) added, the encoder's groups with no cache
+    (non-causal self-attention through the flash kernel), then its final
+    norm. Returns [B,F,D] in the frames' dtype."""
+    enc = cfg.encoder
+    B, F, D = frames.shape
+    x = frames + _sinusoid(F, D, frames.device, frames.dtype)[None]
+    ectx = Ctx(mode="train", positions=torch.arange(
+        F, device=frames.device)[None].expand(B, F),
+        compute_dtype=ctx.compute_dtype, plain=ctx.plain)
+    out = None
+    for g in range(enc.n_groups):
+        for k, spec in _encoder(cfg):
+            p = _index(params["encoder"]["groups"][k], g)
+            x, out = _sub_apply(p, x, spec, cfg, ectx, None, out)
+    return _final_norm(params["encoder"], cfg, x, out, ctx.plain)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid(n: int, d: int, device, dtype):
+    """`sinusoidal_positions(n, d)` cast to `dtype` on `device`, made once
+    (the float64 table takes ~50 ms of host time at whisper's [1500,
+    1024]); read-only."""
+    return sinusoidal_positions(n, d).to(device=device, dtype=dtype)
+
+
+def _enc_out(params, cfg: ModelConfig, frames, ctx: Ctx):
+    """The encoder's output on `frames` cast to the compute dtype, for a
+    config with an encoder (which needs frames), else None."""
+    if cfg.encoder is None:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name} has an encoder: pass frames "
+                         f"[B,{cfg.encoder.n_frames},{cfg.d_model}]")
+    return run_encoder(params, frames.to(ctx.compute_dtype), cfg, ctx)
+
+
 def _final_norm(params, cfg: ModelConfig, x, out, plain: bool):
     """The final norm of x + out, the last residual add inside it."""
     if out is None:
@@ -457,17 +541,20 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, dtype, vision_embeds):
 
 def forward(params, cfg: ModelConfig, tokens,
             compute_dtype: torch.dtype = torch.bfloat16,
-            plain: bool = False, *, vision_embeds=None, positions=None):
+            plain: bool = False, *, vision_embeds=None, positions=None,
+            frames=None):
     """Train-mode forward (no cache). tokens [B,S_tok] -> logits [B,S,V],
     S counting a "vlm" config's vision prefix `vision_embeds`
     [B,S_vis,D]. `positions` ([B,S], or [3,B,S] for M-RoPE) replaces the
-    index; the mask stays index-causal."""
+    index; the mask stays index-causal. A config with an encoder takes
+    `frames` [B,F,D], which its cross-attention reads through it."""
     x = _embed_inputs(params, cfg, tokens, compute_dtype, vision_embeds)
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(cfg, B, S, tokens.device)
     ctx = Ctx(mode="train", positions=positions,
               compute_dtype=compute_dtype, plain=plain)
+    ctx.enc_out = _enc_out(params, cfg, frames, ctx)
     x, out = run_stack(params, x, cfg, ctx)
     return _logits(params, cfg, _final_norm(params, cfg, x, out, plain))
 
@@ -475,10 +562,12 @@ def forward(params, cfg: ModelConfig, tokens,
 def prefill(params, cfg: ModelConfig, tokens, cache,
             compute_dtype: torch.dtype = torch.bfloat16,
             last_index: Optional[int] = None, plain: bool = False, *,
-            vision_embeds=None, positions=None):
+            vision_embeds=None, positions=None, frames=None):
     """Fill the cache from a prompt. tokens [B,S_tok], behind a "vlm"
     config's vision prefix `vision_embeds` [B,S_vis,D]; `positions`
-    replaces the index, as in `forward`. Returns (cache, last_logits
+    replaces the index, as in `forward`. A config with an encoder runs it
+    on `frames` [B,F,D] (cast to the compute dtype) and fills its
+    cross-attention caches from its output. Returns (cache, last_logits
     [B,V]); the cache is updated in place.
 
     `last_index` selects which position's logits to return instead of the
@@ -492,6 +581,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache,
         positions = _positions(cfg, B, S, tokens.device)
     ctx = Ctx(mode="prefill", positions=positions,
               compute_dtype=compute_dtype, plain=plain)
+    ctx.enc_out = _enc_out(params, cfg, frames, ctx)
     x, out = run_stack(params, x, cfg, ctx, caches=cache)
     i = S - 1 if last_index is None else int(last_index)
     # only position i reaches the logits: its row alone is summed and normed
@@ -508,8 +598,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, index,
     streams for M-RoPE); `active` [B] bool, the slots that decode (None:
     every slot): a recurrent sublayer writes its new state only there, so
     a parked slot's state holds (attention writes every slot's K/V at its
-    pending position, which the next real decode rewrites). Returns
-    (cache, logits [B,V]); the cache is updated in place."""
+    pending position, which the next real decode rewrites; a
+    cross-attention sublayer reads the encoder's K/V that prefill cached,
+    so a step takes no frames). Returns (cache, logits [B,V]); the cache
+    is updated in place."""
     B = token.shape[0]
     x = _embed_tokens(params, cfg, token, compute_dtype)
     idx = torch.as_tensor(index, device=token.device)

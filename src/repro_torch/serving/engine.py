@@ -49,6 +49,15 @@ it: a request is its tokens alone, with no vision prefix, so its M-RoPE
 positions are the index on all three streams, and its prompts are
 bucketed as any attention config's.
 
+A config with an encoder (whisper-medium) is served as the reference
+engine serves it too: each admission prefills on zero frames [1,
+n_frames, d_model] in the engine's dtype (the reference's stub audio
+frontend feeds no audio), at the prompt's exact length (the reference
+buckets only without an encoder), and a slot's cross-attention K/V of
+the encoder's rows, one size at any context, travel with its self K/V
+in the paused blob (in the tree's order, the cross sublayer's key after
+the self-attention's).
+
 A parked slot keeps its recurrent state: `step` passes the decoding
 slots as `active`, and a recurrent sublayer writes its new state only
 there. (The reference documents the same contract for `park`, but its
@@ -148,8 +157,9 @@ class DecodeEngine:
         self.last_token = np.zeros(max_slots, np.int32)  # decode inputs
         self.slot_req: Dict[int, Request] = {}
         # prompt-length bucketing is sound only when no cached sublayer
-        # carries recurrent state (pads would advance it)
-        self._bucket_prompts = all(
+        # carries recurrent state (pads would advance it) and there is no
+        # encoder (the reference's rule)
+        self._bucket_prompts = cfg.encoder is None and all(
             spec.kind in ("attn", "ffn", "moe")
             for *_ignored, spec in cfg.sublayers())
         self.policy = policy or TieringPolicy(tau_hot=0.05, tau_be=5.0)
@@ -195,8 +205,9 @@ class DecodeEngine:
 
     def admit(self, req: Request):
         """Prefill a request into a free slot: a batch-1 prefill of the
-        prompt (pow2-bucketed when sound, else at its exact length) into
-        a fresh cache, spliced into the slot."""
+        prompt (pow2-bucketed when sound, else at its exact length; on
+        zero frames where the config has an encoder) into a fresh cache,
+        spliced into the slot."""
         free = self._free_slots()
         if not free:
             raise RuntimeError("no free slots")
@@ -212,11 +223,17 @@ class DecodeEngine:
         tmp_cache = model_lib.init_cache(self.cfg, 1, self.max_len,
                                          dtype=self.dtype,
                                          device=self.device)
+        frames = None
+        if self.cfg.encoder is not None:
+            frames = torch.zeros(
+                (1, self.cfg.encoder.n_frames, self.cfg.d_model),
+                dtype=self.dtype, device=self.device)
         tmp_cache, logits = model_lib.prefill(
             self.params, self.cfg,
             torch.as_tensor(tokens[None], device=self.device), tmp_cache,
             compute_dtype=self.dtype,
-            last_index=S - 1 if self._bucket_prompts else None)
+            last_index=S - 1 if self._bucket_prompts else None,
+            frames=frames)
         for path, dst in _leaves(self.cache):
             _slot_of(dst, path, slot).copy_(
                 _slot_of(_at(tmp_cache, path), path, 0))

@@ -1,6 +1,6 @@
 """deepseek-7b, mistral-nemo-12b, granite-20b, qwen3-moe-235b-a22b,
-llama4-maverick-400b-a17b, zamba2-7b, xlstm-350m and qwen2-vl-2b
-(reduced, float32)
+llama4-maverick-400b-a17b, zamba2-7b, xlstm-350m, qwen2-vl-2b and
+whisper-medium (reduced, float32)
 through the port's
 entry points against the JAX reference's: the `serve_tiered_kv` twin with
 `--arch` against the reference script with the same flag, and the
@@ -30,7 +30,7 @@ from test_torch_scheduler import _declared_workload_matches_reference, \
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("deepseek-7b", "mistral-nemo-12b", "granite-20b",
          "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b",
-         "xlstm-350m", "qwen2-vl-2b")
+         "xlstm-350m", "qwen2-vl-2b", "whisper-medium")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -297,6 +297,37 @@ def test_flash_attention_plain_matches_jax(B, H, KV, S, T, D, dt):
         _assert_close(got, j_flash(jq, jk, jv, True, None, True), dt)
 
 
+@pytest.mark.parametrize("B,H,KV,S,T,D", [
+    (1, 4, 4, 48, 48, 16),       # S = T, MHA: an encoder's self-attention
+    (2, 4, 4, 7, 48, 64),        # S < T: cross-attention onto 48 rows
+    (1, 4, 1, 1, 40, 16),        # one query (a decode step's), MQA
+    (1, 8, 2, 60, 24, 64),       # S > T, GQA
+    (2, 6, 3, 33, 33, 16),       # S = T, GQA, S not a block multiple
+])
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_flash_attention_non_causal_plain_matches_jax(B, H, KV, S, T, D, dt):
+    """causal=False: every query sees all T keys (whisper's encoder at S =
+    T, its cross-attention at S != T), against the reference's Pallas
+    kernel in interpret mode and its oracle; the wrapper on the CPU is the
+    plain version, and causal=True still masks."""
+    rng = np.random.default_rng(S * T)
+    jq, tq = _pair(rng, (B, H, S, D), dt)
+    jk, tk = _pair(rng, (B, KV, T, D), dt)
+    jv, tv = _pair(rng, (B, KV, T, D), dt)
+    # a Python float: a NumPy float64 would promote the Pallas kernel's
+    # float32 scratch where another test turned on JAX's x64 mode
+    scale = float(1.0 / np.sqrt(D))
+    got = reference_attention(tq, tk, tv, scale=scale, causal=False)
+    assert got.dtype == tq.dtype and got.shape == (B, H, S, D)
+    _assert_close(got, j_fref(jq, jk, jv, causal=False, scale=scale), dt)
+    _assert_close(got, j_flash(jq, jk, jv, False, scale, True), dt)
+    assert torch.equal(K.flash_attention(tq, tk, tv, scale=scale,
+                                         causal=False), got)
+    if S > 1:
+        assert not torch.equal(
+            reference_attention(tq, tk, tv, scale=scale), got)
+
+
 @pytest.mark.parametrize("D,want_bf16,want_f32", [
     (16, 64, 32), (32, 64, 32), (112, 128, 128)])
 def test_flash_attention_padded_head_dim_matches_jax(D, want_bf16, want_f32):

@@ -17,7 +17,13 @@ Mamba-2 layers; MHA) and xlstm-350m (alternating mLSTM and sLSTM
 sublayers, no attention and no FFN) and qwen2-vl-2b (M-RoPE, GQA 2:1
 reduced and 6:1 at full width, SwiGLU, tied embeddings; served on tokens
 alone, so its three position streams are the index; the vision prefix
-is held in tests/test_torch_mrope.py). Native init draws each stacked
+is held in tests/test_torch_mrope.py) and whisper-medium (an encoder of
+non-causal self-attention over frame embeddings with sinusoidal
+positions, a decoder of causal self-attention and cross-attention onto
+the encoder's output, no positions at all in the decoder (rope="none"),
+LayerNorm, GELU FFN, tied embeddings; every call here takes random
+frames, made with numpy, on both sides; its own parts are held in
+tests/test_torch_whisper.py). Native init draws each stacked
 weight in place, bit for bit as a draw-then-stack loop would, and a
 stack above `DRAW_SLICE_ELEMENTS` one expert at a time. Caches compare
 leaf by leaf, the tail's and the recurrent state (Mamba-2's, the mLSTM's
@@ -40,7 +46,7 @@ from repro_torch.configs import ARCHS, PORTED, get_config
 from repro_torch.models import model as TM
 from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm
 from repro_torch.models.config import AttnSpec
-from repro_torch.models.layers import Ctx
+from repro_torch.models.layers import Ctx, layer_norm
 
 ATOL = 1e-4
 # each ported config with its full-width parameter count
@@ -49,7 +55,28 @@ DENSE = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
          "qwen3-moe-235b-a22b": 235_093_634_560,
          "llama4-maverick-400b-a17b": 397_691_950_080,
          "zamba2-7b": 6_635_849_952, "xlstm-350m": 391_533_760,
-         "qwen2-vl-2b": 1_543_656_960}
+         "qwen2-vl-2b": 1_543_656_960, "whisper-medium": 757_877_760}
+
+
+def _frames(cfg, B, seed=0):
+    """Random frame embeddings [B, n_frames, d_model] (float32 numpy) for
+    a config with an encoder, None for any other."""
+    if cfg.encoder is None:
+        return None
+    return np.random.default_rng(100 + seed).standard_normal(
+        (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+
+
+def _jbatch(toks, frames):
+    """The reference's batch of tokens, and of frames where there are."""
+    batch = {"tokens": jnp.asarray(toks)}
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames)
+    return batch
+
+
+def _tframes(frames):
+    return None if frames is None else torch.from_numpy(frames)
 
 
 def _has_moe(cfg) -> bool:
@@ -118,24 +145,106 @@ def test_config_matches_reference(arch):
     assert arch in PORTED
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in PORTED])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match=arch):
-        get_config(arch)
+def test_every_arch_is_ported_and_an_unknown_one_raises():
+    assert sorted(PORTED) == sorted(ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
+
+
+def _with(cfg, **change):
+    """`cfg` with `change` made to every attention sublayer's spec (keys
+    of AttnSpec) or to the config itself (any other key)."""
+    import dataclasses
+    spec_keys = {f.name for f in dataclasses.fields(AttnSpec)}
+    attn = {k: v for k, v in change.items() if k in spec_keys}
+    top = {k: v for k, v in change.items() if k not in spec_keys}
+    return dataclasses.replace(cfg, pattern=tuple(
+        tuple(dataclasses.replace(s, **attn) if s.kind == "attn" else s
+              for s in layer) for layer in cfg.pattern), **top)
+
+
+def test_non_causal_self_attention_with_a_cache_matches_reference():
+    """No reference config has a non-causal decoder self-attention; the
+    port builds one as the reference does: a prefill and a decode step
+    attend over every row of the cache (the unfilled rows too), and a
+    train forward over the whole sequence. Reduced deepseek-7b with
+    causal=False on both sides, float32 logits at ATOL."""
+    import dataclasses
+
+    def non_causal(cfg):
+        return dataclasses.replace(cfg, pattern=tuple(
+            tuple(dataclasses.replace(s, causal=False) if s.kind == "attn"
+                  else s for s in layer) for layer in cfg.pattern))
+    jcfg = non_causal(j_get_config("deepseek-7b", reduced=True))
+    cfg = non_causal(get_config("deepseek-7b", reduced=True))
+    assert repr(cfg) == repr(jcfg)
+    jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = TM.params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rules = single_device_rules()
+    rng = np.random.default_rng(21)
+    B, S, T = 2, 9, 16
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    jl, _ = JM.forward(jp, jcfg, rules, {"tokens": jnp.asarray(toks)},
+                       compute_dtype=jnp.float32, remat=False)
+    tl = TM.forward(tp, cfg, torch.from_numpy(toks),
+                    compute_dtype=torch.float32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    jc = JM.init_cache(jcfg, B, T, dtype=jnp.float32)
+    jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+                        compute_dtype=jnp.float32)
+    tc = TM.init_cache(cfg, B, T, dtype=torch.float32, device="cpu")
+    tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
+                        compute_dtype=torch.float32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    index = np.array([S, S - 3], np.int32)
+    for step in range(2):
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        jc, jl = JM.decode_step(jp, jcfg, rules, jnp.asarray(tok), jc,
+                                jnp.asarray(index), compute_dtype=jnp.float32)
+        tc, tl = TM.decode_step(tp, cfg, torch.from_numpy(tok), tc,
+                                torch.from_numpy(index),
+                                compute_dtype=torch.float32)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   err_msg=f"decode step {step}")
+        index = index + 1
+    _assert_caches_close(tc, jc, cfg)
+
+
+@pytest.mark.parametrize("feature", ["int8 KV", "logit_softcap",
+                                     "final_logit_softcap",
+                                     "sliding_window"])
+def test_unported_features_raise(feature):
+    """The features no ported config uses still raise, each on reduced
+    whisper-medium (which reaches every other part of the reference's
+    model) changed to use it."""
+    cfg = get_config("whisper-medium", reduced=True)
+    TM.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
+    if feature == "int8 KV":
+        with pytest.raises(NotImplementedError, match="int8"):
+            TM.init_cache(cfg, 1, 8, dtype=torch.int8, device="cpu")
+        return
+    bad = _with(cfg, **{"logit_softcap": dict(logit_softcap=30.0),
+                        "final_logit_softcap": dict(
+                            final_logit_softcap=30.0),
+                        "sliding_window": dict(sliding_window=16)}[feature])
+    with pytest.raises(NotImplementedError, match=feature):
+        TM.init_params(bad, 0, device="cpu")
 
 
 @pytest.mark.parametrize("B,S,last", [(2, 12, None), (1, 16, 9)])
 def test_prefill_logits_match_reference(setup, B, S, last):
     jcfg, cfg, jp, tp, rules = setup
     toks = np.random.default_rng(B).integers(0, cfg.vocab, (B, S))
+    frames = _frames(cfg, B, S)
     jc = JM.init_cache(jcfg, B, 32, dtype=jnp.float32)
-    jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+    jc, jl = JM.prefill(jp, jcfg, rules, _jbatch(toks, frames), jc,
                         compute_dtype=jnp.float32,
                         last_index=None if last is None else
                         jnp.asarray(last, jnp.int32))
     tc = TM.init_cache(cfg, B, 32, dtype=torch.float32, device="cpu")
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
-                        compute_dtype=torch.float32, last_index=last)
+                        compute_dtype=torch.float32, last_index=last,
+                        frames=_tframes(frames))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     _assert_caches_close(tc, jc, cfg)
 
@@ -148,10 +257,11 @@ def test_per_slot_decode_logits_match_reference(setup):
     jc = JM.init_cache(jcfg, B, T, dtype=jnp.float32)
     tc = TM.init_cache(cfg, B, T, dtype=torch.float32, device="cpu")
     toks = rng.integers(0, cfg.vocab, (B, 10))
-    jc, _ = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+    frames = _frames(cfg, B)
+    jc, _ = JM.prefill(jp, jcfg, rules, _jbatch(toks, frames), jc,
                        compute_dtype=jnp.float32)
     tc, _ = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
-                       compute_dtype=torch.float32)
+                       compute_dtype=torch.float32, frames=_tframes(frames))
     index = np.array([4, 10, 7], np.int32)
     for step in range(4):
         tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
@@ -307,19 +417,20 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
     steps = 32 if floor else 16
     T = max(32, S + steps)
     toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
+    frames = _frames(cfg, B, 11)
     jc = JM.init_cache(jcfg, B, T, dtype=jnp.bfloat16)
-    jc, jl = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)}, jc,
+    jc, jl = JM.prefill(jp, jcfg, rules, _jbatch(toks, frames), jc,
                         compute_dtype=jnp.bfloat16)
     tc = TM.init_cache(cfg, B, T, dtype=torch.bfloat16, device="cpu")
     tc, tl = TM.prefill(tp, cfg, torch.from_numpy(toks), tc,
-                        compute_dtype=torch.bfloat16)
+                        compute_dtype=torch.bfloat16,
+                        frames=_tframes(frames))
     # a recurrent config's reference also runs in float32 on the same
     # tokens: its distance from the bf16 run is the step's noise floor
     if floor:
         jc32 = JM.init_cache(jcfg, B, T, dtype=jnp.float32)
-        jc32, jl32 = JM.prefill(jp, jcfg, rules,
-                                {"tokens": jnp.asarray(toks)}, jc32,
-                                compute_dtype=jnp.float32)
+        jc32, jl32 = JM.prefill(jp, jcfg, rules, _jbatch(toks, frames),
+                                jc32, compute_dtype=jnp.float32)
     index = np.full(B, S, np.int32)
     separated = routed = 0
     for step in range(steps):
@@ -367,10 +478,12 @@ def test_decode_matches_forward(setup):
     B, S, S0 = 2, 12, 5
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, (B, S)))
-    par = TM.forward(tp, cfg, toks, compute_dtype=torch.float32)
+    frames = _tframes(_frames(cfg, B, 1))
+    par = TM.forward(tp, cfg, toks, compute_dtype=torch.float32,
+                     frames=frames)
     cache = TM.init_cache(cfg, B, S, dtype=torch.float32, device="cpu")
     cache, pre = TM.prefill(tp, cfg, toks[:, :S0], cache,
-                            compute_dtype=torch.float32)
+                            compute_dtype=torch.float32, frames=frames)
     np.testing.assert_allclose(pre.numpy(), par[:, S0 - 1].numpy(),
                                rtol=2e-4, atol=2e-4)
     for t in range(S0, S):
@@ -382,11 +495,29 @@ def test_decode_matches_forward(setup):
 
 
 def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
-             last=None):
+             last=None, frames=None):
     """The stack as composed before the residual add moved into the
     norms: norm, mixer, x + out after every sublayer, then the final norm
-    of the stream (of one row at prefill). Returns the logits."""
+    of the stream (of one row at prefill); an encoder's stack (given
+    `frames`) composed so too. Returns the logits."""
     B, S = tokens.shape
+
+    def norm(p, x):
+        if cfg.norm == "layernorm":
+            return layer_norm(x, p, cfg.norm_eps)
+        return reference_rmsnorm(x, p["scale"], cfg.norm_eps)
+
+    def run(x, subs, ctx):
+        for spec, p, c in subs:
+            h = norm(p["norm"], x)
+            if spec.kind in TM._CACHED:
+                out, _ = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec,
+                                                     cfg, ctx, c)
+            else:
+                out = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg,
+                                                  ctx)
+            x = x + out
+        return x
     x = TM._embed_tokens(tp, cfg, tokens, dtype)
     if mode == "decode":
         idx = torch.as_tensor(index).to(torch.int64)
@@ -396,18 +527,21 @@ def _unfused(tp, cfg, tokens, mode, dtype, cache=None, index=None,
         ctx = Ctx(mode=mode,
                   positions=TM._positions(cfg, B, S, tokens.device),
                   compute_dtype=dtype, plain=True)
-    for spec, p, c in TM.stack(tp, cfg, cache):
-        h = reference_rmsnorm(x, p["norm"]["scale"], cfg.norm_eps)
-        if spec.kind in TM._CACHED:
-            out, _ = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg,
-                                                 ctx, c)
-        else:
-            out = TM._MIXERS[spec.kind].apply(p["mixer"], h, spec, cfg, ctx)
-        x = x + out
+    if frames is not None and mode != "decode":
+        e = frames.to(dtype)
+        e = e + TM.sinusoidal_positions(*e.shape[1:]).to(dtype)[None]
+        ectx = Ctx(mode="train", positions=None, compute_dtype=dtype,
+                   plain=True)
+        enc = tp["encoder"]
+        e = run(e, [(spec, TM._index(enc["groups"][k], g), None)
+                    for g in range(cfg.encoder.n_groups)
+                    for k, spec in TM._encoder(cfg)], ectx)
+        ctx.enc_out = norm(enc["final_norm"], e)
+    x = run(x, TM.stack(tp, cfg, cache), ctx)
     if mode == "prefill":
         i = S - 1 if last is None else last
         x = x[:, i:i + 1]
-    x = reference_rmsnorm(x, tp["final_norm"]["scale"], cfg.norm_eps)
+    x = norm(tp["final_norm"], x)
     logits = TM._logits(tp, cfg, x)
     return logits if mode == "train" else logits[:, 0]
 
@@ -422,15 +556,19 @@ def test_fused_residual_adds_are_bit_identical_on_the_cpu(setup, dtype):
     B, S, T = 2, 9, 16
     toks = torch.from_numpy(
         np.random.default_rng(3).integers(0, cfg.vocab, (B, S + 3)))
-    assert torch.equal(TM.forward(tp, cfg, toks[:, :S], compute_dtype=dtype),
-                       _unfused(tp, cfg, toks[:, :S], "train", dtype))
+    frames = _tframes(_frames(cfg, B, 3))
+    assert torch.equal(TM.forward(tp, cfg, toks[:, :S], compute_dtype=dtype,
+                                  frames=frames),
+                       _unfused(tp, cfg, toks[:, :S], "train", dtype,
+                                frames=frames))
     for last in (None, 5):
         got_c = TM.init_cache(cfg, B, T, dtype=dtype, device="cpu")
         want_c = TM.init_cache(cfg, B, T, dtype=dtype, device="cpu")
         got_c, got = TM.prefill(tp, cfg, toks[:, :S], got_c,
-                                compute_dtype=dtype, last_index=last)
+                                compute_dtype=dtype, last_index=last,
+                                frames=frames)
         want = _unfused(tp, cfg, toks[:, :S], "prefill", dtype, want_c,
-                        last=last)
+                        last=last, frames=frames)
         assert torch.equal(got, want), last
     index = np.array([S, S - 2], np.int64)
     for step in range(3):
@@ -452,10 +590,11 @@ def test_fused_residual_adds_are_bit_identical_on_the_cpu(setup, dtype):
 def test_forward_matches_reference(setup):
     jcfg, cfg, jp, tp, rules = setup
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 10))
-    jl, _ = JM.forward(jp, jcfg, rules, {"tokens": jnp.asarray(toks)},
+    frames = _frames(cfg, 2, 5)
+    jl, _ = JM.forward(jp, jcfg, rules, _jbatch(toks, frames),
                        compute_dtype=jnp.float32, remat=False)
     tl = TM.forward(tp, cfg, torch.from_numpy(toks),
-                    compute_dtype=torch.float32)
+                    compute_dtype=torch.float32, frames=_tframes(frames))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
 
 
@@ -485,7 +624,8 @@ def _drawn_then_stacked(cfg, seed, dtype, bound=None):
     """Native init as a loop that draws all G layers' matrices of a
     sublayer into a list (layer 0's in `param_shapes` order, then layer
     1's, ...) and stacks them: the weights `init_params` must give; then
-    each shared sublayer's and each tail sublayer's once, unstacked. A
+    each shared sublayer's and each tail sublayer's once, unstacked; then
+    an encoder's groups, stacked as the decoder's. A
     matrix of more than `bound` elements (None: no bound) is drawn as its
     leading-axis slices, each a draw of the slice's shape from where the
     generator stands, then stacked."""
@@ -523,6 +663,9 @@ def _drawn_then_stacked(cfg, seed, dtype, bound=None):
         want["shared"] = shared
     if cfg.tail:
         want["tail"] = {k: sublayer(spec, None) for k, spec in TM._tail(cfg)}
+    if cfg.encoder is not None:
+        want["encoder"] = {k: sublayer(spec, cfg.encoder.n_groups)
+                           for k, spec in TM._encoder(cfg)}
     return want
 
 
@@ -553,12 +696,15 @@ def test_native_init_stacks_in_place(arch, dtype):
     for name in ("embed", "unembed"):
         if name in want:
             assert torch.equal(got[name], want[name]), name
-    for part in ("groups", "shared", "tail"):
-        assert sorted(got.get(part, {})) == sorted(want.get(part, {}))
+    subs = {part: got.get(part, {}) for part in ("groups", "shared", "tail")}
+    if "encoder" in got:
+        subs["encoder"] = got["encoder"]["groups"]
+    for part, have in subs.items():
+        assert sorted(have) == sorted(want.get(part, {}))
         for k, mixer in want.get(part, {}).items():
-            assert sorted(_paths(got[part][k]["mixer"])) == sorted(mixer)
+            assert sorted(_paths(have[k]["mixer"])) == sorted(mixer)
             for n, t in mixer.items():
-                g = TM._at_path(got[part][k]["mixer"], n)
+                g = TM._at_path(have[k]["mixer"], n)
                 want_dtype = (torch.float32 if n[-1].endswith("_scale")
                               or n[-1] in MAMBA_F32 else dtype)
                 assert g.dtype == t.dtype == want_dtype, (part, k, n)
@@ -645,8 +791,7 @@ def test_params_from_jax_rejects_a_mismatched_tree(setup):
 
 
 @pytest.mark.parametrize("change", [
-    dict(sliding_window=16), dict(logit_softcap=30.0),
-    dict(rope="none"), dict(cross=True)])
+    dict(sliding_window=16), dict(logit_softcap=30.0)])
 def test_unported_attention_features_raise(change):
     import dataclasses
     cfg = get_config("gemma-2b", reduced=True)

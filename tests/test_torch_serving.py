@@ -9,8 +9,11 @@ attention's K/V of each group, the tail's too, and xlstm-350m, whose
 blob is its mLSTM matrix memories, sLSTM states and conv windows, of one
 size whatever the context; both recurrent configs' prompts prefill at
 their exact length, and qwen2-vl-2b, served on tokens alone as the
-reference engine serves it, M-RoPE on the index), in the tiered-KV serving scenario of
-examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
+reference engine serves it, M-RoPE on the index, and whisper-medium,
+served on zero frames as the reference engine serves it, at each
+prompt's exact length, whose blob holds each group's cross-attention
+K/V of the encoder's rows beside its self K/V), in the tiered-KV serving
+scenario of examples/serve_tiered_kv.py with a DRAM tier that holds only 1.5 KV
 blobs, so paused sessions really reach flash.
 
 Tokens, tiers, stalls and every counter of the store and its runtime
@@ -48,7 +51,7 @@ STEP = 5e-3
                 params=["deepseek-7b", "gemma-2b", "granite-20b",
                         "llama4-maverick-400b-a17b", "mistral-nemo-12b",
                         "qwen2-vl-2b", "qwen3-moe-235b-a22b",
-                        "xlstm-350m", "zamba2-7b"])
+                        "whisper-medium", "xlstm-350m", "zamba2-7b"])
 def weights(request):
     jcfg = j_get_config(request.param, reduced=True)
     cfg = get_config(request.param, reduced=True)
@@ -58,13 +61,15 @@ def weights(request):
 
 
 def _blob_bytes(cfg):
-    """A paused slot's blob, float32: every attention sublayer's K and V,
-    every Mamba-2 sublayer's state and conv window, every mLSTM's matrix
+    """A paused slot's blob, float32: every attention sublayer's K and V
+    (a cross-attention sublayer's of the encoder's n_frames rows), every
+    Mamba-2 sublayer's state and conv window, every mLSTM's matrix
     memory [H,P,P+1] and conv window and every sLSTM's h, c, n, m [H,P]
     and conv window, a group's times its groups, the tail's once."""
     def sub(s):
         if s.kind == "attn":
-            return 2 * s.n_kv * MAX_LEN * s.head_dim
+            rows = cfg.encoder.n_frames if s.cross else MAX_LEN
+            return 2 * s.n_kv * rows * s.head_dim
         if s.kind == "mamba2":
             d_in = s.expand * cfg.d_model
             return (d_in // s.head_dim * s.d_state * s.head_dim
@@ -216,8 +221,10 @@ def _recurrent(cfg) -> bool:
 
 def test_prefill_length_follows_the_reference(weights, monkeypatch):
     """admit prefills a pow2 bucket when every sublayer is attention, FFN
-    or MoE, and a recurrent config's prompt at its exact length (pads
-    would advance its state), with the last real token's logits read."""
+    or MoE and there is no encoder, and a recurrent config's prompt, or
+    an encoder-decoder's, at its exact length (pads would advance the
+    state; the reference buckets only without an encoder), with the last
+    real token's logits read."""
     _, cfg, _, tp = weights
     seen = []
     prefill = TM.prefill
@@ -229,7 +236,8 @@ def test_prefill_length_follows_the_reference(weights, monkeypatch):
     eng = TEngine(cfg, tp, max_slots=2, max_len=MAX_LEN, device="cpu")
     for n in (5, 9):
         eng.admit(TReq(rid=f"p{n}", prompt=np.ones(n, np.int32)))
-    want = ([(5, None), (9, None)] if _recurrent(cfg)
+    want = ([(5, None), (9, None)]
+            if _recurrent(cfg) or cfg.encoder is not None
             else [(8, 4), (16, 8)])
     assert seen == want
 
