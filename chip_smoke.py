@@ -331,6 +331,32 @@ Drives the port's serving path on the card and checks it, in phases:
      widened to float32) to flash and its prefetched resume, decode
      windows and the profile; (c) at 6 of its 24 decoder layers, the
      encoder at full depth.
+ 24. full-width gemma-2b with Gemma 2's attention features (its 18
+     layers as 9 groups of a local layer, a sliding window of 4,096, and
+     a global one; every score capped at 50, the logits at 30; the
+     config built here, as no reference config turns them on): (a)
+     decode attention at q [4,8,256] on k,v [4,1,T,256], T = 1,024 and
+     8,192, over an int8 cache with its bf16 scales (ragged lengths, 0
+     and past T), with the window (rows whose window starts mid-chunk,
+     at a chunk's edge, and short rows), with the cap, and all three;
+     flash attention at q [1,8,S,256] on k,v [1,1,S,256], S = 700,
+     4,097 and 8,191, as a local layer, a global one and the window
+     alone (windows of 100 and 1 at 700), in the prefill's strided
+     layout too; each in float32 and bf16 against its plain version,
+     finite, then timed beside the library call (dequantize then SDPA;
+     SDPA with a boolean window mask; none for a cap) and the bound;
+     (b) serve_tiered_kv's spec at max_len 8,192 through
+     `Platform.engine`: the first-step check at bucket 8,191, 18 flash
+     and 18 decode-attention launches a prefill or step and 37 norms,
+     five prompts of 4,200-6,000 tokens and one of 700, the example's
+     flow, a pause of the 301,989,888 B blob to flash and its prefetched
+     resume with the unbroken run's tokens, the profile, no decode
+     windows; (c) the int8 KV cache on the same weights: 4 prompts
+     prefilled into `init_cache(dtype=torch.int8)`, 32 greedy steps
+     through the kernels and the plain path (the first-step rule; the
+     greedy token wherever the plain path's top-2 margin exceeds 0.02),
+     the cache's bytes, a step's attention kernels and the whole step
+     against the bf16 cache's, and the logits' distance from it.
 
 The first-step check (phases 4 and 13-23) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
@@ -411,7 +437,8 @@ PARAMS = {"gemma-2b": 2_506_172_416, "deepseek-7b": 6_910_365_696,
           "qwen3-moe-235b-a22b": 31_097_723_904,
           "llama4-maverick-400b-a17b": 18_553_267_200,
           "zamba2-7b": 6_636_442_832, "xlstm-350m": 391_730_272,
-          "qwen2-vl-2b": 1_543_656_960, "whisper-medium": 758_002_688}
+          "qwen2-vl-2b": 1_543_656_960, "whisper-medium": 758_002_688,
+          "gemma-2b-gemma2": 2_506_172_416}
 # the config's analytic `param_count()` less the tensors native init
 # makes: zamba2-7b's leaves out each Mamba-2 layer's conv bias (7,296)
 # and skip (112) and counts each shared sublayer's norm twice (3,584 x 2);
@@ -499,6 +526,12 @@ def _prompts(vocab: int, n: int, rng):
         np.int32) for _ in range(n)]
 
 
+def _bucket(n: int, max_len: int = MAX_LEN) -> int:
+    """The engine's prefill length of an n-token prompt: the next power of
+    two, at most max_len - 1."""
+    return min(1 << (n - 1).bit_length(), max_len - 1)
+
+
 def _path_shapes(prompts, exact=False):
     """The kernels' shapes on the serving path of `prompts`: the decode
     step's lengths of the first slot grid, a few steps in (int32 on the
@@ -509,8 +542,7 @@ def _path_shapes(prompts, exact=False):
                            dtype=torch.int32, device="cuda")
     if exact:
         return lengths, sorted({len(p) for p in prompts})
-    buckets = sorted({min(1 << (len(p) - 1).bit_length(), MAX_LEN - 1)
-                      for p in prompts})
+    buckets = sorted({_bucket(len(p)) for p in prompts})
     return lengths, buckets
 
 
@@ -560,9 +592,10 @@ def _check(name, got, want, dtype_name, label):
 
 
 def _print_record(name, r):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
     print(f"  time  {name:17s} {r['shape']}: kernel_ms={r['ms']:.4f} "
           f"(with host launch {r['launch_ms']:.4f}) plain_ms="
-          f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+          f"{r['plain_ms']:.4f} library_ms={lib} "
           f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
 
 
@@ -577,51 +610,123 @@ def _print_timeline(tl, where=""):
           f"{tl['partial_blocks_median_us']}")
 
 
-def _decode_record(q, caches, lengths, scale, err) -> dict:
-    """decode_attention's times over `caches`, one (k, v) a layer read in
-    turn as the decode step reads them: kernel (device and with launch),
-    plain version, SDPA with the length mask, and the bound of the filled
-    rows' bytes and products."""
+def _capped_flex(softcap, keep, B, S, T, scale, device):
+    """The one PyTorch call that computes attention with capped scores:
+    flex_attention under torch.compile, tanh(s / softcap) * softcap on
+    s = q.k * scale as its score_mod, and `keep(b, q_idx, kv_idx)` as a
+    block mask over [B, S, T] built here, before any timing (as SDPA's
+    boolean mask is). Timed beside the kernels, used nowhere in the port.
+    Returns (q [B,H,S,hd], k, v [B,KV,T,hd]) -> [B,H,S,hd]."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if not _FLEX:
+        # a compile a form, then one with dynamic sizes (ten shapes and
+        # forms in phase 24)
+        torch._dynamo.config.cache_size_limit = max(
+            torch._dynamo.config.cache_size_limit, 64)
+        _FLEX.append(torch.compile(flex_attention))
+
+    def cap(s, b, h, q_idx, kv_idx):
+        return torch.tanh(s / softcap) * softcap
+
+    block = create_block_mask(lambda b, h, i, j: keep(b, i, j), B, None,
+                              S, T, device=device)
+    return lambda q, k, v: _FLEX[0](q, k, v, score_mod=cap,
+                                    block_mask=block, scale=scale,
+                                    enable_gqa=True)
+
+
+_FLEX = []                     # flex_attention compiled, at first use
+
+
+def _decode_record(q, caches, lengths, scale, err, window=0,
+                   softcap=0.0) -> dict:
+    """decode_attention's times over `caches`, one (k, v) a layer (or an
+    int8 one's (k, v, k_scale, v_scale)) read in turn as the decode step
+    reads them: kernel (device and with launch), plain version, the
+    library call (SDPA with the length and window mask; with a score cap,
+    compiled flex_attention, the cap its score_mod and the same mask its
+    block mask; an int8 cache dequantized first), and the bound of the
+    bytes and products of the rows each slot sees (the window's, its
+    scales with an int8 cache). With a cap the library call's output is
+    held to the plain version's first (bf16 TOL)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention
-    from repro_torch.kernels.decode_attention.ref import \
-        reference_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        dequantize, reference_decode_attention)
 
     B, H, hd = q.shape
     KV, T = caches[0][0].shape[1:3]
-    valid = (torch.arange(T, device=q.device)[None, :]
-             < lengths[:, None])[:, None, None, :]
-    filled = int(lengths.sum())
-    size = q.element_size()
-    nbytes = 2 * filled * KV * hd * size + 2 * q.numel() * size + B * 4
-    b_ms, b_by = _bound_ms(nbytes, 4 * filled * H * hd, q.dtype)
+    pos = torch.arange(T, device=q.device)[None, :]
+    length = lengths.clamp(0, T)[:, None]
+    seen = pos < length
+    start = (length - window).clamp_min(0) if window else 0
+    if window:
+        seen &= pos >= start
+    valid = seen[:, None, None, :]
+    rows = int((length - start).clamp_min(0).sum())
+    size, kv_size = q.element_size(), caches[0][0].element_size()
+    int8 = len(caches[0]) == 4
+    nbytes = (2 * rows * KV * (hd * kv_size + 2 * int8)
+              + 2 * q.numel() * size + B * 4)
+    b_ms, b_by = _bound_ms(nbytes, 4 * rows * H * hd, q.dtype)
     dt = str(q.dtype).split(".")[1].replace("bfloat16", "bf16")
+    form = ("" if not int8 else " int8 k,v + bf16 scales") + (
+        f" window {window}" if window else "") + (
+        f" softcap {softcap:g}" if softcap else "")
 
     def calls(fn):
-        return [lambda k=k, v=v: fn(q, k, v) for k, v in caches]
-    kern = calls(lambda q, k, v: decode_attention(q, k, v, lengths,
-                                                  scale=scale))
+        return [lambda c=c: fn(q, *c) for c in caches]
+
+    def scales(c):
+        return dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+
+    if softcap:
+        lo = start[:, 0] if window else torch.zeros_like(length[:, 0])
+        capped = _capped_flex(softcap, lambda b, i, j, hi=length[:, 0],
+                              lo=lo: (j < hi[b]) & (j >= lo[b]),
+                              B, 1, T, scale, q.device)
+
+    def library(q, k, v, *sc):
+        if int8:
+            k, v = dequantize(k, sc[0], q.dtype), dequantize(v, sc[1],
+                                                             q.dtype)
+        if softcap:
+            return capped(q[:, :, None], k, v)[:, :, 0]
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=valid, scale=scale,
+            enable_gqa=True)
+    kern = calls(lambda q, k, v, *sc: decode_attention(
+        q, k, v, lengths, scale=scale, window=window, softcap=softcap,
+        **scales((k, v, *sc))))
+    plain = calls(lambda q, k, v, *sc: reference_decode_attention(
+        q, k, v, lengths, scale=scale, window=window, softcap=softcap,
+        **scales((k, v, *sc))))
+    if softcap:
+        _check("flex_attention", calls(library)[0](), plain[0](),
+               "bfloat16", f"library, T={T}{form}")
     return dict(
-        shape=(f"q [{B},{H},{hd}] k,v [{B},{KV},{T},{hd}] {dt}, lengths "
-               f"{lengths.tolist()}"),
+        shape=(f"q [{B},{H},{hd}] k,v [{B},{KV},{T},{hd}] {dt}{form}, "
+               f"lengths {lengths.tolist()}"),
         max_abs_err=err, ms=_time_ms(kern),
         launch_ms=_time_ms(kern, queued=False),
-        plain_ms=_time_ms(calls(lambda q, k, v: reference_decode_attention(
-            q, k, v, lengths, scale=scale))),
-        library_ms=_time_ms(calls(
-            lambda q, k, v: F.scaled_dot_product_attention(
-                q[:, :, None], k, v, attn_mask=valid, scale=scale,
-                enable_gqa=True))),
+        plain_ms=_time_ms(plain), library_ms=_time_ms(calls(library)),
         bound_ms=b_ms, bound_by=b_by)
 
 
-def _flash_record(ins, scale, err, causal=True) -> dict:
+def _flash_record(ins, scale, err, causal=True, window=0,
+                  softcap=0.0) -> dict:
     """flash_attention's times over `ins`, distinct (q, k, v) of one
     prefill bucket (or, not `causal`, of one encoder or cross-attention
     shape): kernel (device and with launch), plain version, SDPA of the
-    same mask, and the bound of q, k, v and out's bytes and the products
-    of the pairs each query sees (the causal half, or all S x T)."""
+    same mask (a window's as a boolean mask; with a score cap, compiled
+    flex_attention, the cap its score_mod and the mask its block mask,
+    its output held to the plain version's first), and the bound of q,
+    k, v and out's bytes and the products of the pairs each query sees
+    (the causal half, a window's band, or all S x T)."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ref import reference_attention
@@ -629,22 +734,47 @@ def _flash_record(ins, scale, err, causal=True) -> dict:
     _, H, S, hd = ins[0][0].shape
     KV, T = ins[0][1].shape[1:3]
     size = ins[0][0].element_size()
-    pairs = S * (S + 1) // 2 if causal else S * T
+    if not causal:
+        pairs = S * T
+    elif window:
+        pairs = sum(min(i + 1, window) for i in range(S))
+    else:
+        pairs = S * (S + 1) // 2
     nbytes = (2 * S * H * hd + 2 * T * KV * hd) * size
     b_ms, b_by = _bound_ms(nbytes, 4 * pairs * H * hd, ins[0][0].dtype)
-    kern = [lambda t=t: flash_attention(*t, scale=scale, causal=causal)
-            for t in ins]
-    mode = "" if causal else " non-causal"
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    kern = [lambda t=t: flash_attention(*t, **kw) for t in ins]
+    mode = ("" if causal else " non-causal") + (
+        f" window {window}" if window and causal else "") + (
+        f" softcap {softcap:g}" if softcap else "")
+    if softcap:
+        assert causal, "a capped library call is timed causal only"
+        band = ((lambda b, i, j: (i >= j) & (i - j < window)) if window
+                else (lambda b, i, j: i >= j))
+        capped = _capped_flex(softcap, band, 1, S, T, scale,
+                              ins[0][0].device)
+        _check("flex_attention", capped(*ins[0]),
+               reference_attention(*ins[0], **kw), "bfloat16",
+               f"library, S={S}{mode}")
+        lib_calls = [lambda t=t: capped(*t) for t in ins]
+    else:
+        if causal and window:
+            i = torch.arange(S, device=ins[0][0].device)
+            band = (i[:, None] >= i[None, :T]) & (i[:, None] - i[None, :T]
+                                                   < window)
+            sdpa = dict(attn_mask=band)
+        else:
+            sdpa = dict(is_causal=causal)
+        lib_calls = [lambda t=t: F.scaled_dot_product_attention(
+            *t, scale=scale, enable_gqa=True, **sdpa) for t in ins]
+    library = _time_ms(lib_calls, iters=20)
     return dict(
         shape=f"q [1,{H},{S},{hd}] k,v [1,{KV},{T},{hd}] bf16{mode}",
         max_abs_err=err, ms=_time_ms(kern, iters=20),
         launch_ms=_time_ms(kern, iters=20, queued=False),
-        plain_ms=_time_ms([lambda t=t: reference_attention(
-            *t, scale=scale, causal=causal) for t in ins], iters=10),
-        library_ms=_time_ms([lambda t=t: F.scaled_dot_product_attention(
-            *t, is_causal=causal, scale=scale, enable_gqa=True)
-            for t in ins], iters=20),
-        bound_ms=b_ms, bound_by=b_by)
+        plain_ms=_time_ms([lambda t=t: reference_attention(*t, **kw)
+                           for t in ins], iters=10),
+        library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1470,8 +1600,8 @@ def _profile_split(eng, prompts):
     k = 6 if any(s.kind == "slstm" for s in _applied(eng.cfg)) else 5
     reqs = [Request(rid=f"prof{i}", prompt=prompts[j], max_new=MAX_NEW)
             for i, j in enumerate((0, 1, k, k))]
-    pre = ("prefill, bucket 1023" if not _exact(eng.cfg) else
-           f"prefill, {len(prompts[k])} tokens")
+    pre = (f"prefill, bucket {_bucket(len(prompts[k]), eng.max_len)}"
+           if not _exact(eng.cfg) else f"prefill, {len(prompts[k])} tokens")
     eng.admit(reqs[0])                     # warm-up
     eng.admit(reqs[1])
     eng.step()
@@ -1578,14 +1708,14 @@ def _blob_bytes(cfg, max_len=MAX_LEN) -> int:
     return _slot_bytes(cfg, 4, max_len)
 
 
-def _tier_table(cfg) -> dict:
+def _tier_table(cfg, max_len=MAX_LEN) -> dict:
     """The modeled hierarchy of phases 4 and 9, (capacity, bandwidth,
     latency) by tier: the card's HBM (data-sheet size and rate), host
-    DRAM that holds 1.5 blobs, so the colder of two paused sessions goes
-    to flash, and a Storage-Next SSD."""
+    DRAM that holds 1.5 blobs (of `max_len` positions), so the colder of
+    two paused sessions goes to flash, and a Storage-Next SSD."""
     from repro_torch.core import units
     return {"hbm": (80e9, units.H100_HBM_BW, 1e-7),
-            "dram": (1.5 * _blob_bytes(cfg), 45e9, 5e-7),
+            "dram": (1.5 * _blob_bytes(cfg, max_len), 45e9, 5e-7),
             "flash": (4e12, 7e9, 2e-5)}
 
 
@@ -1609,14 +1739,14 @@ def _direct_engine(cfg, params):
                         device="cuda"), clock
 
 
-def _example_spec(cfg):
+def _example_spec(cfg, max_len=MAX_LEN):
     """examples/serve_tiered_kv.py's one-host spec (static tau_hot 0.05 /
     tau_be 1.0 / ema_alpha 1.0, 5 ms step) with `_tier_table`'s tiers."""
     from repro_torch.platform import (HierarchySpec, HostDecl, PolicyDecl,
                                       TierDecl)
     return HierarchySpec(
         hosts=(HostDecl(tiers={name: TierDecl(*t) for name, t in
-                               _tier_table(cfg).items()}),),
+                               _tier_table(cfg, max_len).items()}),),
         policy=PolicyDecl.static(tau_hot=0.05, tau_be=1.0, ema_alpha=1.0),
         step_time=STEP_TIME)
 
@@ -3523,8 +3653,11 @@ def phase_artifacts():
 DENSE_ARCH = "deepseek-7b"
 LONG_ARCH = "mistral-nemo-12b"
 MQA_ARCH = "granite-20b"
-# (c)'s depth in phases 13, 16, 17, 18 and 21-23, a quarter of each
-# config's layers (its (b) serves all of them): the scheduler's run is
+# (c)'s depth in phases 13, 16, 17, 18 and 21-23, an eighth of the
+# layers of deepseek-7b, mistral-nemo-12b, granite-20b, qwen2-vl-2b and
+# whisper-medium's decoder since phase 24 joined the script and timed
+# flex_attention's compiles, a quarter of the others' (each (b) serves
+# all of them): the scheduler's run is
 # host launches a layer (38 s at deepseek-7b's 30 layers, 47 s at
 # mistral-nemo-12b's 40, 56 s at granite-20b's 52, 26 s at qwen3-moe's
 # 12, 40.7 s at xlstm-350m's 24 before its sLSTM scan replayed CUDA
@@ -3538,10 +3671,10 @@ MQA_ARCH = "granite-20b"
 # depth, 128 ms of host time (0.875 device-idle); its native init and
 # first-step check run all 81 layers
 ZAMBA_GROUPS = 2
-WORKLOAD_GROUPS = {"deepseek-7b": 8, "mistral-nemo-12b": 10,
-                   "granite-20b": 13, "qwen3-moe-235b-a22b": 3,
+WORKLOAD_GROUPS = {"deepseek-7b": 4, "mistral-nemo-12b": 5,
+                   "granite-20b": 7, "qwen3-moe-235b-a22b": 3,
                    "zamba2-7b": ZAMBA_GROUPS, "xlstm-350m": 3,
-                   "qwen2-vl-2b": 7, "whisper-medium": 6}
+                   "qwen2-vl-2b": 4, "whisper-medium": 3}
 SERVE_GROUPS = {"zamba2-7b": ZAMBA_GROUPS}
 MOE_ARCH = "qwen3-moe-235b-a22b"
 TOP1_ARCH = "llama4-maverick-400b-a17b"
@@ -5466,6 +5599,451 @@ def phase_tenants_tiers(cfg):
     return total
 
 
+# --------------------------------------------------------------- phase 24
+# gemma-2b with Gemma 2's attention features (arXiv:2408.00118 section
+# 2.1; Hugging Face `Gemma2Config`): its 18 layers as 9 groups of a local
+# layer (a sliding window of 4,096) and a global one, every layer's scores
+# capped at 50 and the logits at 30. No reference config turns these on;
+# the reference's model implements them, and the port runs them inside
+# both attention kernels, with the reference's int8 KV cache.
+G2_ARCH = "gemma-2b"
+G2_NAME = "gemma-2b-gemma2"
+G2_GROUPS = 9
+G2_WINDOW = 4096
+G2_SOFTCAP = 50.0
+G2_FINAL_SOFTCAP = 30.0
+G2_MAX_LEN = 8192              # gemma-2b's max_seq, the engine's max_len
+G2_DECODE_T = (1024, G2_MAX_LEN)
+G2_FLASH_S = (700, 4097, G2_MAX_LEN - 1)   # the prefill's top bucket
+# five prompts that cross the window and one under it (served), then two
+# that cross it (paused and resumed)
+G2_PROMPTS = ((4200, 6001), (700, 701), (4200, 6001), (4200, 6001),
+              (4200, 6001), (4200, 6001), (4200, 6001), (4200, 6001))
+G2_INT8_STEPS = 32
+G2_MARGIN = 2e-2               # top-2 margin past which greedy tokens hold
+# q scaled up in the kernel checks of a score cap, so that scores reach
+# the cap (unit q and k give scores of ~1 at head_dim 256)
+G2_CAP_Q = 40.0
+
+
+def _gemma2_config():
+    """Full-width gemma-2b with Gemma 2's attention features."""
+    from repro_torch.configs import get_config
+    base = get_config(G2_ARCH)
+    attn, ffn = base.pattern[0]
+    local = dataclasses.replace(attn, sliding_window=G2_WINDOW,
+                                logit_softcap=G2_SOFTCAP)
+    glob = dataclasses.replace(attn, logit_softcap=G2_SOFTCAP)
+    return dataclasses.replace(base, name=G2_NAME, n_groups=G2_GROUPS,
+                               pattern=((local, ffn), (glob, ffn)),
+                               final_logit_softcap=G2_FINAL_SOFTCAP)
+
+
+def _gemma2_prompts(vocab: int, rng):
+    import numpy as np
+    return [rng.integers(1, vocab, int(rng.integers(lo, hi))).astype(
+        np.int32) for lo, hi in G2_PROMPTS]
+
+
+def _decode_forms(T):
+    """(label, lengths, window, softcap, int8) of decode attention's forms
+    on this path at T positions: the int8 cache (ragged lengths, then 0
+    and past T), the window at lengths whose window starts mid-chunk, at
+    a chunk's edge and past the row's start (at T = 1,024 no row is past
+    4,096, so a window of 100 stands in for the window's edges), the cap,
+    and all three."""
+    ragged, edge = _long_lengths(T), (0, 5, T + 100, 300)
+    if T >= G2_MAX_LEN:
+        win, win_edge, w_edge = (8192, 6000, 4097, 4096), \
+            (1, 4127, 8191, 0), G2_WINDOW
+    else:
+        win, win_edge, w_edge = (T, T - 24, T // 2 + 1, 1), \
+            (1, 1000, 101, 33), 100
+    return [("int8", ragged, 0, 0.0, True),
+            ("int8, 0 and > T", edge, 0, 0.0, True),
+            ("window", win, G2_WINDOW, 0.0, False),
+            ("window edges", win_edge, w_edge, 0.0, False),
+            ("softcap", ragged, 0, G2_SOFTCAP, False),
+            ("int8 + window + softcap", win, G2_WINDOW, G2_SOFTCAP, True)]
+
+
+def _flash_forms(S):
+    """(label, window, softcap) of flash attention's forms at S: a local
+    layer (window and cap), a global one (cap), the window alone, and at
+    S = 700, where 4,096 masks nothing, windows of 100 and 1 (a window
+    that starts mid-tile, and the diagonal alone)."""
+    forms = [("local", G2_WINDOW, G2_SOFTCAP), ("global", 0, G2_SOFTCAP),
+             ("window", G2_WINDOW, 0.0)]
+    if S < G2_WINDOW:
+        forms += [("window 100", 100, 0.0), ("window 1", 1, G2_SOFTCAP)]
+    return forms
+
+
+def _gemma2_kernels(cfg):
+    """(a): decode attention's and flash attention's forms at this
+    config's shapes (q [4,8,256] on k,v [4,1,T,256] at T = 1,024 and
+    8,192; q [1,8,S,256] on k,v [1,1,S,256] at S = 700, 4,097 and 8,191,
+    in the prefill's strided layout too), in float32 and bf16 against
+    their plain versions (TOL, all finite), then timed in bf16 beside the
+    library call and the bound: each decode form at both T over distinct
+    caches past L2, and each flash form at each S."""
+    import torch
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.models.attention import quantize_kv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    attn = _attn_specs(cfg)[0]
+    H, KV, hd = attn.n_heads, attn.n_kv, attn.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def cache(T, dtype, int8):
+        k, v = (randn(MAX_SLOTS, KV, T, hd, dtype=dtype) for _ in "kv")
+        if not int8:
+            return k, v
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        return k8, v8, ks, vs
+
+    def decode(fn, q, c, lengths, window, softcap):
+        sc = dict(k_scale=c[2], v_scale=c[3]) if len(c) == 4 else {}
+        return fn(q, c[0], c[1], lengths, scale=scale, window=window,
+                  softcap=softcap, **sc)
+
+    for T in G2_DECODE_T:
+        for dt in (torch.float32, bf16):
+            name = str(dt).split(".")[1]
+            plain_c, int8_c = cache(T, dt, False), cache(T, dt, True)
+            for label, lens, window, softcap, int8 in _decode_forms(T):
+                q = randn(MAX_SLOTS, H, hd, dtype=dt) * (
+                    G2_CAP_Q if softcap else 1.0)
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                c = int8_c if int8 else plain_c
+                got = decode(decode_attention, q, c, lengths, window,
+                             softcap)
+                assert bool(torch.isfinite(got).all()), (T, label, name)
+                _check("decode_attention", got,
+                       decode(reference_decode_attention, q, c, lengths,
+                              window, softcap),
+                       name, f"T={T} {label} {name}")
+            del plain_c, int8_c
+        forms = _decode_forms(T)
+        for label, lens, window, softcap, int8 in [forms[i]
+                                                   for i in (0, 2, 4, 5)]:
+            one = 2 * MAX_SLOTS * KV * T * hd * (1 if int8 else 2)
+            caches = [cache(T, bf16, int8)
+                      for _ in range(L2_BYTES // one + 2)]
+            q = randn(MAX_SLOTS, H, hd, dtype=bf16) * (
+                G2_CAP_Q if softcap else 1.0)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            err = _check("decode_attention",
+                         decode(decode_attention, q, caches[0], lengths,
+                                window, softcap),
+                         decode(reference_decode_attention, q, caches[0],
+                                lengths, window, softcap),
+                         "bfloat16", f"timed T={T} {label} bf16")
+            _print_record("decode_attention", _decode_record(
+                q, caches, lengths, scale, err, window, softcap))
+            del caches
+        torch.cuda.empty_cache()
+
+    for S in G2_FLASH_S:
+        for dt in (torch.float32, bf16):
+            name = str(dt).split(".")[1]
+            # the prefill's own layout: q a transposed [B,S,H,hd]
+            # projection, k and v the first S rows of a max_len cache
+            kc = randn(1, KV, G2_MAX_LEN, hd, dtype=dt)
+            vc = randn(1, KV, G2_MAX_LEN, hd, dtype=dt)
+            for label, window, softcap in _flash_forms(S):
+                boost = G2_CAP_Q if softcap else 1.0
+                kw = dict(scale=scale, window=window, softcap=softcap)
+                q, k, v = (randn(1, n, S, hd, dtype=dt) for n in (H, KV, KV))
+                q = q * boost
+                got = flash_attention(q, k, v, **kw)
+                assert bool(torch.isfinite(got).all()), (S, label, name)
+                _check("flash_attention", got,
+                       reference_attention(q, k, v, **kw), name,
+                       f"S={S} {label} {name}")
+                q = randn(1, S, H, hd, dtype=dt).transpose(1, 2) * boost
+                _check("flash_attention",
+                       flash_attention(q, kc[:, :, :S], vc[:, :, :S], **kw),
+                       reference_attention(q, kc[:, :, :S], vc[:, :, :S],
+                                           **kw),
+                       name, f"strided views S={S} {label} {name}")
+            del kc, vc
+        for label, window, softcap in _flash_forms(S)[:3]:
+            boost = G2_CAP_Q if softcap else 1.0
+            ins = [tuple(randn(1, n, S, hd, dtype=bf16) * (
+                boost if n == H else 1.0) for n in (H, KV, KV))
+                for _ in range(4)]
+            kw = dict(scale=scale, window=window, softcap=softcap)
+            err = _check("flash_attention", flash_attention(*ins[0], **kw),
+                         reference_attention(*ins[0], **kw), "bfloat16",
+                         f"timed S={S} {label} bf16")
+            _print_record("flash_attention", _flash_record(
+                ins, scale, err, window=window, softcap=softcap))
+            del ins
+        torch.cuda.empty_cache()
+
+
+def _slot_copy(dst, src, slot):
+    """A batch-1 cache `src` copied into slot `slot` of `dst` (grouped
+    leaves [G,B,...], tail leaves [B,...])."""
+    for part, subs in dst.items():
+        for key, leaves in subs.items():
+            for n, t in leaves.items():
+                if part == "groups":
+                    t[:, slot].copy_(src[part][key][n][:, 0])
+                else:
+                    t[slot].copy_(src[part][key][n][0])
+
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(cache))
+
+
+def _int8_check(cfg, params, prompts, card):
+    """(c) the int8 KV cache on (b)'s weights: `init_cache(cfg, 4, 8192,
+    dtype=torch.int8)`, the first four prompts prefilled one a slot (at
+    their bucket, as the engine pads them), then G2_INT8_STEPS greedy
+    decode steps through the kernels and through the plain path, both fed
+    the plain path's greedy tokens: the first step's logits held by the
+    first-step rule (twice the plain bf16 path's distance from the plain
+    float32 path over the same int8 cache), the kernels' greedy token
+    equal to the plain path's wherever its top-2 margin exceeds
+    G2_MARGIN; the cache bytes against a bf16 cache's and the logits'
+    distance from the kernels' run over the bf16 cache printed (the
+    quantization's own, not held). Returns the int8 and bf16 caches and
+    the slots' next indices, for `_int8_times`."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+
+    reqs = prompts[:MAX_SLOTS]
+    T = G2_MAX_LEN
+    lens = [len(p) for p in reqs]
+
+    def prefilled(dtype, compute, plain):
+        cache = M.init_cache(cfg, MAX_SLOTS, T, dtype, "cuda")
+        first = []
+        for slot, p in enumerate(reqs):
+            toks = np.zeros(_bucket(len(p), T), np.int64)
+            toks[:len(p)] = p
+            one = M.init_cache(cfg, 1, T, dtype, "cuda")
+            one, logits = M.prefill(
+                params, cfg, torch.as_tensor(toks[None], device="cuda"), one,
+                compute_dtype=compute, last_index=len(p) - 1, plain=plain)
+            _slot_copy(cache, one, slot)
+            first.append(logits[0].float())
+            del one
+        return cache, torch.stack(first)
+
+    def step(cache, tok, index, compute, plain):
+        return M.decode_step(
+            params, cfg, torch.as_tensor(tok[:, None], device="cuda"), cache,
+            torch.as_tensor(index, device="cuda"), compute_dtype=compute,
+            plain=plain)[1].float()
+
+    runs = {"kernels, int8": (torch.int8, torch.bfloat16, False),
+            "plain, int8": (torch.int8, torch.bfloat16, True),
+            "kernels, bf16 cache": (torch.bfloat16, torch.bfloat16, False)}
+    caches, logits = {}, {}
+    for label, (dtype, compute, plain) in runs.items():
+        caches[label], logits[label] = prefilled(dtype, compute, plain)
+    truth = prefilled(torch.int8, torch.float32, True)[1]
+    kern, plain = logits["kernels, int8"], logits["plain, int8"]
+    err = float((kern - plain).abs().max())
+    noise = float((plain - truth).abs().max())
+    print(f"  int8 first-step logits [{MAX_SLOTS},{cfg.vocab}] (prompts "
+          f"{lens}, max_len {T}): kernels vs plain bf16 max_abs_err="
+          f"{err:.4e}; plain bf16 vs float32 {noise:.4e}; kernels vs "
+          f"float32 {float((kern - truth).abs().max()):.4e}")
+    assert err <= 2 * noise, (err, noise)
+    del truth
+    index = np.array(lens, np.int64)
+    held = tried = 0
+    dist = [float((kern - logits["kernels, bf16 cache"]).abs().max())]
+    for i in range(G2_INT8_STEPS):
+        top2 = plain.topk(2, dim=-1).values
+        sep = (top2[:, 0] - top2[:, 1] > G2_MARGIN).cpu().numpy()
+        want = plain.argmax(-1).cpu().numpy()
+        got = kern.argmax(-1).cpu().numpy()
+        assert (got[sep] == want[sep]).all(), (i, got, want, sep)
+        held += int(sep.sum())
+        tried += len(sep)
+        tok = want.astype(np.int64)
+        kern = step(caches["kernels, int8"], tok, index, torch.bfloat16,
+                    False)
+        plain = step(caches["plain, int8"], tok, index, torch.bfloat16, True)
+        dist.append(float((kern - step(caches["kernels, bf16 cache"], tok,
+                                       index, torch.bfloat16, False))
+                          .abs().max()))
+        index = index + 1
+    print(f"  int8 greedy decode, {G2_INT8_STEPS} steps of {MAX_SLOTS} "
+          f"slots fed the plain path's tokens: the kernels' token == the "
+          f"plain path's at the {held} of {tried} slot-steps whose top-2 "
+          f"margin exceeds {G2_MARGIN} [{card}]")
+    print(f"  int8 vs bf16 cache (the kernels' logits, the quantization's "
+          f"own distance, not held): first step {dist[0]:.4e}, over "
+          f"{G2_INT8_STEPS} steps max {max(dist):.4e}")
+    b8, b16 = (_cache_bytes(caches[k]) for k in ("kernels, int8",
+                                                "kernels, bf16 cache"))
+    print(f"  cache bytes at {MAX_SLOTS} slots x {T} positions: int8 {b8} "
+          f"B (K/V and bf16 scales) vs bf16 {b16} B, {b8 / b16:.4f}x")
+    assert b8 < 0.53 * b16, (b8, b16)
+    return {k: caches[k] for k in ("kernels, int8", "kernels, bf16 cache")}, \
+        index
+
+
+def _int8_times(cfg, params, caches, index, card):
+    """One decode step at the slots' `index` over (c)'s int8 cache against
+    its bf16 cache: the step's decode_attention launches (device time)
+    and the whole step as the host launches it (CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention
+    from repro_torch.models import model as M
+
+    def step(cache, tok, index):
+        return M.decode_step(
+            params, cfg, torch.as_tensor(tok[:, None], device="cuda"), cache,
+            torch.as_tensor(index, device="cuda"),
+            compute_dtype=torch.bfloat16)
+
+    lengths = torch.as_tensor(index + 1, dtype=torch.int32, device="cuda")
+    tok = np.ones(MAX_SLOTS, np.int64)
+    attn = _attn_specs(cfg)[0]
+    q = torch.randn(MAX_SLOTS, attn.n_heads, attn.head_dim,
+                    device="cuda").to(torch.bfloat16)
+    times = {}
+    for label in ("kernels, int8", "kernels, bf16 cache"):
+        c = caches[label]
+        layers = [(c["groups"][key], g, spec)
+                  for g in range(cfg.n_groups)
+                  for key, spec in (("L0S0", cfg.pattern[0][0]),
+                                    ("L1S0", cfg.pattern[1][0]))]
+
+        def attn_step(layers=layers):
+            for leaves, g, spec in layers:
+                sc = ({"k_scale": leaves["k_scale"][g],
+                       "v_scale": leaves["v_scale"][g]}
+                      if "k_scale" in leaves else {})
+                decode_attention(q, leaves["k"][g], leaves["v"][g], lengths,
+                                 scale=spec.head_dim ** -0.5,
+                                 window=spec.sliding_window,
+                                 softcap=spec.logit_softcap, **sc)
+        times[label] = (
+            _time_ms([attn_step], iters=10),
+            _time_ms([lambda c=c: step(c, tok, index)], iters=10,
+                     queued=False))
+    (a8, s8), (a16, s16) = times["kernels, int8"], \
+        times["kernels, bf16 cache"]
+    print(f"  one decode step at lengths {lengths.tolist()}: the "
+          f"{cfg.n_layers} decode_attention launches {a8:.4f} ms over "
+          f"int8 vs {a16:.4f} ms over bf16 (device time, CUDA events); "
+          f"the whole step, the host launching as the path does, "
+          f"{s8:.4f} ms vs {s16:.4f} ms (CUDA events; the int8 step also "
+          f"quantizes each layer's new K and V row) [{card}]")
+
+
+def phase_gemma2():
+    """Phase 24: gemma-2b with Gemma 2's attention features at full width
+    (`_gemma2_config`): (a) `_gemma2_kernels`; (b) serve_tiered_kv's spec
+    at max_len 8,192 and 4 slots through Platform.compile ->
+    Platform.engine on native bf16 weights: the first-step check on the
+    first prompt at its bucket (8,191 rows), 18 flash launches a prefill,
+    18 decode-attention launches a step and 37 norms each, six requests
+    (five of 4,200-6,000 tokens, across the window, and one of 700), the
+    example's flow, a pause to flash and a prefetched resume with the
+    unbroken run's greedy tokens, one prefill and one decode step
+    profiled; (c) `_int8_check`. Runs no decode windows. Returns the
+    launches of (b) and (c)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.policy import Tier
+    from repro_torch.platform import Platform
+
+    t_phase = time.perf_counter()
+    card = _smi()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = _gemma2_config()
+    prompts = _gemma2_prompts(cfg.vocab, np.random.default_rng(SEED + 24))
+    blob = _blob_bytes(cfg, G2_MAX_LEN)
+    local, glob = _attn_specs(cfg)
+    print(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.n_groups} groups of "
+          f"a local layer, window {local.sliding_window}, and a global "
+          f"one), d_model {cfg.d_model}, {local.n_heads} heads / "
+          f"{local.n_kv} kv of {local.head_dim}, score cap "
+          f"{local.logit_softcap:g} ({glob.logit_softcap:g} global), final "
+          f"cap {cfg.final_logit_softcap:g}; prompts "
+          f"{[len(p) for p in prompts]}, buckets "
+          f"{sorted({_bucket(len(p), G2_MAX_LEN) for p in prompts})}; a "
+          f"paused blob {blob} B at {G2_MAX_LEN} positions [{card}]")
+    print(f"  (a) the attention kernels' forms at its shapes [{card}]")
+    _, t_a = _timed(_gemma2_kernels, cfg)
+    if _FLEX:
+        # flex_attention's compile worker processes end here
+        from torch._inductor.async_compile import shutdown_compile_workers
+        shutdown_compile_workers()
+
+    print(f"  (b) Platform.compile -> Platform.engine, max_len "
+          f"{G2_MAX_LEN} [{card}]")
+    params = _native_params(cfg)
+    (per_prefill, per_step), t_check = _timed(
+        _first_step, cfg, params, prompts[0], G2_MAX_LEN,
+        _bucket(len(prompts[0]), G2_MAX_LEN))
+    assert per_prefill["flash_attention"] == _attn_layers(cfg) == 18, \
+        per_prefill
+    assert per_step["decode_attention"] == 18, per_step
+    platform = Platform.compile(_example_spec(cfg, G2_MAX_LEN),
+                                device="cuda")
+    eng = platform.engine(cfg, params, max_slots=MAX_SLOTS,
+                          max_len=G2_MAX_LEN, compute_dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    _, flow_tiers, wall = _example_flow(eng, platform.clock, prompts)
+    print(f"  served {N_REQUESTS} requests, {N_REQUESTS * MAX_NEW} tokens, "
+          f"in {wall:.3f} s (host clock, synchronised); the example's "
+          f"paused tiers {flow_tiers[:3]}, cold session on {flow_tiers[-1]}"
+          f" before its prefetch [{card}]")
+    assert flow_tiers[-1] == Tier.FLASH.name, flow_tiers
+    (tiers, t_pause, t_restore), t_pr = _timed(
+        _pause_resume, eng, platform.clock, prompts)
+    print(f"  pause and resume: paused to {tiers[:2]}, the colder then on "
+          f"{tiers[2]} and resumed through a prefetch; greedy tokens of "
+          f"both sessions == a run without a break; one pause of the "
+          f"{blob} B blob {t_pause!r} s, its restore from flash "
+          f"{t_restore!r} s (host clock, synchronised) [{card}]")
+    assert eng._slot_blob(0)[0].nbytes == blob, "the engine's blob size"
+    _, t_prof = _timed(_profile_split, eng, prompts)
+    del eng, platform
+    torch.cuda.empty_cache()
+
+    print(f"  (c) the int8 KV cache on the same weights [{card}]")
+    (caches, index), t_c = _timed(_int8_check, cfg, params, prompts, card)
+    counts = kernels.launch_counts()
+    counts = {name: counts[name] for name in SERVING_KERNELS}
+    print(f"  launches in phase 24 (b) and (c): {json.dumps(counts)}")
+    for name, n in counts.items():
+        assert n > 0, f"{name} never launched in phase 24"
+    # timed apart from the path, its launches uncounted
+    _int8_times(cfg, params, caches, index, card)
+    del caches, params
+    torch.cuda.empty_cache()
+    print(f"  phase 24's parts, host clock: (a) {t_a:.1f} s, first-step "
+          f"check {t_check:.1f} s, example's flow {wall:.1f} s, pause and "
+          f"resume {t_pr:.1f} s, profile {t_prof:.1f} s, (c) {t_c:.1f} s; "
+          f"wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5475,6 +6053,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
+    t_script = time.perf_counter()
     # float32 products in full float32 on both paths
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5605,6 +6184,12 @@ def main() -> int:
     audio = phase_dense(au_cfg, _prompts(au_cfg.vocab, N_REQUESTS + 2,
                                          np.random.default_rng(SEED)),
                         "phase 23", long_context=True)
+    print(f"[24] full-width {G2_ARCH} with Gemma 2's attention features "
+          f"({G2_GROUPS} groups of a local layer, window {G2_WINDOW}, and "
+          f"a global one; score cap {G2_SOFTCAP:g}, final cap "
+          f"{G2_FINAL_SOFTCAP:g}) at {G2_MAX_LEN} positions through the "
+          f"kernels and the platform, and the int8 KV cache")
+    gemma2 = phase_gemma2()
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -5615,12 +6200,13 @@ def main() -> int:
                "phase12": artifacts, "phase13": dense, "phase14": at_scale,
                "phase15": tiered, "phase16": nemo, "phase17": granite,
                "phase18": qwen, "phase19": llama, "phase20": zamba,
-               "phase21": xlstm, "phase22": vl, "phase23": audio}
+               "phase21": xlstm, "phase22": vl, "phase23": audio,
+               "phase24": gemma2}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     # a path that holds a kernel at 0 (phase 21's attention kernels, phase
     # 23's rmsnorm) does not replace the newest path that ran it
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama, zamba, xlstm, vl, audio):
+                 granite, qwen, llama, zamba, xlstm, vl, audio, gemma2):
         counts.update({name: n for name, n in path.items() if n})
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]
@@ -5632,6 +6218,9 @@ def main() -> int:
               f"launches {counts[name]}")
         assert counts[name] > 0, f"{name} kernel never launched on its path"
 
+    wall = time.perf_counter() - t_script
+    print(f"  the script's wall from main's start {wall:.1f} s (host "
+          f"clock) [{_smi()}]")
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=counts[name],

@@ -44,6 +44,22 @@
 // - p·v reads each V row once for every head: thread d owns element d of
 //   the head dim and keeps the sums of all HG heads in registers, reading
 //   the weights of a position as one broadcast float4 per 4 heads.
+//
+// The reference's model features on this path (src/repro/models/
+// attention.py; its TPU kernel has none of them):
+// - An int8 cache (KT = int8_t) with one bf16 scale a (slot, kv head,
+//   position): a block stages the int8 rows of its chunk and their scales
+//   (one more bulk copy each, 64 bytes at most) and dequantizes in
+//   registers as `_read_cache` does, int8 times the scale in float32,
+//   rounded to q's type. The cache is read as it lies: a call moves half
+//   the bytes of a bf16 cache, plus 2 bytes a row for the scales.
+// - A sliding window: row b sees [max(len - window, 0), len), the
+//   reference's `cur - kv_pos < window` at cur = len - 1. Its first live
+//   chunk is (len - window) / 32, and that chunk stages only the rows from
+//   the window's start, so no row outside the window is read; the chunks
+//   before it exit at once and take no ticket.
+// - A score cap: s = tanh(s / softcap) * softcap after the scale, before
+//   the softmax, as `_sdpa_full` applies it.
 #include <math.h>
 #include <stdint.h>
 
@@ -101,19 +117,24 @@ __device__ __forceinline__ long long global_ns() {
 // of the two. (Built with the mbarrier past both instead, ptxas gave the
 // bf16 kernel at one query head a kv head more registers, so fewer
 // blocks an SM, and it ran slower at that shape; with the mbarrier first
-// it keeps its occupancy. `-Xptxas -v` prints the counts.)
+// it keeps its occupancy. `-Xptxas -v` prints the counts.) An int8
+// cache (esize 1) adds a K and a V scale buffer of 128 bytes each (32
+// bf16 scales and 16 spare bytes).
 struct DecLayout {
   int qp;          // heads per kv head, rounded up to the head group
   int region;      // bytes of the K (and of the V) staging buffer
-  int k_off, s_off, p_off, w_off, bar_off, total;
+  int sregion;     // bytes of the K (and of the V) scale buffer, int8 only
+  int k_off, ks_off, s_off, p_off, w_off, bar_off, total;
   __host__ __device__ DecLayout(int qr, int hg, int hd, int esize,
                                 int n_chunks) {
     constexpr int chunk = kDecChunk;
     qp = (qr + hg - 1) / hg * hg;
     region = (chunk * hd * esize + 16 + 127) / 128 * 128;
+    sregion = esize == 1 ? (chunk * 2 + 16 + 127) / 128 * 128 : 0;
     bar_off = 0;                           // the mbarrier, 128 bytes kept
     k_off = 128;                           // K, then V staging
-    s_off = k_off + 2 * region;            // scores [qp][chunk]
+    ks_off = k_off + 2 * region;           // K, then V scales (int8)
+    s_off = ks_off + 2 * sregion;          // scores [qp][chunk]
     p_off = s_off + 4 * qp * chunk;        // weights [chunk][qp]
     w_off = k_off;                         // merge weights [n_chunks][qp]
     const int chunk_end = p_off + 4 * qp * chunk;
@@ -208,6 +229,76 @@ template <typename T>
 __device__ __forceinline__ bool vec_ok(const T* row, int hd) {
   return (reinterpret_cast<uintptr_t>(row) & 15) == 0
          && (hd * static_cast<int>(sizeof(T))) % 16 == 0;
+}
+
+// An int8 cache element as q's type T sees it: int8 times its row's scale
+// in float32, rounded to T (`_read_cache`'s `.astype(dt)`)
+template <typename T>
+__device__ __forceinline__ float dequant(int8_t x, float s) {
+  const float f = static_cast<float>(x) * s;
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(f));
+  return f;
+}
+
+// The lane's 8 elements of an int8 row, dequantized with the row's scale
+// `sc`, at the elements load_lane<T> gives q (pieces of V = 16 / sizeof(T)
+// bytes at d0 = (32 j + lane) * V). `vec`: the row is V-byte aligned and
+// hd a multiple of V.
+template <typename T>
+__device__ __forceinline__ void load_lane(const int8_t* row, float sc,
+                                          int lane, int hd, bool vec,
+                                          float (&x)[kDecLaneElems]) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int j = 0; j < kDecLaneElems / V; ++j) {
+    const int d0 = (32 * j + lane) * V;
+    if (vec && d0 < hd) {
+      uint32_t w[2];
+      if constexpr (V == 8) {
+        const uint2 u = *reinterpret_cast<const uint2*>(row + d0);
+        w[0] = u.x;
+        w[1] = u.y;
+      } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(row + d0);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        x[j * V + e] = dequant<T>(
+            static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu), sc);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        x[j * V + e] = d0 + e < hd ? dequant<T>(row[d0 + e], sc) : 0.f;
+    }
+  }
+}
+
+// the same, for a cache in q's type (no scale)
+template <typename T>
+__device__ __forceinline__ void load_lane(const T* row, float, int lane,
+                                          int hd, bool vec,
+                                          float (&x)[kDecLaneElems]) {
+  load_lane(row, lane, hd, vec, x);
+}
+
+// `vec` of a cache row of KT elements read at q's type T's pieces
+template <typename T, typename KT>
+__device__ __forceinline__ bool vec_row(const KT* row, int hd) {
+  constexpr int V = 16 / sizeof(T) * sizeof(KT);    // bytes of a piece
+  return (reinterpret_cast<uintptr_t>(row) & (V - 1)) == 0
+         && (hd * static_cast<int>(sizeof(KT))) % V == 0;
+}
+
+// element i of a staged cache run, as float: a T value, or an int8 one
+// dequantized with its row's scale
+template <typename T>
+__device__ __forceinline__ float cache_elem(const T* p, int i, float) {
+  return to_f32(p[i]);
+}
+template <typename T>
+__device__ __forceinline__ float cache_elem(const int8_t* p, int i,
+                                            float s) {
+  return dequant<T>(p[i], s);
 }
 
 // q of heads h0 .. h0 + HG - 1 (zeros past qr) at the lane's elements
@@ -319,81 +410,120 @@ __device__ __forceinline__ void merge_rows(T* out, const float* o,
   }
 }
 
-template <typename T, int HG>
+// What one call needs; pointers of q's type T and the cache's type KT (T,
+// or int8_t with bf16 scales [B,KV,T,1], position stride 1)
+struct DecArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const __nv_bfloat16* k_scale;
+  const __nv_bfloat16* v_scale;
+  const int* lengths;
+  void* out;
+  float* part_o;
+  float* part_m;
+  float* part_l;
+  int* tickets;
+  int H, KV, T_, hd, window;
+  long long q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, ks_sb, ks_sh, vs_sb, vs_sh;
+  float scale, softcap;
+};
+
+template <typename T, typename KT, int HG>
 __global__ void __launch_bounds__(kDecThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        float* __restrict__ part_o,
-                        float* __restrict__ part_m,
-                        float* __restrict__ part_l, int* __restrict__ tickets,
-                        int H, int KV, int T_, int hd, long long q_sb,
-                        long long q_sh, long long k_sb, long long k_sh,
-                        long long v_sb, long long v_sh, float scale) {
+decode_attention_kernel(const DecArgs a) {
   constexpr int P = 32 / HG;               // positions a warp takes at once
+  constexpr bool kQuant = sizeof(KT) == 1;
   extern __shared__ __align__(128) unsigned char smem[];
 #ifdef DEC_TIMELINE
   __shared__ long long stamps[kDecStamps];
   if (threadIdx.x == 0) stamps[0] = global_ns();
 #endif
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const int H = a.H, hd = a.hd;
   const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int n_chunks = gridDim.x;
-  const int qr = H / KV;
+  const int qr = H / a.KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(max(lengths[b], 0), T_);
-  const int n_live = (len + kDecChunk - 1) / kDecChunk;
+  const int len = min(max(a.lengths[b], 0), a.T_);
+  // the window's first row, and the row's live chunks [c_lo, c_hi)
+  const int start = a.window > 0 ? max(len - a.window, 0) : 0;
+  const int c_lo = start / kDecChunk;
+  const int c_hi = (len + kDecChunk - 1) / kDecChunk;
+  const int n_live = c_hi - c_lo;
   T* orow = out + (static_cast<long long>(b) * H + g * qr) * hd;
 
-  if (n_live == 0) {                       // no filled row: zeros
+  if (len == 0) {                          // no filled row: zeros
     if (c == 0)
       for (int i = tid; i < qr * hd; i += kDecThreads)
         orow[i] = from_f32<T>(0.f);
     return;
   }
-  if (c >= n_live) return;
+  if (c < c_lo || c >= c_hi) return;
   DEC_STAMP(1);
 
-  const DecLayout lay(qr, HG, hd, sizeof(T), n_chunks);
+  const DecLayout lay(qr, HG, hd, sizeof(KT), n_chunks);
   float* s_s = reinterpret_cast<float*>(smem + lay.s_off);
   float* p_s = reinterpret_cast<float*>(smem + lay.p_off);
   float* w_s = reinterpret_cast<float*>(smem + lay.w_off);
   const uint32_t bar = smem_u32(smem + lay.bar_off);
-  const int t0 = c * kDecChunk;
-  const int n = min(kDecChunk, len - t0);      // filled rows of this chunk
+  // this chunk's rows [t0, t0 + n): from the window's start in the first
+  const int t0 = max(c * kDecChunk, start);
+  const int n = min((c + 1) * kDecChunk, len) - t0;
 
   // ---- ask for the chunk's K and V rows, read q while they land --------
-  const size_t run_bytes = static_cast<size_t>(n) * hd * sizeof(T);
-  const Run kr(k + b * k_sb + g * k_sh + static_cast<long long>(t0) * hd,
+  const size_t run_bytes = static_cast<size_t>(n) * hd * sizeof(KT);
+  const KT* kg = static_cast<const KT*>(a.k);
+  const KT* vg = static_cast<const KT*>(a.v);
+  const Run kr(kg + b * a.k_sb + g * a.k_sh + static_cast<long long>(t0) * hd,
                run_bytes);
-  const Run vr(v + b * v_sb + g * v_sh + static_cast<long long>(t0) * hd,
+  const Run vr(vg + b * a.v_sb + g * a.v_sh + static_cast<long long>(t0) * hd,
                run_bytes);
+  // an int8 cache's scales of those rows: n bf16 values each
+  const Run ksr(kQuant ? a.k_scale + b * a.ks_sb + g * a.ks_sh + t0
+                       : nullptr, kQuant ? 2 * n : 0);
+  const Run vsr(kQuant ? a.v_scale + b * a.vs_sb + g * a.vs_sh + t0
+                       : nullptr, kQuant ? 2 * n : 0);
   if (tid == 0) {
     mbar_init(bar, 1);
     mbar_fence_init();
-    mbar_expect_tx(bar, kr.bulk_bytes() + vr.bulk_bytes());
+    mbar_expect_tx(bar, kr.bulk_bytes() + vr.bulk_bytes() + ksr.bulk_bytes()
+                            + vsr.bulk_bytes());
     kr.bulk(smem + lay.k_off, bar);
     vr.bulk(smem + lay.k_off + lay.region, bar);
+    if (kQuant) {
+      ksr.bulk(smem + lay.ks_off, bar);
+      vsr.bulk(smem + lay.ks_off + lay.sregion, bar);
+    }
   }
-  const T* ks = kr.ends<T>(smem + lay.k_off);
-  const T* vs = vr.ends<T>(smem + lay.k_off + lay.region);
-  const T* qb = q + b * q_sb + static_cast<long long>(g * qr) * q_sh;
+  const KT* ks = kr.ends<KT>(smem + lay.k_off);
+  const KT* vs = vr.ends<KT>(smem + lay.k_off + lay.region);
+  const __nv_bfloat16* kss = nullptr;
+  const __nv_bfloat16* vss = nullptr;
+  if (kQuant) {
+    kss = ksr.ends<__nv_bfloat16>(smem + lay.ks_off);
+    vss = vsr.ends<__nv_bfloat16>(smem + lay.ks_off + lay.sregion);
+  }
+  const T* qb = q + b * a.q_sb + static_cast<long long>(g * qr) * a.q_sh;
   float qv[HG][kDecLaneElems];
-  load_heads<HG>(qv, qb, 0, qr, q_sh, lane, hd);
+  load_heads<HG>(qv, qb, 0, qr, a.q_sh, lane, hd);
   __syncthreads();                         // the unaligned ends
   mbar_wait(bar, 0);
   DEC_STAMP(2);
-  const bool kvec = vec_ok(ks, hd);
+  const bool kvec = vec_row<T>(ks, hd);
 
   // ---- scores: P positions x HG heads per warp, one transpose-reduce ---
   for (int h0 = 0; h0 < qr; h0 += HG) {
-    if (h0 > 0) load_heads<HG>(qv, qb, h0, qr, q_sh, lane, hd);
+    if (h0 > 0) load_heads<HG>(qv, qb, h0, qr, a.q_sh, lane, hd);
     for (int tp = warp * P; tp < n; tp += kDecWarps * P) {
       float acc[32];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         float kf[kDecLaneElems];
         if (tp + p < n) {
-          load_lane(ks + (tp + p) * hd, lane, hd, kvec, kf);
+          load_lane<T>(ks + (tp + p) * hd, kQuant ? to_f32(kss[tp + p]) : 0.f,
+                       lane, hd, kvec, kf);
         } else {
 #pragma unroll
           for (int e = 0; e < kDecLaneElems; ++e) kf[e] = 0.f;
@@ -409,14 +539,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       transpose_reduce(acc, lane);
       const int t = tp + lane / HG, h = h0 + lane % HG;
-      if (t < n && h < qr) s_s[h * kDecChunk + t] = acc[0] * scale;
+      if (t < n && h < qr) {
+        float s = acc[0] * a.scale;
+        if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+        s_s[h * kDecChunk + t] = s;
+      }
     }
   }
   __syncthreads();
   DEC_STAMP(3);
 
   // ---- chunk-local softmax statistics, one warp a head ------------------
-  const long long row = static_cast<long long>(b) * KV + g;
+  const long long row = static_cast<long long>(b) * a.KV + g;
   const long long pbase = (row * n_chunks + c) * qr;   // (b, g, c, head 0)
   for (int h = warp; h < qr; h += kDecWarps) {
     const float* sh = s_s + h * kDecChunk;
@@ -431,8 +565,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = warp_sum(l);
     if (lane == 0) {
-      part_m[pbase + h] = m;
-      part_l[pbase + h] = l;
+      a.part_m[pbase + h] = m;
+      a.part_l[pbase + h] = l;
     }
   }
   __syncthreads();
@@ -446,10 +580,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int h = 0; h < HG; ++h) o[h] = 0.f;
 #pragma unroll 8
       for (int t = 0; t < n; ++t)
-        axpy_heads<HG>(o, p_s + t * lay.qp + h0, to_f32(vs[t * hd + tid]));
+        axpy_heads<HG>(o, p_s + t * lay.qp + h0,
+                       cache_elem<T>(vs, t * hd + tid,
+                                     kQuant ? to_f32(vss[t]) : 0.f));
 #pragma unroll
       for (int h = 0; h < HG; ++h)
-        if (h0 + h < qr) part_o[(pbase + h0 + h) * hd + tid] = o[h];
+        if (h0 + h < qr) a.part_o[(pbase + h0 + h) * hd + tid] = o[h];
     }
   }
 
@@ -461,9 +597,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* ticket = reinterpret_cast<int*>(p_s);   // p_s is read no more
   if (tid == 0) {
     __threadfence();
-    const int drawn = atomicAdd(tickets + row, 1);
+    const int drawn = atomicAdd(a.tickets + row, 1);
     if (drawn == n_live - 1) {
-      tickets[row] = 0;                          // ready for the next call
+      a.tickets[row] = 0;                        // ready for the next call
       __threadfence();
     }
     *ticket = drawn;
@@ -476,13 +612,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();               // all have read the ticket: w_s covers it
 
-  // merge weights w[c][h] = exp(m_c - M) / L, one load of each (m, l)
-  const long long rbase = row * n_chunks * qr;        // (b, g, chunk 0)
+  // merge weights w[c - c_lo][h] = exp(m_c - M) / L over the live chunks,
+  // one load of each (m, l)
+  const long long rbase = (row * n_chunks + c_lo) * qr;  // (b, g, c_lo)
   for (int h = warp; h < qr; h += kDecWarps) {
     float M = -INFINITY, L = 0.f;                    // this lane's chunks
     for (int cc = lane; cc < n_live; cc += 32) {
-      const float m = __ldcg(part_m + rbase + cc * qr + h);
-      const float l = __ldcg(part_l + rbase + cc * qr + h);
+      const float m = __ldcg(a.part_m + rbase + cc * qr + h);
+      const float l = __ldcg(a.part_l + rbase + cc * qr + h);
       w_s[cc * lay.qp + h] = m;
       const float mn = fmaxf(M, m);
       L = L * expf(M - mn) + l * expf(m - mn);
@@ -496,9 +633,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   DEC_STAMP(7);
   if (hd % 8 == 0)
-    merge_rows<8>(orow, part_o + rbase * hd, w_s, n_live, qr, lay.qp, hd);
+    merge_rows<8>(orow, a.part_o + rbase * hd, w_s, n_live, qr, lay.qp, hd);
   else
-    merge_rows<1>(orow, part_o + rbase * hd, w_s, n_live, qr, lay.qp, hd);
+    merge_rows<1>(orow, a.part_o + rbase * hd, w_s, n_live, qr, lay.qp, hd);
 #ifdef DEC_TIMELINE
   __syncthreads();
   DEC_STAMP(8);
@@ -506,84 +643,81 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #endif
 }
 
-template <typename T, int HG>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, float* scratch, int* tickets, int B, int H, int KV,
-           int T_, int hd, const long long* s, float scale,
-           cudaStream_t st) {
-  const int n_chunks = (T_ + kDecChunk - 1) / kDecChunk;
-  const int qr = H / KV;
-  const DecLayout lay(qr, HG, hd, sizeof(T), n_chunks);
+template <typename T, typename KT, int HG>
+int launch(DecArgs a, int B, float* scratch, cudaStream_t st) {
+  const int n_chunks = (a.T_ + kDecChunk - 1) / kDecChunk;
+  const int qr = a.H / a.KV;
+  const DecLayout lay(qr, HG, a.hd, sizeof(KT), n_chunks);
   if (lay.total > kDecMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = decode_attention_kernel<T, HG>;
+  auto kernel = decode_attention_kernel<T, KT, HG>;
   if (lay.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long n_part = static_cast<long long>(B) * KV * n_chunks * qr;
-  float* part_o = scratch;
-  float* part_m = part_o + n_part * hd;
-  float* part_l = part_m + n_part;
-  kernel<<<dim3(n_chunks, KV, B), kDecThreads, lay.total, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), part_o,
-      part_m, part_l, tickets, H, KV, T_, hd, s[0], s[1], s[2], s[3], s[4],
-      s[5], scale);
+  const long long n_part = static_cast<long long>(B) * a.KV * n_chunks * qr;
+  a.part_o = scratch;
+  a.part_m = a.part_o + n_part * a.hd;
+  a.part_l = a.part_m + n_part;
+  kernel<<<dim3(n_chunks, a.KV, B), kDecThreads, lay.total, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the head group HG the kernel is built for: qr rounded up to a power of
 // two, at most 8 (kernels/decode_attention/ops.py::heads_per_group)
-template <typename T>
-int launch_hg(const void* q, const void* k, const void* v, const int* len,
-              void* out, float* scratch, int* tickets, int B, int H, int KV,
-              int T_, int hd, const long long* s, float scale,
-              cudaStream_t st) {
-  const int qr = H / KV;
-  if (qr == 1)
-    return launch<T, 1>(q, k, v, len, out, scratch, tickets, B, H, KV, T_,
-                        hd, s, scale, st);
-  if (qr == 2)
-    return launch<T, 2>(q, k, v, len, out, scratch, tickets, B, H, KV, T_,
-                        hd, s, scale, st);
-  if (qr <= 4)
-    return launch<T, 4>(q, k, v, len, out, scratch, tickets, B, H, KV, T_,
-                        hd, s, scale, st);
-  return launch<T, 8>(q, k, v, len, out, scratch, tickets, B, H, KV, T_, hd,
-                      s, scale, st);
+template <typename T, typename KT>
+int launch_hg(const DecArgs& a, int B, float* scratch, cudaStream_t st) {
+  const int qr = a.H / a.KV;
+  if (qr == 1) return launch<T, KT, 1>(a, B, scratch, st);
+  if (qr == 2) return launch<T, KT, 2>(a, B, scratch, st);
+  if (qr <= 4) return launch<T, KT, 4>(a, B, scratch, st);
+  return launch<T, KT, 8>(a, B, scratch, st);
 }
 
 }  // namespace repro_torch
 
 // q [B,H,hd] (strides q_sb, q_sh; last dim contiguous); k, v [B,KV,T,hd]
 // (strides *_sb, *_sh; each row of hd contiguous and rows contiguous,
-// stride(2) == hd); lengths [B] int32; out [B,H,hd] contiguous. scratch:
-// float32 [B*KV*n_chunks*(H/KV)*(hd + 2)], n_chunks = ceil(T / 32);
-// tickets: int32 [B*KV], all 0, and 0 again when the
-// kernel ends. hd <= 256. One kernel launch. Returns its cudaError_t (0 on
-// success).
+// stride(2) == hd) in q's type (kv_dtype == dtype) or int8 (kv_dtype 2),
+// then with k_scale, v_scale bf16 [B,KV,T,1] (strides ks_*, vs_*;
+// position stride 1), else null; lengths [B] int32; out [B,H,hd]
+// contiguous. window > 0: row b sees [max(lengths[b] - window, 0),
+// lengths[b]); softcap > 0: scores capped to tanh(s / softcap) * softcap.
+// scratch: float32 [B*KV*n_chunks*(H/KV)*(hd + 2)], n_chunks = ceil(T /
+// 32); tickets: int32 [B*KV], all 0, and 0 again when the kernel ends.
+// hd <= 256. One kernel launch. Returns its cudaError_t (0 on success).
 extern "C" int decode_attention_fwd(
-    const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* scratch, void* tickets, int B, int H, int KV, int T,
-    int hd, long long q_sb, long long q_sh, long long k_sb,
-    long long k_sh, long long v_sb, long long v_sh, float scale, int dtype,
-    void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* lengths, void* out, void* scratch,
+    void* tickets, int B, int H, int KV, int T, int hd, int window,
+    long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+    long long v_sb, long long v_sh, long long ks_sb, long long ks_sh,
+    long long vs_sb, long long vs_sh, float scale, float softcap, int dtype,
+    int kv_dtype, void* stream) {
   using namespace repro_torch;
+  constexpr int kDtypeI8 = 2;
   if (B <= 0) return 0;
   if (hd < 1 || hd > kDecMaxHeadDim || KV < 1 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long s[6] = {q_sb, q_sh, k_sb, k_sh, v_sb, v_sh};
+  const bool quant = kv_dtype == kDtypeI8;
+  if ((!quant && kv_dtype != dtype)
+      || (quant && (k_scale == nullptr || v_scale == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecArgs a{q, k, v,
+            static_cast<const __nv_bfloat16*>(k_scale),
+            static_cast<const __nv_bfloat16*>(v_scale),
+            static_cast<const int*>(lengths), out, nullptr, nullptr, nullptr,
+            static_cast<int*>(tickets), H, KV, T, hd, window,
+            q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, ks_sb, ks_sh, vs_sb, vs_sh,
+            scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
   float* sc = static_cast<float*>(scratch);
-  int* tk = static_cast<int*>(tickets);
   if (dtype == kDtypeF32)
-    return launch_hg<float>(q, k, v, len, out, sc, tk, B, H, KV, T, hd, s,
-                            scale, st);
+    return quant ? launch_hg<float, int8_t>(a, B, sc, st)
+                 : launch_hg<float, float>(a, B, sc, st);
   if (dtype == kDtypeBF16)
-    return launch_hg<__nv_bfloat16>(q, k, v, len, out, sc, tk, B, H, KV, T,
-                                    hd, s, scale, st);
+    return quant ? launch_hg<__nv_bfloat16, int8_t>(a, B, sc, st)
+                 : launch_hg<__nv_bfloat16, __nv_bfloat16>(a, B, sc, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

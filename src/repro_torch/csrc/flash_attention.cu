@@ -81,6 +81,21 @@
 // past T are zero in shared memory (the float32 kernel writes zeros, the
 // TMA unit fills them), and the k_idx < T mask stays explicit: a zero key
 // scores 0, not -inf. Query rows past S are zero too and are not written.
+//
+// The reference's model features (src/repro/models/attention.py; its TPU
+// kernel has none of them), in both kernels:
+// - A sliding window (Gemma 2's local layers): a causal query i sees keys
+//   (i - window, i], the reference's `q_pos - kv_pos < window`; a
+//   non-causal call ignores it, as the reference does. A block starts at
+//   the kv tile of its first row's first key, so the tiles wholly left of
+//   every row's window are not loaded, and masks the left edge of the
+//   tiles that start left of its last row's window as well as the right
+//   edge. A row may then meet a tile in which it sees no key; it keeps
+//   m = -inf, and the exponentials are taken against 0 in its place, so
+//   -inf - -inf never makes a NaN.
+// - A score cap (Gemma 2's 50): s = tanh(s * scale / softcap) * softcap,
+//   then the mask, as `_sdpa_full` does; the bf16 kernel folds log2 e in
+//   after the cap.
 #include <math.h>
 #include <stdint.h>
 
@@ -108,7 +123,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int KV, int S, int T_, int hd, long long q_sb,
                  long long q_sh, long long q_ss, long long k_sb,
                  long long k_sh, long long k_st, long long v_sb,
-                 long long v_sh, long long v_st, float scale, int causal) {
+                 long long v_sh, long long v_st, float scale, float softcap,
+                 int causal, int window) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* q_s = smem;                 // [kBQ][ld]
@@ -140,9 +156,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + b * k_sb + g * k_sh;
   const float* vb = v + b * v_sb + g * v_sh;
-  // causal: keys past the tile's last query row are above the diagonal
+  // causal: keys past the tile's last query row are above the diagonal,
+  // and with a window those before its first row's window are seen by no
+  // row of the tile
   const int k_end = causal ? min(T_, q0 + kBQ) : T_;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int win = causal ? window : 0;
+  const int k_begin = win > 0 ? max(q0 - win + 1, 0) / kBK * kBK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // previous tile consumed; q tile stored
     for (int i = threadIdx.x; i < kBK * hd; i += kFlashThreads) {
       const int r = i / hd, d = i - r * hd;
@@ -173,13 +193,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int qi = q0 + warp + 8 * i;
-      const bool ok = kj < T_ && (!causal || qi >= kj);
-      const float si = ok ? s[i] * scale : -INFINITY;
-      // key 0 of the first tile is valid for every row, so m_new is
-      // finite from the first tile on
+      const bool ok = kj < T_ && (!causal || (qi >= kj
+                                              && (win == 0 || qi - kj < win)));
+      float si = s[i] * scale;
+      if (softcap > 0.f) si = tanhf(si / softcap) * softcap;
+      si = ok ? si : -INFINITY;
+      // a row that has seen no key yet (left of its window) keeps
+      // m = -inf; its exponentials are taken against 0
       const float m_new = fmaxf(m[i], warp_max(si));
-      p[i] = ok ? expf(si - m_new) : 0.f;
-      const float corr = expf(m[i] - m_new);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      p[i] = ok ? expf(si - m_use) : 0.f;
+      const float corr = expf(m[i] - m_use);
       l[i] = l[i] * corr + warp_sum(p[i]);
       m[i] = m_new;
 #pragma unroll
@@ -279,18 +303,24 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
   wgmma_commit();
 }
 
-// Online softmax of one score tile, in place: mask (only the block's last
-// tile can hold keys past T or, when causal, above the diagonal), new row
-// maxima m and
-// sums l, the output rows rescaled, and p packed as the A operand of p v
-// (16 keys a step, two 8-key accumulator groups). A thread holds rows
-// q_row and q_row + 8 of its warp's 16; the quad of lanes sharing them
-// holds the whole row.
-template <int HD>
+// Online softmax of one score tile, in place: the score cap, the mask
+// (`masked`: only the block's last tile can hold keys past T or, when
+// causal, above the diagonal, and with a window only its first tiles keys
+// left of a row's window), new row maxima m and sums l, the output rows
+// rescaled, and p packed as the A operand of p v (16 keys a step, two
+// 8-key accumulator groups). A thread holds rows q_row and q_row + 8 of
+// its warp's 16; the quad of lanes sharing them holds the whole row.
+// kWindow, kCap: a sliding window (with the left-edge mask and the guard
+// it needs) and a score cap, each compiled in only where the call sets
+// it, so a kernel without them runs the plain causal loop. (As runtime
+// branches, the window's cost the plain kernel a third of its time at
+// S = 1023, and the cap's a capped kernel a fifth, on the H100: PERF.md.)
+template <int HD, bool kWindow, bool kCap>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], uint32_t (&p)[kTK / 16][4], float (&o)[HD / 2],
     float (&m)[2], float (&l)[2], int q_row, int k0, int T_, int tq,
-    bool edge, bool causal, float sl2) {
+    bool masked, bool causal, int win, float scale, float softcap) {
+  const float sl2 = scale * kLog2e;
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
     const int qi = q_row + 8 * ri;
@@ -300,25 +330,37 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kj = k0 + nt * 8 + 2 * tq + e;
-        float x = s[4 * nt + 2 * ri + e] * sl2;
-        if (edge && (kj >= T_ || (causal && kj > qi))) x = -INFINITY;
+        float x = s[4 * nt + 2 * ri + e];
+        if constexpr (kCap)
+          x = tanhf(x * scale / softcap) * softcap * kLog2e;
+        else
+          x *= sl2;
+        if constexpr (kWindow) {
+          if (masked && (kj >= T_ || (causal && (kj > qi || qi - kj >= win))))
+            x = -INFINITY;
+        } else {
+          if (masked && (kj >= T_ || (causal && kj > qi))) x = -INFINITY;
+        }
         s[4 * nt + 2 * ri + e] = x;
         mx = fmaxf(mx, x);
       }
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    // every row has a valid key in each tile (its first key k0 < T, which
-    // is at or below the diagonal when causal), so m_new is finite from
-    // the first tile on
+    // without a window every row has a valid key in each tile (its first
+    // key k0 < T, at or below the diagonal when causal), so m_new is
+    // finite from the first tile on; with one, a row that has seen no key
+    // yet (a tile left of its window) keeps m = -inf, and its
+    // exponentials are taken against 0
     const float m_new = fmaxf(m[ri], mx);
-    const float corr = exp2f(m[ri] - m_new);
+    const float m_use = kWindow && m_new == -INFINITY ? 0.f : m_new;
+    const float corr = exp2f(m[ri] - m_use);
     float sum = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kTK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float x = exp2f(s[4 * nt + 2 * ri + e] - m_new);
+        const float x = exp2f(s[4 * nt + 2 * ri + e] - m_use);
         s[4 * nt + 2 * ri + e] = x;
         sum += x;
       }
@@ -342,13 +384,14 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-template <int HD>
+template <int HD, bool kWindow, bool kCap>
 __global__ void __launch_bounds__(kWarpgroups * kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, int H, int KV, int S,
-                   int T_, float sl2, int causal) {
+                   int T_, float scale, float softcap, int causal,
+                   int window) {
   using L = FlashSmem<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -370,13 +413,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = h / (H / KV);
   const int q0 = qt * kTQ;
   const int q_row = q0 + warp * 16 + gr;
-  // causal: keys past the tile's last query row are above the diagonal;
-  // non-causal: all T keys (with T <= 64, one tile, and warpgroup 1 has
-  // none). Warpgroup 0 takes the first half of the kv tiles, warpgroup 1
-  // the rest
+  // causal: keys past the tile's last query row are above the diagonal,
+  // and with a window the tiles before the one holding its first row's
+  // first key are seen by no row; non-causal: all T keys (with T <= 64,
+  // one tile, and warpgroup 1 has none). Warpgroup 0 takes the first half
+  // of the kv tiles [j_lo, n_tiles), warpgroup 1 the rest
+  const int win = kWindow ? window : 0;
   const int n_tiles = ((causal ? min(T_, q0 + kTQ) : T_) + kTK - 1) / kTK;
-  const int half = (n_tiles + 1) / 2;
-  const int j_begin = wg == 0 ? 0 : half;
+  const int j_lo = win > 0 ? max(q0 - win + 1, 0) / kTK : 0;
+  const int half = j_lo + (n_tiles - j_lo + 1) / 2;
+  const int j_begin = wg == 0 ? j_lo : half;
   const int j_end = wg == 0 ? half : n_tiles;
 
   if (tid == 0) {
@@ -414,8 +460,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (wtid == 0 && more)
       tma_load_tile<HD>(k_s, &tm_k, bar_k, (j + 1) * kTK, g, b);
 
-    softmax_tile<HD>(s, p, o, m, l, q_row, j * kTK, T_, tq,
-                     j == n_tiles - 1, causal != 0, sl2);
+    // the last tile, and with a window a tile that starts left of the
+    // block's last row's window
+    const bool masked = j == n_tiles - 1
+                        || (win > 0 && q0 + kTQ - 1 - j * kTK >= win);
+    softmax_tile<HD, kWindow, kCap>(s, p, o, m, l, q_row, j * kTK, T_, tq,
+                                    masked, causal != 0, win, scale,
+                                    softcap);
 
     mbar_wait(bar_v, parity);
     fence_regs(o);        // the rescale and p stay before the fence
@@ -448,13 +499,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float a0[2], a1[2], inv[2];
 #pragma unroll
   for (int ri = 0; ri < 2; ++ri) {
-    // warpgroup 1 may have had no tile: m1 = -inf weighs it 0
+    // warpgroup 1 may have had no tile, or a windowed row no key in one
+    // warpgroup's tiles: m = -inf weighs it 0
     const float m1 = ml1[ri * kWgThreads + wtid];
     const float l1 = ml1[(2 + ri) * kWgThreads + wtid];
     const float mm = fmaxf(m[ri], m1);
-    a0[ri] = exp2f(m[ri] - mm);
-    a1[ri] = exp2f(m1 - mm);
-    inv[ri] = 1.f / (l[ri] * a0[ri] + l1 * a1[ri]);
+    const float mm_use = kWindow && mm == -INFINITY ? 0.f : mm;
+    a0[ri] = exp2f(m[ri] - mm_use);
+    a1[ri] = exp2f(m1 - mm_use);
+    const float den = l[ri] * a0[ri] + l1 * a1[ri];
+    inv[ri] = kWindow && !(den > 0.f) ? 0.f : 1.f / den;
   }
   // rows past S are not written
 #pragma unroll
@@ -478,7 +532,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int B, int H, int KV, int S, int T_, int hd,
                const long long* qs, const long long* ks, const long long* vs,
-               float scale, int causal, cudaStream_t st) {
+               float scale, float softcap, int causal, int window,
+               cudaStream_t st) {
   const size_t smem = flash_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -489,7 +544,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, KV, S, T_,
       hd, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      scale, causal);
+      scale, softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,7 +552,7 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int H, int KV, int S, int T_, const long long* qs,
                 const long long* ks, const long long* vs, float scale,
-                int causal, cudaStream_t st) {
+                float softcap, int causal, int window, cudaStream_t st) {
   if (B > 65535 || (S + kTQ - 1) / kTQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
@@ -508,14 +563,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                                     vs[2]);
   if (err != 0) return err;
   constexpr int smem = FlashSmem<HD>::kBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  // the four forms, {window?}{cap?}; the window applies only when causal
+  using Kernel = decltype(&flash_wgmma_kernel<HD, false, false>);
+  static const Kernel forms[4] = {
+      flash_wgmma_kernel<HD, false, false>, flash_wgmma_kernel<HD, false, true>,
+      flash_wgmma_kernel<HD, true, false>, flash_wgmma_kernel<HD, true, true>};
+  static const cudaError_t attr = [] {
+    cudaError_t err = cudaSuccess;
+    for (const Kernel f : forms)
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return err;
+  }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(H, B, (S + kTQ - 1) / kTQ);
-  flash_wgmma_kernel<HD><<<grid, kWarpgroups * kWgThreads, smem, st>>>(
+  const Kernel kernel = forms[2 * (causal && window > 0) + (softcap > 0.f)];
+  kernel<<<grid, kWarpgroups * kWgThreads, smem, st>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), H, KV, S, T_,
-      scale * kLog2e, causal);
+      scale, softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,14 +591,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // *_sb, *_sh, *_st); the last dim of each is contiguous. out [B,H,S,hd]
 // contiguous. float32: hd % 32 == 0 and hd <= 256. bfloat16: hd 64, 128
 // or 256, 16-byte aligned base pointers and strides that are multiples of
-// 8 elements. T >= 1. causal != 0: query i sees keys 0..i; 0: all T keys.
+// 8 elements. T >= 1. causal != 0: query i sees keys 0..i, and with
+// window > 0 only (i - window, i]; 0: all T keys (window ignored).
+// softcap > 0: scores capped to tanh(s * scale / softcap) * softcap.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KV, int S, int T, int hd, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_st,
-    long long v_sb, long long v_sh, long long v_st, float scale, int causal,
-    int dtype, void* stream) {
+    long long v_sb, long long v_sh, long long v_st, float scale,
+    float softcap, int causal, int window, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0) return 0;
   const long long qs[3] = {q_sb, q_sh, q_ss};
@@ -541,17 +609,17 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
     return launch_f32(q, k, v, out, B, H, KV, S, T, hd, qs, ks, vs, scale,
-                      causal, st);
+                      softcap, causal, window, st);
   if (dtype == kDtypeBF16) {
     if (hd == 256)
       return launch_bf16<256>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                              scale, causal, st);
+                              scale, softcap, causal, window, st);
     if (hd == 128)
       return launch_bf16<128>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                              scale, causal, st);
+                              scale, softcap, causal, window, st);
     if (hd == 64)
       return launch_bf16<64>(q, k, v, out, B, H, KV, S, T, qs, ks, vs,
-                             scale, causal, st);
+                             scale, softcap, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

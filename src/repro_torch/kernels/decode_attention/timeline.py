@@ -76,10 +76,11 @@ def run(lengths=(613, 148, 548, 230), reps: int = 3, heads: int = 8,
         scratch = torch.empty(ops.scratch_numel(B, KV, T, H // KV, hd),
                               device=dev)
         _build.check("decode_attention", fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B, H, KV,
-            T, hd, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), hd ** -0.5, 1, stream))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+            lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            tickets.data_ptr(), B, H, KV, T, hd, 0, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            0, 0, 0, 0, hd ** -0.5, 0.0, 1, 1, stream))
 
     partial, critical, span, mhz = [], [], [], []
     for rep in range(reps):

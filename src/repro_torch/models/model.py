@@ -23,7 +23,9 @@ the same way: {"groups": {"L0S0": {"k": [G,B,KV,T,hd], "v": ...}},
 attention sublayer keeps a cache for each of its G applications, and a
 cross-attention sublayer one of the encoder's rows, [G,B,KV,F,hd]. An
 xLSTM stack's caches hold, a sublayer, the mLSTM's {"C": [G,B,H,P,P+1],
-"conv"} or the sLSTM's {"h", "c", "n", "m": [G,B,H,P], "conv"}.
+"conv"} or the sLSTM's {"h", "c", "n", "m": [G,B,H,P], "conv"}. An int8
+cache adds each attention sublayer's "k_scale" and "v_scale" in bf16
+[..., 1].
 
 The port builds attention (with RoPE, M-RoPE or none; causal or not;
 self- or cross-attention), FFN, MoE, Mamba-2 and xLSTM (mLSTM and sLSTM)
@@ -31,9 +33,9 @@ stacks under RMSNorm or LayerNorm, on text, on a vision prefix ("vlm":
 precomputed patch embeddings put before the text, qwen2-vl's stub
 frontend) or on audio ("audio": an encoder stack over precomputed frame
 embeddings [B,F,D] with sinusoidal positions, whisper's stub frontend,
-whose output the decoder's cross-attention reads). A final logit
-softcap, the int8 KV cache and the attention features
-`attention.check_supported` lists raise NotImplementedError.
+whose output the decoder's cross-attention reads), with the reference's
+Gemma 2 features: a final logit softcap, attention score caps and
+sliding windows, and the int8 KV cache.
 """
 from __future__ import annotations
 
@@ -96,8 +98,6 @@ def _key(li: int, si: int) -> str:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config this port cannot build."""
-    if cfg.final_logit_softcap:
-        raise NotImplementedError("final_logit_softcap is not ported yet")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
     if cfg.modality not in ("text", "vlm", "audio"):
@@ -108,8 +108,6 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.kind not in _MIXERS:
             raise NotImplementedError(
                 f"sublayer kind {spec.kind!r} is not ported yet")
-        if spec.kind == "attn":
-            attention.check_supported(spec)
 
 
 def _keyed(layers):
@@ -351,27 +349,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None):
     """Zero caches, grouped like params: {"groups": {key: [G,...]},
     "tail": {key: [...]}}: attention's K and V in `dtype` (max_len rows;
-    a cross-attention sublayer's, the encoder's n_frames); a recurrent
-    sublayer's state (Mamba-2's, the mLSTM's C, the sLSTM's h, c, n, m)
-    in float32 and its conv window in `dtype`.
-    Runs on CUDA unless `device` says otherwise."""
+    a cross-attention sublayer's, the encoder's n_frames), and under
+    int8 their bf16 scales "k_scale", "v_scale" [..., 1] beside them (the
+    reference's quantized cache); a recurrent sublayer's state (Mamba-2's,
+    the mLSTM's C, the sLSTM's h, c, n, m) in float32 and its conv window
+    in `dtype` (bf16 under int8, as the reference's `state_dtype`).
+    float32, bfloat16 and int8 caches are built; any other dtype raises
+    NotImplementedError. Runs on CUDA unless `device` says otherwise."""
     check_supported(cfg)
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise NotImplementedError(
-            f"KV cache dtype {dtype} is not ported yet (int8 KV waits)")
+            f"KV cache dtype {dtype} is not ported (float32, bfloat16 or "
+            f"int8)")
     dev = resolve_device(device)
     enc_len = cfg.encoder.n_frames if cfg.encoder is not None else 0
+    state = torch.bfloat16 if dtype == torch.int8 else dtype
 
     def sub(spec, lead):
         # FFN and MoE hold no cache
         if spec.kind == "attn":
             shape = lead + attention.cache_shape(spec, batch, max_len,
                                                  enc_len)
-            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            if dtype == torch.int8:
+                c.update({n: torch.zeros(shape[:-1] + (1,),
+                                         dtype=torch.bfloat16, device=dev)
+                          for n in ("k_scale", "v_scale")})
+            return c
         if spec.kind in _CACHED:
             return {n: torch.zeros(lead + shape, device=dev,
-                                   dtype=dtype if n == "conv"
+                                   dtype=state if n == "conv"
                                    else torch.float32)
                     for n, shape in _MIXERS[spec.kind].cache_shapes(
                         cfg, spec, batch).items()}
@@ -506,7 +514,11 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, dtype):
 
 def _logits(params, cfg: ModelConfig, x):
     table = params.get("unembed", params["embed"])
-    return torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+    logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+    cap = cfg.final_logit_softcap
+    if cap:
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def _mrope(cfg: ModelConfig) -> bool:

@@ -126,14 +126,57 @@ def _assert_caches_close(tc, jc, cfg, atol=ATOL):
                                            err_msg=f"{part} {key} {leaf}")
 
 
-@pytest.fixture(scope="module", params=sorted(DENSE))
-def setup(request):
-    jcfg = j_get_config(request.param, reduced=True)
-    cfg = get_config(request.param, reduced=True)
+# Gemma 2's attention features on reduced gemma-2b (arXiv:2408.00118
+# section 2.1, Hugging Face `Gemma2Config`): a group of two layers, the
+# first local (a sliding window) and the second global, both with an
+# attention score cap, and a final logit cap; no reference config turns
+# them on. The window and caps are small enough to bite at the reduced
+# width (scores and logits of a few tenths) on prompts of 12-16 tokens.
+GEMMA2 = "gemma-2b-gemma2"
+GEMMA2_WINDOW = 5
+GEMMA2_SOFTCAP = 0.3
+GEMMA2_FINAL_SOFTCAP = 1.0
+
+
+def gemma2(get, window=GEMMA2_WINDOW, softcap=GEMMA2_SOFTCAP,
+           final=GEMMA2_FINAL_SOFTCAP):
+    """Reduced gemma-2b with Gemma 2's local/global pattern, from either
+    package's `get_config`: the same weights' tree for any window and
+    caps (the features add no weights)."""
+    import dataclasses
+    base = get("gemma-2b", reduced=True)
+    attn, ffn = base.pattern[0]
+    local = dataclasses.replace(attn, sliding_window=window,
+                                logit_softcap=softcap)
+    glob = dataclasses.replace(attn, logit_softcap=softcap)
+    return dataclasses.replace(base, pattern=((local, ffn), (glob, ffn)),
+                               final_logit_softcap=final)
+
+
+def _configs(arch):
+    """(reference config, port config) of a reduced arch, or of GEMMA2."""
+    if arch == GEMMA2:
+        return gemma2(j_get_config), gemma2(get_config)
+    return j_get_config(arch, reduced=True), get_config(arch, reduced=True)
+
+
+def _build(arch):
+    jcfg, cfg = _configs(arch)
     jparams, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = TM.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                                  device="cpu")
     return jcfg, cfg, jparams, tparams, single_device_rules()
+
+
+@pytest.fixture(scope="module", params=sorted(DENSE))
+def setup(request):
+    return _build(request.param)
+
+
+@pytest.fixture(scope="module", params=sorted(DENSE) + [GEMMA2])
+def bf16_setup(request):
+    """`setup`'s configs and GEMMA2, for the bf16 test alone."""
+    return _build(request.param)
 
 
 @pytest.mark.parametrize("arch", sorted(DENSE))
@@ -149,18 +192,6 @@ def test_every_arch_is_ported_and_an_unknown_one_raises():
     assert sorted(PORTED) == sorted(ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("whisper-large")
-
-
-def _with(cfg, **change):
-    """`cfg` with `change` made to every attention sublayer's spec (keys
-    of AttnSpec) or to the config itself (any other key)."""
-    import dataclasses
-    spec_keys = {f.name for f in dataclasses.fields(AttnSpec)}
-    attn = {k: v for k, v in change.items() if k in spec_keys}
-    top = {k: v for k, v in change.items() if k not in spec_keys}
-    return dataclasses.replace(cfg, pattern=tuple(
-        tuple(dataclasses.replace(s, **attn) if s.kind == "attn" else s
-              for s in layer) for layer in cfg.pattern), **top)
 
 
 def test_non_causal_self_attention_with_a_cache_matches_reference():
@@ -210,25 +241,17 @@ def test_non_causal_self_attention_with_a_cache_matches_reference():
     _assert_caches_close(tc, jc, cfg)
 
 
-@pytest.mark.parametrize("feature", ["int8 KV", "logit_softcap",
-                                     "final_logit_softcap",
-                                     "sliding_window"])
-def test_unported_features_raise(feature):
-    """The features no ported config uses still raise, each on reduced
-    whisper-medium (which reaches every other part of the reference's
-    model) changed to use it."""
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float8_e4m3fn])
+def test_unported_cache_dtypes_raise(dtype):
+    """float32, bfloat16 and int8 caches are built (the int8 one is held
+    to the reference in tests/test_torch_features.py); any other dtype
+    raises, on reduced whisper-medium (an attention cache, a cross one
+    and no recurrent state) as on every config."""
     cfg = get_config("whisper-medium", reduced=True)
-    TM.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
-    if feature == "int8 KV":
-        with pytest.raises(NotImplementedError, match="int8"):
-            TM.init_cache(cfg, 1, 8, dtype=torch.int8, device="cpu")
-        return
-    bad = _with(cfg, **{"logit_softcap": dict(logit_softcap=30.0),
-                        "final_logit_softcap": dict(
-                            final_logit_softcap=30.0),
-                        "sliding_window": dict(sliding_window=16)}[feature])
-    with pytest.raises(NotImplementedError, match=feature):
-        TM.init_params(bad, 0, device="cpu")
+    for ok in (torch.float32, torch.bfloat16, torch.int8):
+        TM.init_cache(cfg, 1, 8, dtype=ok, device="cpu")
+    with pytest.raises(NotImplementedError, match="cache dtype"):
+        TM.init_cache(cfg, 1, 8, dtype=dtype, device="cpu")
 
 
 @pytest.mark.parametrize("B,S,last", [(2, 12, None), (1, 16, 9)])
@@ -365,7 +388,8 @@ def _held(seen, B):
     return held
 
 
-def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
+def test_bf16_logits_and_greedy_tokens_match_reference(bf16_setup,
+                                                        monkeypatch):
     """bf16 compute on both sides, the same weights and tokens: prefill,
     then 16 greedy decode steps, both fed the reference's greedy tokens.
 
@@ -406,8 +430,11 @@ def test_bf16_logits_and_greedy_tokens_match_reference(setup, monkeypatch):
     zamba2-7b 0.0132 observed against bounds of 0.0142-0.0590, 23
     slot-steps held to the greedy token (0.0107 and 14 over 16 steps);
     reduced xlstm-350m 0.0166 against 0.0188-0.0428, 14 held (7 over 16
-    steps)."""
-    jcfg, cfg, jp, tp, rules = setup
+    steps).
+
+    GEMMA2 (reduced gemma-2b with Gemma 2's window and caps) runs here
+    too, its windowed and capped attention in bf16 on both sides."""
+    jcfg, cfg, jp, tp, rules = bf16_setup
     seen = _route_margins(monkeypatch, cfg)
     B, S = 2, 12
     # a recurrent config's tolerance is its noise floor, above BF16_ATOL,
@@ -793,19 +820,48 @@ def test_params_from_jax_rejects_a_mismatched_tree(setup):
 @pytest.mark.parametrize("change", [
     dict(sliding_window=16), dict(logit_softcap=30.0)])
 def test_unported_attention_features_raise(change):
+    """A sliding window and an attention score cap once raised here; they
+    are built now (held to the reference in tests/test_torch_features.py):
+    a reduced gemma-2b with one of them takes the plain config's weights,
+    raises nothing, and its forward moves the logits (window 4 and cap
+    0.2, small enough to bite at this width)."""
     import dataclasses
     cfg = get_config("gemma-2b", reduced=True)
+    bite = {"sliding_window": 4, "logit_softcap": 0.2}
+    change = {k: bite[k] for k in change}
     layer = (dataclasses.replace(cfg.pattern[0][0], **change),
              cfg.pattern[0][1])
-    bad = dataclasses.replace(cfg, pattern=(layer,))
-    with pytest.raises(NotImplementedError):
-        TM.init_params(bad, 0, device="cpu")
+    featured = dataclasses.replace(cfg, pattern=(layer,))
+    params = TM.init_params(featured, 0, device="cpu")
+    assert TM.param_shapes(featured) == TM.param_shapes(cfg)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 12)))
+    got = TM.forward(params, featured, toks, compute_dtype=torch.float32)
+    plain = TM.forward(params, cfg, toks, compute_dtype=torch.float32)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - plain).abs().max()) > 10 * ATOL
 
 
 def test_int8_kv_cache_is_not_ported_yet():
+    """The int8 KV cache once raised here; it is built now (held to the
+    reference in tests/test_torch_features.py): int8 K and V beside bf16
+    scales [..., 1], which a prefill and a decode step fill."""
     cfg = get_config("gemma-2b", reduced=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        TM.init_cache(cfg, 1, 8, dtype=torch.int8, device="cpu")
+    cache = TM.init_cache(cfg, 1, 8, dtype=torch.int8, device="cpu")
+    leaves = cache["groups"]["L0S0"]
+    assert leaves["k"].dtype == leaves["v"].dtype == torch.int8
+    assert leaves["k_scale"].dtype == torch.bfloat16
+    assert leaves["k_scale"].shape == leaves["k"].shape[:-1] + (1,)
+    params = TM.init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab, (1, 5)))
+    cache, _ = TM.prefill(params, cfg, toks, cache,
+                          compute_dtype=torch.float32)
+    cache, logits = TM.decode_step(params, cfg, toks[:, :1], cache, 5,
+                                   compute_dtype=torch.float32)
+    assert bool(torch.isfinite(logits).all())
+    assert bool((leaves["k_scale"][:, :, :, :6] > 0).all())
+    assert bool((leaves["k"][:, :, :, 6:] == 0).all())
 
 
 def test_unported_sublayer_kinds_raise():
