@@ -46,7 +46,9 @@ Drives the port's serving path on the card and checks it, in phases:
      Python twin, and it is timed on both layouts, at a table inside L2
      too, beside torch.index_select of the same rows, each batch (the
      demo's too) beside the bytes it needs (a bound at HBM rate for the
-     2^23-bucket table; the tables that stay in L2 have none);
+     2^23-bucket table; for the tables that stay in L2, a bound at the L2
+     read rate measured first: one torch.sum of a 32 MiB buffer held in
+     L2);
   7. two-stage ANN search (paper §VII-B) over 262,144 vectors (full
      1024-d, reduced 128-d) for 1024 queries: recall@10 against exact
      search on the card, ann_topk against its plain version (k = 64, 128
@@ -357,6 +359,33 @@ Drives the port's serving path on the card and checks it, in phases:
      greedy token wherever the plain path's top-2 margin exceeds 0.02),
      the cache's bytes, a step's attention kernels and the whole step
      against the bf16 cache's, and the logits' distance from it.
+ 25. training on the card: (a) the backward kernels, flash_attention_bwd
+     (gemma-2b's training shape q [2,8,1024,256] on k,v [2,1,1024,256]
+     causal; MHA and GQA 4:1 at head_dim 128, S = 512; whisper's
+     cross-attention q [1,16,605,64] onto 1,500 rows; a window of 256
+     with a cap of 50 at S = 700; S = 1, T = 1 and both; head_dim 112 and
+     16 through the wrapper's padding) and rmsnorm_bwd with its add form
+     ([2048,2048] bf16 and f32, [605,7168] f32, D = 2050), in float32 and
+     bf16 against their plain versions (float32 outputs within 1e-4 of the
+     plain outputs' largest |value|; bf16 within twice the plain bf16's
+     own distance from the plain float32), a bitwise repeat, and timed
+     beside the bound and the library call (autograd through SDPA with
+     enable_gqa, and through F.rms_norm; none for the window and the
+     cap); (b) one float32 train step of every reduced config (and
+     reduced Gemma 2) through the kernels on the card against the same
+     step on the CPU from one weight set: the loss within 1e-5
+     (relative), every gradient leaf within 1e-4 of its largest |g|, both
+     backward counters moving wherever the config's path has the kernel;
+     (c) full-width gemma-2b (2,506,172,416 parameters, float32 master
+     weights, bf16 compute, remat): one gradient of its first 4 groups
+     through the kernels held leaf by leaf against the plain path
+     (relative L2 within twice the plain bf16's distance from float32),
+     then 5 train steps over SyntheticLM batches (2 x 1,024 tokens) under
+     the Watchdog, each with 36 flash_attention, 73 rmsnorm, 18
+     flash_attention_bwd and 37 rmsnorm_bwd launches; prints the loss
+     curve, the step wall, tokens/s, peak device memory against the
+     state's reckoned 40.10 GB, the device-idle share of one profiled
+     step and AdamW's update alone.
 
 The first-step check (phases 4 and 13-23) holds the kernels to the plain
 path in bf16 within twice the plain path's distance from the float32
@@ -394,8 +423,10 @@ STEP_TIME = 5e-3
 STEADY_NEW = 200               # tokens a request in phase 9's windows
 # tokens a request in the windows of phases 13 and 16-23: with 200 the
 # whole script took 950.7 s of its 1,200 on an NVIDIA H100 80GB HBM3 at
-# 700 W once phase 23 joined it, 254 s of it in those phases' windows
-DENSE_STEADY_NEW = 120
+# 700 W once phase 23 joined it, 254 s of it in those phases' windows; at
+# 120, with phase 25, 957.7 s on one host and 1,119.9-1,152.2 s on slower
+# ones (206 s of windows there), so at 80 the windows give back ~70 s
+DENSE_STEADY_NEW = 80
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's ~2 GHz SM clock
 # kernel vs plain version: both accumulate in float32; float32 outputs
 # differ only by summation order, bfloat16 outputs additionally by one
@@ -415,6 +446,13 @@ KERNELS = {
                  "src/repro/kernels/ann_topk/kernel.py:80"),
     "reuse_sketch": ("src/repro_torch/csrc/reuse_sketch.cu",
                      "src/repro/kernels/reuse_sketch/kernel.py:54"),
+    # the backward kernels replace the reference's gradients: its
+    # flash_attention custom_vjp's backward, and XLA's derivative of its
+    # jnp norm (the rmsnorm TPU kernel has no vjp)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/ops.py:47"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
+                    "src/repro/models/layers.py:60"),
 }
 SERVING_KERNELS = ("rmsnorm", "decode_attention", "flash_attention")
 ATTENTION_KERNELS = ("decode_attention", "flash_attention")
@@ -2356,15 +2394,37 @@ def _probe_bound(bk, probe):
     return _bound_ms(nbytes, 0, torch.int32) + (rows, nbytes)
 
 
-def _bytes_at(b_ms, in_l2: bool) -> str:
+def _bytes_at(b_ms, in_l2: bool, nbytes: int = 0) -> str:
     """`_probe_bound`'s time, named for what it is: a bound where the
-    table is read from HBM; for a table the timing loop keeps in L2 only
-    the needed bytes at HBM rate, since the measurement guide's table
-    gives no L2 rate to bound them with."""
+    table is read from HBM; for a table the timing loop keeps in L2 the
+    needed bytes at HBM rate, which bound nothing, beside the bound those
+    bytes give at the L2 read rate `_l2_read_rate` measured (the H100's
+    published peak rates give no L2 rate)."""
     if in_l2:
+        l2_ms = nbytes / _L2_RATE[0] * 1e3
         return (f"needed bytes at HBM rate {b_ms:.6f} ms (not a bound: "
-                f"the table stays in L2)")
+                f"the table stays in L2); bound {l2_ms:.6f} ms at the L2 "
+                f"read rate {_L2_RATE[0] / 1e12:.3f} TB/s")
     return f"bound {b_ms:.6f} ms"
+
+
+L2_READ_BYTES = 32 << 20       # the buffer `_l2_read_rate` reads from L2
+_L2_RATE = []                  # bytes/s, measured at phase 6's start
+
+
+def _l2_read_rate() -> float:
+    """The card's rate for one read of a buffer held in L2: a 32 MiB
+    float32 buffer summed by one torch.sum, 200 times in a row (the
+    buffer stays in the 50 MB L2 after the first), timed by CUDA events
+    behind a spin kernel (`_time_ms`)."""
+    import torch
+    buf = torch.ones(L2_READ_BYTES // 4, device="cuda")
+    ms = _time_ms([lambda: torch.sum(buf)], iters=200)
+    rate = L2_READ_BYTES / (ms / 1e3)
+    print(f"  time  L2 read: torch.sum of a {L2_READ_BYTES >> 20} MiB "
+          f"float32 buffer held in L2 {ms:.6f} ms, {rate / 1e12:.3f} TB/s "
+          f"[{_smi()}]")
+    return rate
 
 
 def _probe_times(bk, bv, probes, label, in_l2=False):
@@ -2399,8 +2459,8 @@ def _probe_times(bk, bv, probes, label, in_l2=False):
           f"{ms['index_select key rows']:.6f} ms, of {n_hits} value rows "
           f"({n_hits * KV_SLOTS * 4 / 2**20:.0f} MiB written) "
           f"{ms['index_select value rows']:.6f} ms; "
-          f"{_bytes_at(b_ms, in_l2)} ({b_rows} distinct key rows needed, "
-          f"{b_bytes} bytes)")
+          f"{_bytes_at(b_ms, in_l2, b_bytes)} ({b_rows} distinct key rows "
+          f"needed, {b_bytes} bytes)")
     return ms
 
 
@@ -2543,6 +2603,7 @@ def phase_kvstore():
     from repro_torch.kvstore import BlockedCuckooStore
 
     t0 = time.perf_counter()
+    _L2_RATE[:] = [_l2_read_rate()]
     # (a) examples/kvstore_demo.py's scenario
     timed, store, probe = _kv_demo()
     kernels.reset_launch_counts()
@@ -2619,8 +2680,8 @@ def phase_kvstore():
                  in_l2=True)
     print(f"  time  cuckoo_probe demo batch x{len(probe)}: device "
           f"{demo_ms:.6f} ms, with the host's launch {demo_launch_ms:.6f} "
-          f"ms; {_bytes_at(demo_b_ms, True)} ({demo_rows} distinct key "
-          f"rows needed, {demo_bytes} bytes)")
+          f"ms; {_bytes_at(demo_b_ms, True, demo_bytes)} ({demo_rows} "
+          f"distinct key rows needed, {demo_bytes} bytes)")
     calls = [lambda p=p: cuckoo_probe(p, bk_d, bv_d) for p in probes]
     rec = dict(
         shape=(f"keys [{KV_PROBES}] (half stored), table [{KV_BUCKETS},"
@@ -6044,6 +6105,528 @@ def phase_gemma2():
     return counts
 
 
+# --------------------------------------------------------------- phase 25
+# Training on the card: the two backward kernels against their plain
+# versions, one float32 step of every reduced config on the card against
+# the CPU, and full-width gemma-2b trained for TRAIN_STEPS steps.
+TRAIN_ARCH = "gemma-2b"
+TRAIN_SEQ = 1024
+TRAIN_BATCH = 2
+TRAIN_STEPS = 5
+HOLD_GROUPS = 4                # (c)'s gradient hold: the first 4 groups
+# the float32 state a parameter: weights, grads, mu and nu
+STATE_BYTES_A_PARAM = 16
+# (a): flash_attention_bwd's forms (label, q shape, k/v shape, causal,
+# window, softcap, whether SDPA's backward computes the same function)
+FLASH_BWD_FORMS = (
+    ("gemma-2b training", (2, 8, 1024, 256), (2, 1, 1024, 256), True, 0,
+     0.0, True),
+    ("MHA, deepseek-7b's heads", (1, 32, 512, 128), (1, 32, 512, 128), True,
+     0, 0.0, True),
+    ("GQA 4:1", (1, 32, 512, 128), (1, 8, 512, 128), True, 0, 0.0, True),
+    ("whisper cross", (1, 16, 605, 64), (1, 16, 1500, 64), False, 0, 0.0,
+     True),
+    ("window 256, cap 50", (1, 8, 700, 256), (1, 1, 700, 256), True, 256,
+     50.0, False),
+    ("S = 1", (1, 8, 1, 128), (1, 2, 300, 128), False, 0, 0.0, True),
+    ("T = 1", (1, 8, 37, 128), (1, 2, 1, 128), False, 0, 0.0, True),
+    ("S = T = 1", (1, 8, 1, 128), (1, 2, 1, 128), True, 0, 0.0, True),
+)
+# head dims the wrapper pads (112 -> 128 in bf16, 16 -> 32 in float32),
+# through the autograd route
+FLASH_BWD_PADDED = ((1, 8, 300, 112), (1, 2, 300, 112)), \
+    ((1, 8, 300, 16), (1, 2, 300, 16))
+RMS_BWD_SHAPES = (((2048, 2048), "bfloat16"), ((2048, 2048), "float32"),
+                  ((605, 7168), "float32"), ((1023, 2050), "bfloat16"))
+# (b): the reduced configs' batch, whose 40 positions cross a 32-row tile
+REDUCED_SEQ = 40
+# (b)'s MoE configs: held where every routing choice clears this margin
+# between the k-th and the (k+1)-th router logit, as
+# tests/test_torch_model.py holds bf16 logits past its ROUTE_MARGIN (0.03,
+# bf16's resolution at those logits). Here both devices compute the
+# router's product in float32, in another summation order, so logits
+# differ by ~1e-6 and a gap of 1e-4 cannot swap an expert; at 0.03 a
+# reduced MoE config's 80 tokens are never held (its least gaps are
+# ~0.008)
+TRAIN_ROUTE_MARGIN = 1e-4
+# (b)'s reduced Gemma 2 (tests/test_torch_model.py's `gemma2`)
+REDUCED_G2 = dict(window=5, softcap=0.3, final=1.0)
+
+
+def _dtype(name):
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _grad_hold(label, got, plain, plain_f32, out_dtypes):
+    """A backward kernel's outputs against its plain version's on the same
+    inputs. A float32 output: max abs error <= 1e-4 x the plain float32
+    outputs' largest |value| (over all of the call's outputs of that rule:
+    dq and dk are 0 in exact arithmetic when T = 1). A bf16 output: its
+    distance from the plain float32 version at most twice the plain bf16
+    version's own (the first-step rule). Returns the max abs error against
+    the plain version in the working type."""
+    import torch
+    f32 = [i for i, d in enumerate(out_dtypes) if d == torch.float32]
+    bf = [i for i, d in enumerate(out_dtypes) if d == torch.bfloat16]
+    if f32:
+        top = max(float(plain_f32[i].abs().max()) for i in f32)
+        err = max(float((got[i].float() - plain_f32[i]).abs().max())
+                  for i in f32)
+        assert err <= 1e-4 * top, f"{label}: float32 {err:.3e} > 1e-4 x " \
+            f"{top:.3e}"
+    if bf:
+        own = max(float((plain[i].float() - plain_f32[i]).abs().max())
+                  for i in bf)
+        err = max(float((got[i].float() - plain_f32[i]).abs().max())
+                  for i in bf)
+        assert err <= 2 * own, f"{label}: bf16 {err:.3e} > 2 x {own:.3e}"
+    return max(float((g.float() - p.float()).abs().max())
+               for g, p in zip(got, plain))
+
+
+def _flash_bwd_case(form, dtype_name, gen, timed):
+    """flash_attention_bwd at one form and type against
+    reference_attention_bwd on the card, a bitwise repeat, and its times.
+    Returns the record."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import \
+        reference_attention_bwd
+    label, qs, ks, causal, window, softcap, has_lib = form
+    dt = _dtype(dtype_name)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in (qs, ks, ks))
+    if softcap:
+        q = q * G2_CAP_Q           # scores that reach the cap
+    dout = torch.randn(qs, generator=gen, device="cuda").to(dt)
+    kw = dict(scale=qs[-1] ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        f"flash_attention_bwd {label} {dtype_name}: repeat differs"
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    plain = reference_attention_bwd(q, k, v, out, dout, **kw)
+    plain_f32 = reference_attention_bwd(
+        *(t.float() for t in (q, k, v, out, dout)), **kw)
+    err = _grad_hold(f"flash_attention_bwd {label}", got, plain, plain_f32,
+                     [dt] * 3)
+    print(f"  check flash_attention_bwd {label} q {list(qs)} k,v "
+          f"{list(ks)} {dtype_name}: max_abs_err={err:.3e} (plain max "
+          f"{max(float(t.abs().max()) for t in plain_f32):.3e}), repeat "
+          f"bitwise ok")
+    if not timed:
+        return None
+    B, H, S, hd = qs
+    KV, T = ks[1], ks[2]
+    i = torch.arange(S, device="cuda")[:, None]
+    j = torch.arange(T, device="cuda")[None, :]
+    seen = torch.ones(S, T, dtype=torch.bool, device="cuda")
+    if causal:
+        seen = i >= j
+        if window:
+            seen &= i - j < window
+    pairs = int(seen.sum()) * B * H
+    nbytes = (4 * B * H * S * hd + 4 * B * KV * T * hd) * q.element_size()
+    b_ms, b_by = _bound_ms(nbytes, 10 * pairs * hd, dt)
+    calls = [lambda: flash_attention_bwd(q, k, v, out, dout, **kw)]
+    lib_ms = None
+    if has_lib:
+        import torch.nn.functional as F
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, scale=kw["scale"],
+                                           is_causal=causal, enable_gqa=True)
+        lib_ms = _time_ms([lambda: torch.autograd.grad(
+            o, leaves, dout, retain_graph=True)], iters=5)
+    return dict(
+        shape=(f"q {list(qs)} k,v {list(ks)} {dtype_name}"
+               f"{'' if causal else ' non-causal'}"
+               f"{f' window {window}' if window else ''}"
+               f"{f' softcap {softcap:g}' if softcap else ''}"),
+        max_abs_err=err, ms=_time_ms(calls, iters=5),
+        launch_ms=_time_ms(calls, iters=5, queued=False),
+        plain_ms=_time_ms([lambda: reference_attention_bwd(
+            q, k, v, out, dout, **kw)], iters=3),
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _flash_bwd_padded(qs, ks, dtype_name, gen):
+    """flash_attention's autograd route (the Function inside the head_dim
+    padding) at a head_dim the wrapper pads, against the plain backward at
+    the true head_dim on the kernel's own forward output."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.kernels.flash_attention.ref import \
+        reference_attention_bwd
+    dt = _dtype(dtype_name)
+    leaves = [torch.randn(s, generator=gen, device="cuda").to(
+        dt).requires_grad_() for s in (qs, ks, ks)]
+    dout = torch.randn(qs, generator=gen, device="cuda").to(dt)
+    kw = dict(scale=qs[-1] ** -0.5, causal=True)
+    out = flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, dout)
+    ins = [t.detach() for t in leaves] + [out.detach(), dout]
+    plain = reference_attention_bwd(*ins, **kw)
+    plain_f32 = reference_attention_bwd(*(t.float() for t in ins), **kw)
+    err = _grad_hold(f"flash_attention_bwd padded hd {qs[-1]}", got, plain,
+                     plain_f32, [dt] * 3)
+    print(f"  check flash_attention_bwd through the padding, hd {qs[-1]} -> "
+          f"{kernel_head_dim(qs[-1], dt)} {dtype_name}: max_abs_err="
+          f"{err:.3e} ok")
+
+
+def _rms_bwd_case(shape, dtype_name, fused, gen, timed):
+    """rmsnorm_bwd (fused: the add form) at one shape and type against its
+    plain version on the card (dx by its type's rule, dscale float32 by
+    the float32 rule), a bitwise repeat, and its times. Returns the
+    record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.ref import reference_rmsnorm_bwd
+    dt = _dtype(dtype_name)
+    D = shape[-1]
+    x, g = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    gs = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+          if fused else None)
+    scale = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    eps = 1e-6
+    got = rmsnorm_bwd(x, g, scale, eps, gs)
+    again = rmsnorm_bwd(x, g, scale, eps, gs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        f"rmsnorm_bwd {shape} {dtype_name}: repeat differs"
+    plain = reference_rmsnorm_bwd(x, g, scale, eps, gs)
+    plain_f32 = reference_rmsnorm_bwd(
+        x.float(), g.float(), scale, eps, None if gs is None else gs.float())
+    form = "add_rmsnorm" if fused else "rmsnorm"
+    err = _grad_hold(f"rmsnorm_bwd {form} {shape}", got, plain, plain_f32,
+                     [dt, torch.float32])
+    print(f"  check rmsnorm_bwd ({form}) x {list(shape)} {dtype_name}: "
+          f"max_abs_err={err:.3e} (dx and dscale), repeat bitwise ok")
+    if not timed:
+        return None
+    rows = x.numel() // D
+    nbytes = (3 + fused) * x.numel() * x.element_size() + 8 * D
+    b_ms, b_by = _bound_ms(nbytes, 8 * x.numel(), dt)
+    # the library's weight in x's type, as phase 3 times F.rms_norm (a
+    # float32 weight on bf16 rows takes its unfused path)
+    xs, ss = x.detach().requires_grad_(), scale.to(dt).requires_grad_()
+    if fused:
+        xl, rl = (t.detach().requires_grad_() for t in (x, x))
+        summed = xl + rl
+        y = F.rms_norm(summed, (D,), ss, eps)
+        lib = [lambda: torch.autograd.grad((y, summed), (xl, rl, ss),
+                                           (g, gs), retain_graph=True)]
+    else:
+        y = F.rms_norm(xs, (D,), ss, eps)
+        lib = [lambda: torch.autograd.grad(y, (xs, ss), g,
+                                           retain_graph=True)]
+    calls = [lambda: rmsnorm_bwd(x, g, scale, eps, gs)]
+    return dict(
+        shape=f"x [{rows},{D}] {dtype_name}{' (add form)' if fused else ''}",
+        max_abs_err=err, ms=_time_ms(calls), launch_ms=_time_ms(
+            calls, queued=False),
+        plain_ms=_time_ms([lambda: reference_rmsnorm_bwd(
+            x, g, scale, eps, gs)], iters=10),
+        library_ms=_time_ms(lib, iters=10), bound_ms=b_ms, bound_by=b_by)
+
+
+def _reduced_configs():
+    """Every reduced config, and reduced gemma-2b with Gemma 2's window
+    and caps on its local/global pattern."""
+    from repro_torch.configs import PORTED, get_config
+    out = [get_config(a, reduced=True) for a in sorted(PORTED)]
+    base = get_config(G2_ARCH, reduced=True)
+    attn, ffn = base.pattern[0]
+    local = dataclasses.replace(attn, sliding_window=REDUCED_G2["window"],
+                                logit_softcap=REDUCED_G2["softcap"])
+    glob = dataclasses.replace(attn, logit_softcap=REDUCED_G2["softcap"])
+    out.append(dataclasses.replace(
+        base, name="gemma-2b-gemma2 (reduced)",
+        pattern=((local, ffn), (glob, ffn)),
+        final_logit_softcap=REDUCED_G2["final"]))
+    return out
+
+
+@contextlib.contextmanager
+def _route_margins(found):
+    """The port's router wrapped so that each call appends the least
+    margin between the k-th and the (k+1)-th router logit over its tokens
+    to `found`."""
+    import torch
+    from repro_torch.models import moe
+    route = moe.route
+
+    def noted(params, x, spec, ctx):
+        with torch.no_grad():
+            logits = torch.einsum("bsd,de->bse", x, params["router"].to(
+                ctx.compute_dtype)).float()
+            top = torch.topk(logits, spec.top_k + 1, dim=-1).values
+            found.append(float((top[..., -2] - top[..., -1]).min()))
+        return route(params, x, spec, ctx)
+    moe.route = noted
+    try:
+        yield found
+    finally:
+        moe.route = route
+
+
+def _reduced_step(cfg):
+    """One float32 train step of a reduced config on the card through the
+    kernels and on the CPU, from one weight set drawn on the CPU: the loss
+    within 1e-5 (relative) and every gradient leaf within 1e-4 of its
+    largest |g|, for a config whose routing (if any) clears
+    TRAIN_ROUTE_MARGIN. Returns the step's launches on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    tcfg = TS.TrainConfig(compute_dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, REDUCED_SEQ)).astype(
+        np.int32)}
+    if cfg.encoder is not None:
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    cpu = {"params": M.init_params(cfg, SEED, device="cpu")}
+    card = {"params": adamw.tree_map(lambda t: t.to("cuda"),
+                                     cpu["params"])}
+    out = {}
+    for dev, state in (("cpu", cpu), ("cuda", card)):
+        params = TS.trainable(state["params"])
+        state["opt"] = adamw.init_state(params, tcfg.optimizer)
+        margins = []
+        kernels.reset_launch_counts()
+        with _route_margins(margins):
+            loss, _, grads = TS.grads_and_metrics(
+                params, cfg, TS.batch_on(batch, dev), tcfg)
+        _, m = TS.train_step(state, batch, cfg=cfg, tcfg=tcfg)
+        counts = kernels.launch_counts()
+        out[dev] = (float(loss), grads, margins, counts, float(m["loss"]))
+    (l_c, g_c, margins, _, s_c), (l_d, g_d, _, counts, s_d) = \
+        out["cpu"], out["cuda"]
+    assert math.isfinite(s_c) and math.isfinite(s_d), (s_c, s_d)
+    margin = min(margins) if margins else None
+    held = margin is None or margin > TRAIN_ROUTE_MARGIN
+    worst = 0.0
+    if held:
+        assert abs(l_d - l_c) <= 1e-5 * abs(l_c), (cfg.name, l_d, l_c)
+        want = dict(adamw.leaves(g_c))
+        for path, got in adamw.leaves(g_d):
+            w = want[path]
+            top = float(w.abs().max())
+            err = float((got.cpu() - w).abs().max())
+            assert err <= 1e-4 * top or err == 0.0, \
+                f"{cfg.name} {'/'.join(path)}: {err:.3e} > 1e-4 x {top:.3e}"
+            worst = max(worst, err / top if top else 0.0)
+    has_attn = any(s.kind == "attn" for _, _, _, s in cfg.sublayers())
+    has_rms = cfg.norm == "rmsnorm" or any(
+        s.kind in ("mamba2", "mlstm", "slstm") for _, _, _, s in
+        cfg.sublayers())
+    assert (counts["flash_attention_bwd"] > 0) == has_attn, counts
+    assert (counts["rmsnorm_bwd"] > 0) == has_rms, counts
+    print(f"  check train step {cfg.name:32s} loss cpu {l_c:.6f} cuda "
+          f"{l_d:.6f}; "
+          + (f"worst grad leaf {worst:.3e} of its max |g|" if held else
+             f"routing margin {margin:.4f} under {TRAIN_ROUTE_MARGIN}: not "
+             f"held")
+          + (f" (routing margin {margin:.4f})" if held and margin is not None
+             else "")
+          + f"; launches flash_attention_bwd "
+          f"{counts['flash_attention_bwd']}, rmsnorm_bwd "
+          f"{counts['rmsnorm_bwd']}")
+    return counts
+
+
+def _rel_l2(a, b) -> float:
+    """|a - b| / |b| in the L2 norm, in float32."""
+    import torch
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _hold_full_width(cfg, params, batch):
+    """(c)'s gradient hold: one gradient of the first HOLD_GROUPS groups
+    (views of the full model's weights) through the kernels in bf16,
+    through the plain path in bf16 and in float32; each leaf's relative L2
+    distance from the float32 plain gradient, the kernels' at most twice
+    the plain bf16's."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cut = dataclasses.replace(cfg, n_groups=HOLD_GROUPS)
+    views = dict(params, groups=adamw.tree_map(
+        lambda t: t[:HOLD_GROUPS], params["groups"]))
+    paths, flat = zip(*adamw.leaves(views))
+    grads = {}
+    for name, dt, plain in (("kernels bf16", torch.bfloat16, False),
+                            ("plain bf16", torch.bfloat16, True),
+                            ("plain float32", torch.float32, True)):
+        loss, _ = M.loss_and_aux(views, cut, batch, compute_dtype=dt,
+                                 plain=plain)
+        grads[name] = torch.autograd.grad(loss, flat)
+        print(f"  hold {name}: loss {float(loss.detach()):.6f}")
+        del loss
+    worst = 0.0
+    for i, path in enumerate(paths):
+        truth = grads["plain float32"][i]
+        own = _rel_l2(grads["plain bf16"][i], truth)
+        got = _rel_l2(grads["kernels bf16"][i], truth)
+        assert got <= 2 * own, f"{'/'.join(path)}: {got:.3e} > 2 x {own:.3e}"
+        worst = max(worst, got / own if own else 0.0)
+    print(f"  check gradient hold, {len(paths)} leaves of the first "
+          f"{HOLD_GROUPS} groups: each kernel gradient's relative L2 "
+          f"distance from float32 within twice the plain bf16's (worst "
+          f"ratio {worst:.3f}) ok")
+    del grads
+
+
+def phase_training():
+    """Phase 25: (a) the backward kernels against their plain versions,
+    timed; (b) one float32 train step of every reduced config on the card
+    against the CPU; (c) full-width gemma-2b: the gradient hold, then
+    TRAIN_STEPS train steps under the watchdog, profiled once. Returns
+    (the phase's launches from (c)'s steps, records for the kernels
+    line)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.train.watchdog import Watchdog
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # (a) the backward kernels
+    rec = {}
+    for form in FLASH_BWD_FORMS:
+        for dtype_name in ("float32", "bfloat16"):
+            r = _flash_bwd_case(form, dtype_name, gen, timed=True)
+            _print_record("flash_attention_bwd", r)
+            if form[0] == "gemma-2b training" and dtype_name == "bfloat16":
+                rec["flash_attention_bwd"] = r
+    for dtype_name, (qs, ks) in zip(("bfloat16", "float32"),
+                                    FLASH_BWD_PADDED):
+        _flash_bwd_padded(qs, ks, dtype_name, gen)
+    for shape, dtype_name in RMS_BWD_SHAPES:
+        for fused in (False, True):
+            r = _rms_bwd_case(shape, dtype_name, fused, gen, timed=True)
+            _print_record("rmsnorm_bwd", r)
+            if shape == (2048, 2048) and dtype_name == "bfloat16" \
+                    and not fused:
+                rec["rmsnorm_bwd"] = r
+    print(f"  (a) wall {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (b) every reduced config, one float32 step, card against CPU
+    t_b = time.perf_counter()
+    for cfg in _reduced_configs():
+        _reduced_step(cfg)
+    print(f"  (b) wall {time.perf_counter() - t_b:.1f} s")
+
+    # (c) full-width gemma-2b
+    t_c = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TS.TrainConfig()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED))
+    torch.cuda.reset_peak_memory_stats()
+    params = TS.trainable(M.init_params(cfg, SEED, device="cuda",
+                                         dtype=torch.float32))
+    n_params = sum(t.numel() for _, t in adamw.leaves(params))
+    assert n_params == PARAMS[cfg.name], n_params
+    reckoned = STATE_BYTES_A_PARAM * n_params
+    print(f"  {cfg.name}: {n_params} parameters, float32 master weights; "
+          f"the state reckoned at {STATE_BYTES_A_PARAM} B a parameter: "
+          f"{reckoned / 1e9:.2f} GB")
+    _hold_full_width(cfg, params, TS.batch_on(data.batch_at(0), "cuda"))
+    torch.cuda.synchronize()
+    state = {"params": params, "opt": adamw.init_state(params,
+                                                      tcfg.optimizer)}
+    wd = Watchdog()
+    losses, walls = [], []
+    want = {"flash_attention": 2 * _attn_layers(cfg),
+            "rmsnorm": 2 * _norms(cfg) - 1,
+            "flash_attention_bwd": _attn_layers(cfg),
+            "rmsnorm_bwd": _norms(cfg)}
+    total = dict.fromkeys(want, 0)
+    for step in range(TRAIN_STEPS):
+        batch = data.batch_at(step + 1)
+        kernels.reset_launch_counts()
+        wd.begin_step()
+        (state, m), wall = _timed(lambda: TS.train_step(
+            state, batch, cfg=cfg, tcfg=tcfg))
+        loss = float(m["loss"])
+        events = wd.end_step(step, loss)
+        counts = kernels.launch_counts()
+        assert {n: counts[n] for n in want} == want, (counts, want)
+        for n in want:
+            total[n] += counts[n]
+        assert math.isfinite(loss) and not wd.rollbacks, (loss, events)
+        losses.append(loss)
+        walls.append(wall)
+        print(f"  step {step + 1}: loss {loss:.6f} (ce {float(m['ce']):.6f}, "
+              f"z_loss {float(m['z_loss']):.3e}), lr {float(m['lr']):.3e}, "
+              f"grad_norm {float(m['grad_norm']):.4f}; wall {wall:.4f} s "
+              f"(host clock, synchronised); watchdog {events or 'quiet'} "
+              f"[{smi}]")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"  loss curve {[round(x, 6) for x in losses]} [{smi}]")
+    print(f"  launches a step: flash_attention {want['flash_attention']} "
+          f"(18 forward + 18 in the remat replay), rmsnorm "
+          f"{want['rmsnorm']} (37 forward + 36 replayed: the final norm is "
+          f"outside the groups), flash_attention_bwd "
+          f"{want['flash_attention_bwd']}, rmsnorm_bwd "
+          f"{want['rmsnorm_bwd']} ok")
+    print(f"  training: step wall median of steps 2-{TRAIN_STEPS} "
+          f"{steady:.4f} s, {tokens / steady:.1f} tokens/s; peak device "
+          f"memory {peak / 1e9:.2f} GB against the state's reckoned "
+          f"{reckoned / 1e9:.2f} GB [{smi}]")
+    batch = data.batch_at(TRAIN_STEPS + 1)
+    kernels.reset_launch_counts()
+    ops, wall = _profiled(lambda: TS.train_step(state, batch, cfg=cfg,
+                                                tcfg=tcfg))
+    busy = sum(e.device_time_total for e in ops) / 1e3
+    if busy:
+        print(f"  profiled step: wall {wall * 1e3:.2f} ms, device kernels "
+              f"{busy:.2f} ms, device-idle share "
+              f"{max(0.0, 1 - busy / (wall * 1e3)):.4f} [{smi}]")
+        for e in sorted(ops, key=lambda e: -e.device_time_total)[:8]:
+            print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:90]}")
+    else:
+        print("  profiled step: the profiler saw no device time; the idle "
+              "share is not measured")
+    # the optimizer's share of a step: apply_updates alone on gradients of
+    # zeros (its elementwise passes do not depend on the values), twice
+    grads = adamw.tree_map(torch.zeros_like, state["params"])
+    opt_s = [_timed(lambda: adamw.apply_updates(
+        state["params"], grads, state["opt"], tcfg.optimizer))[1]
+        for _ in range(2)]
+    del grads
+    print(f"  AdamW's apply_updates alone: {opt_s[-1]:.4f} s (first call "
+          f"{opt_s[0]:.4f} s; host clock, synchronised) of the step's "
+          f"{steady:.4f} s [{smi}]")
+    print(f"  (c) wall {time.perf_counter() - t_c:.1f} s; phase 25 wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state, params
+    torch.cuda.empty_cache()
+    return total, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6190,6 +6773,12 @@ def main() -> int:
           f"{G2_FINAL_SOFTCAP:g}) at {G2_MAX_LEN} positions through the "
           f"kernels and the platform, and the int8 KV cache")
     gemma2 = phase_gemma2()
+    print(f"[25] training on the card: the backward kernels against their "
+          f"plain versions, one float32 step of every reduced config "
+          f"against the CPU, and full-width {TRAIN_ARCH} for {TRAIN_STEPS} "
+          f"steps")
+    training, train_rec = phase_training()
+    rec.update(train_rec)
     # each path's launches, its counts set to 0 just before it ran; the
     # kernels line's `launches` is the newest path that runs each kernel
     by_path = {"phase4": {n: counts[n] for n in SERVING_KERNELS},
@@ -6201,12 +6790,13 @@ def main() -> int:
                "phase15": tiered, "phase16": nemo, "phase17": granite,
                "phase18": qwen, "phase19": llama, "phase20": zamba,
                "phase21": xlstm, "phase22": vl, "phase23": audio,
-               "phase24": gemma2}
+               "phase24": gemma2, "phase25": training}
     print(f"  launches_by_path {json.dumps(by_path, sort_keys=True)}")
     # a path that holds a kernel at 0 (phase 21's attention kernels, phase
     # 23's rmsnorm) does not replace the newest path that ran it
     for path in (workload, loops, artifacts, dense, at_scale, tiered, nemo,
-                 granite, qwen, llama, zamba, xlstm, vl, audio, gemma2):
+                 granite, qwen, llama, zamba, xlstm, vl, audio, gemma2,
+                 training):
         counts.update({name: n for name, n in path.items() if n})
     for name in ("cuckoo_probe", "ann_topk", "reuse_sketch"):
         r = rec[name]

@@ -29,7 +29,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("rmsnorm", "decode_attention", "flash_attention", "cuckoo_probe",
-           "ann_topk", "reuse_sketch")
+           "ann_topk", "reuse_sketch", "rmsnorm_bwd", "flash_attention_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,10 @@ SIGNATURES = {
     "ann_topk": ("ann_topk_fwd", [_P] * 7 + [_I, _LL] + [_I] * 4 + [_P]),
     "reuse_sketch": ("reuse_sketch_fwd",
                      [_P] * 6 + [_LL, _I, _I, _I, _F, _F, _P]),
+    "rmsnorm_bwd": ("rmsnorm_bwd", [_P] * 7 + [_LL, _LL, _I, _F, _I, _P]),
+    "flash_attention_bwd": (
+        "flash_attention_bwd",
+        [_P] * 10 + [_I] * 6 + [_LL] * 9 + [_F, _F, _I, _I, _I, _P]),
 }
 # further C entry points, {name: (source, function, argtypes)}: queries a
 # wrapper makes of the card before it launches

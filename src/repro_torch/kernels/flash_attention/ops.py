@@ -1,6 +1,12 @@
-"""Wrapper of the flash-attention forward kernel
-(`csrc/flash_attention.cu`). Forward only: the port serves, and a
-backward kernel comes with training."""
+"""Wrappers of the flash-attention kernels: the forward
+(`csrc/flash_attention.cu`) and its gradient (`csrc/flash_attention_bwd.cu`).
+
+`flash_attention` launches the forward alone when no gradient is wanted
+(serving); when grad is enabled and q, k or v requires grad it goes
+through `_FlashAttention`, a `torch.autograd.Function` whose forward is
+the same launch and whose backward launches `flash_attention_bwd`. The
+head_dim padding stays outside the Function, so autograd slices the
+padded gradients back."""
 from __future__ import annotations
 
 import math
@@ -11,7 +17,7 @@ import torch.nn.functional as F
 
 from .._build import check, library
 from .._wrap import dtype_code, on_cuda, stream_of
-from .ref import reference_attention
+from .ref import reference_attention, reference_attention_bwd
 
 BF16_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernel's instantiations
 F32_HEAD_DIM_STEP = 32            # the CUDA-core kernel: one column a lane
@@ -75,9 +81,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: needs T >= 1")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: head_dim must be contiguous")
-    return padded_attention(_launch, q, k, v, scale=s,
-                            head_dim=kernel_head_dim(hd, q.dtype),
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    return padded_attention(_attend_grad if grad else _launch, q, k, v,
+                            scale=s, head_dim=kernel_head_dim(hd, q.dtype),
                             causal=causal, window=window, softcap=softcap)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (`_launch`, unchanged) with the backward kernel
+    as its gradient; saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out = _launch(q, k, v, scale=scale, causal=causal, window=window,
+                      softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(scale=scale, causal=causal, window=window,
+                      softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def _attend_grad(q, k, v, *, scale, causal, window, softcap):
+    return _FlashAttention.apply(q, k, v, scale, causal, window, softcap)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,3 +140,61 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, scale: float,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """(dq, dk, dv) of `flash_attention(q, k, v, ...)` at its output
+    `out` for the output gradient `dout`, in the inputs' dtype. q [B,H,S,hd]
+    and k, v [B,KV,T,hd] may be strided views with head_dim contiguous;
+    out and dout are copied to contiguous tensors where they are not;
+    head_dim must be one the forward kernel runs at (`kernel_head_dim`: a
+    multiple of 32, 64/128/256 in bf16). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (or raises)."""
+    if not on_cuda("flash_attention_bwd", q, k, v, out, dout):
+        return reference_attention_bwd(q, k, v, out, dout, scale=scale,
+                                       causal=causal, window=window,
+                                       softcap=softcap)
+    return _launch_bwd(q, k, v, out, dout, scale=scale, causal=causal,
+                       window=window, softcap=softcap)
+
+
+def _launch_bwd(q, k, v, out, dout, *, scale: float, causal: bool,
+                window: int, softcap: float):
+    """The backward kernel's three passes on CUDA tensors; raises on what
+    it does not take."""
+    code = dtype_code("flash_attention_bwd", q, k, v, out, dout)
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != B
+            or k.shape[3] != hd or KV == 0 or H % KV or T < 1
+            or out.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k, v "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} do not match")
+    if hd != kernel_head_dim(hd, q.dtype):
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} is not one "
+                         f"the kernel runs at ({kernel_head_dim(hd, q.dtype)}"
+                         f")")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention_bwd: head_dim must be contiguous")
+    out, dout = out.contiguous(), dout.contiguous()
+    dq = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, T, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    err = library("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), B, H, KV, S, T, hd,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+        k.stride(2), v.stride(0), v.stride(1), v.stride(2), float(scale),
+        float(softcap), int(causal), int(window), code,
+        stream_of(q.device))
+    check("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +33,13 @@ class Ctx:
     # K/V at prefill (None: no encoder, or a decode step, which reads
     # them from the cache)
     enc_out: Optional[torch.Tensor] = None
+    # auxiliary training losses by name (the MoE's load-balance and router
+    # z-loss terms), summed over a group's sublayers; the training stack
+    # gives each group (and each tail sublayer) a fresh dict
+    aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def add_aux(self, name: str, value: torch.Tensor) -> None:
+        self.aux[name] = self.aux.get(name, 0.0) + value
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,11 @@ Three entry points share one stack implementation:
   prefill(...)      fills the KV cache, returns last-position logits
   decode_step(...)  one-token step against the cache
 
+and training adds `forward_and_aux` (logits and the summed auxiliary
+loss, each group's forward optionally recomputed in the backward) and
+`loss_and_aux` (next-token cross-entropy, z-loss and the MoE's auxiliary
+loss), the reference's `forward` and `loss_and_aux`.
+
 Parameters are a plain dict shaped like the reference package's pytree:
 group params are stacked [G, ...] under {"groups": {"L0S0": {"norm",
 "mixer"}}}, beside "embed" and "final_norm" (a norm holds its "scale",
@@ -39,12 +44,14 @@ sliding windows, and the int8 KV cache.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from .._device import resolve_device
 from . import attention, ffn, moe, ssm, xlstm
@@ -471,6 +478,102 @@ def run_encoder(params, frames, cfg: ModelConfig, ctx: Ctx):
     return _final_norm(params["encoder"], cfg, x, out, ctx.plain)
 
 
+# ---------------------------------------------------------------------------
+# Training stack: each group's forward optionally recomputed in the backward
+# ---------------------------------------------------------------------------
+
+# matrix products whose outputs a "dots" policy keeps (the reference's
+# jax.checkpoint_policies.checkpoint_dots); "dots_no_batch" keeps only
+# those without a batch dimension (checkpoint_dots_with_no_batch_dims)
+_DOTS_NO_BATCH = ("mm", "addmm")
+_DOTS = _DOTS_NO_BATCH + ("bmm", "baddbmm")
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
+
+
+def _remat_context(policy: str):
+    """`torch.utils.checkpoint`'s context_fn for a remat policy: None
+    recomputes everything ("nothing"); "dots" and "dots_no_batch" keep the
+    outputs of their products through the selective-checkpoint policy and
+    recompute the rest. A policy changes what the backward recomputes,
+    never a value."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "nothing":
+        return None
+    ops = _DOTS if policy == "dots" else _DOTS_NO_BATCH
+    kept = {getattr(torch.ops.aten, n).default for n in ops}
+
+    def keep(ctx, op, *args, **kwargs):
+        return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in kept
+                else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, keep)
+
+
+def _unbound(tree):
+    """A stacked tree [G, ...] as G trees of views, one a group: one
+    `unbind` a leaf, whose backward stacks the G gradients in one copy
+    (G index views would each add a zero-filled copy of the whole stack
+    into the leaf's gradient)."""
+    if isinstance(tree, dict):
+        per = {k: _unbound(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[g] for k, v in per.items()} for g in range(n)]
+    return torch.unbind(tree)
+
+
+def _aux_sum(aux: Dict[str, torch.Tensor], device) -> torch.Tensor:
+    """The sum of a group's auxiliary losses from a float32 zero, in
+    insertion order (the reference's reduce over `ctx.aux.values()`)."""
+    return functools.reduce(torch.add, aux.values(),
+                            torch.zeros((), dtype=torch.float32,
+                                        device=device))
+
+
+def _train_group(cfg: ModelConfig, ctx: Ctx, gparams, shared, x, out):
+    """One group of the stack with no cache, under a fresh aux dict.
+    Returns (x, out, the group's summed aux)."""
+    gctx = dataclasses.replace(ctx, aux={})
+    for k, spec in _sublayers(cfg):
+        p = shared[k] if _shared(spec) else gparams[k]
+        x, out = _sub_apply(p, x, spec, cfg, gctx, None, out)
+    return x, out, _aux_sum(gctx.aux, x.device)
+
+
+def train_stack(params, x, cfg: ModelConfig, ctx: Ctx,
+                remat_policy: Optional[str] = None):
+    """The group stack, then the tail, with no cache, as the train
+    forward runs it. remat_policy None runs each group as it is; a policy
+    (`REMAT_POLICIES`) runs each group under
+    `torch.utils.checkpoint.checkpoint(use_reentrant=False)`, so the
+    backward recomputes the group's forward (the reference's
+    `jax.checkpoint` of its group function); the tail is not recomputed,
+    as in the reference. Returns (x, out, aux): `run_stack`'s pair and the
+    auxiliary losses summed group by group, then the tail's sublayer by
+    sublayer, from a float32 zero."""
+    shared = params.get("shared", {})
+    groups = _unbound(params["groups"]) if params["groups"] else \
+        [{}] * cfg.n_groups
+    run = functools.partial(_train_group, cfg, ctx)
+    if remat_policy is not None:
+        context_fn = _remat_context(remat_policy)
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        run = functools.partial(torch_checkpoint.checkpoint, run,
+                                use_reentrant=False, **kw)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = None
+    for gp in groups:
+        x, out, aux_g = run(gp, shared, x, out)
+        aux = aux + aux_g
+    for k, spec in _tail(cfg):
+        tctx = dataclasses.replace(ctx, aux={})
+        x, out = _sub_apply(params["tail"][k], x, spec, cfg, tctx, None,
+                            out)
+        aux = aux + _aux_sum(tctx.aux, x.device)
+    return x, out, aux
+
+
 @functools.lru_cache(maxsize=8)
 def _sinusoid(n: int, d: int, device, dtype):
     """`sinusoidal_positions(n, d)` cast to `dtype` on `device`, made once
@@ -559,7 +662,23 @@ def forward(params, cfg: ModelConfig, tokens,
     S counting a "vlm" config's vision prefix `vision_embeds`
     [B,S_vis,D]. `positions` ([B,S], or [3,B,S] for M-RoPE) replaces the
     index; the mask stays index-causal. A config with an encoder takes
-    `frames` [B,F,D], which its cross-attention reads through it."""
+    `frames` [B,F,D], which its cross-attention reads through it.
+    `forward_and_aux`'s logits, with no recompute."""
+    return forward_and_aux(params, cfg, tokens, compute_dtype, plain,
+                           vision_embeds=vision_embeds, positions=positions,
+                           frames=frames, remat=False)[0]
+
+
+def forward_and_aux(params, cfg: ModelConfig, tokens,
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    plain: bool = False, *, vision_embeds=None,
+                    positions=None, frames=None, remat: bool = True,
+                    remat_policy: str = "nothing"):
+    """`forward`'s logits [B,S,V] and the summed auxiliary loss (float32
+    scalar; the MoE's load-balance and router z-loss terms, 0 without
+    MoE), the reference's `forward`. With `remat`, each group's forward is
+    recomputed in the backward under `remat_policy` ("nothing", "dots" or
+    "dots_no_batch"; `train_stack`); the values do not change."""
     x = _embed_inputs(params, cfg, tokens, compute_dtype, vision_embeds)
     B, S, _ = x.shape
     if positions is None:
@@ -567,8 +686,45 @@ def forward(params, cfg: ModelConfig, tokens,
     ctx = Ctx(mode="train", positions=positions,
               compute_dtype=compute_dtype, plain=plain)
     ctx.enc_out = _enc_out(params, cfg, frames, ctx)
-    x, out = run_stack(params, x, cfg, ctx)
-    return _logits(params, cfg, _final_norm(params, cfg, x, out, plain))
+    x, out, aux = train_stack(params, x, cfg, ctx,
+                              remat_policy if remat else None)
+    logits = _logits(params, cfg, _final_norm(params, cfg, x, out, plain))
+    return logits, aux
+
+
+def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, Any],
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = True, remat_policy: str = "nothing",
+                 z_loss: float = 1e-4, plain: bool = False):
+    """Next-token cross-entropy (+ z-loss, + the MoE's auxiliary loss) of
+    `batch` ({"tokens" [B,S_tok], and optionally "loss_mask" [B,S_tok],
+    "vision_embeds", "positions", "frames"}), the reference's
+    `loss_and_aux`: the loss on the text positions behind a vision
+    prefix, position t predicting token t + 1, each weighted by
+    loss_mask[:, 1:]; lse and the gold logit in float32; z-loss =
+    z_loss * mean(lse^2) over the same weights. Returns (loss, metrics
+    {"ce", "z_loss", "aux", "ppl_proxy"}), float32 scalars."""
+    tokens = batch["tokens"]
+    logits, aux = forward_and_aux(
+        params, cfg, tokens, compute_dtype, plain,
+        vision_embeds=batch.get("vision_embeds"),
+        positions=batch.get("positions"), frames=batch.get("frames"),
+        remat=remat, remat_policy=remat_policy)
+    B, S_tok = tokens.shape
+    off = logits.shape[1] - S_tok        # vision prefix (loss on text only)
+    lf = logits[:, off:off + S_tok - 1].float()
+    targets = tokens[:, 1:].long()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(gold) if mask is None else \
+        mask[:, 1:].to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = z_loss * (((lse ** 2) * mask).sum() / denom)
+    loss = ce + zl + aux
+    return loss, {"ce": ce, "z_loss": zl, "aux": aux,
+                  "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache,

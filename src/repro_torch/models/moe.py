@@ -59,8 +59,11 @@ def route(params, x, spec: MoeSpec, ctx: Ctx):
     softmax in float32, top-k (an exact tie keeps the lower id, as
     `jax.lax.top_k` does), the kept gates renormalised when k > 1.
 
-    The reference also adds the load-balance and router z-loss terms here;
-    they are training terms and wait for the training path."""
+    In train mode it adds the reference's auxiliary losses to
+    `ctx.aux["moe_aux_loss"]`: the Switch load-balance term E * sum_e
+    f_e p_e (f_e the share of tokens whose first choice is e, p_e the
+    mean router probability) times `aux_loss_weight`, plus 1e-4 times the
+    router z-loss mean(logsumexp(logits)^2). Serving computes neither."""
     logits = torch.einsum("bsd,de->bse", x,
                           params["router"].to(ctx.compute_dtype)).float()
     probs = torch.softmax(logits, dim=-1)
@@ -68,6 +71,14 @@ def route(params, x, spec: MoeSpec, ctx: Ctx):
     gates, idx = gates[..., :spec.top_k], idx[..., :spec.top_k]
     if spec.top_k > 1:                              # renormalise kept mass
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if ctx.mode == "train":
+        e = spec.n_experts
+        sel = torch.nn.functional.one_hot(idx[..., 0], e).float()
+        f_e = sel.mean(dim=(0, 1))
+        p_e = probs.mean(dim=(0, 1))
+        aux = e * torch.sum(f_e * p_e)
+        z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        ctx.add_aux("moe_aux_loss", spec.aux_loss_weight * aux + 1e-4 * z)
     return gates.to(ctx.compute_dtype), idx
 
 

@@ -13,7 +13,10 @@ projections (the bulk of its products) run for every position first, and
 each step is one batched product over the heads ([H,B,P] x [H,P,4P]) and
 the cell's elementwise updates, in place (on CUDA, whole chunks of steps
 replay one captured CUDA graph: `scan`). Its state is h, c, n and m,
-float32 [B,H,P] each.
+float32 [B,H,P] each. When autograd needs the scan (grad enabled and an
+input that requires grad: training), each step is `slstm_cell`, the same
+formula with no `out=`, no in-place update and no graph replay, which
+autograd cannot pass through; the bits are the in-place cell's.
 
 Each module is an interface as `ssm` is (`param_shapes`, `cache_shapes`,
 `apply`): `mlstm` and `slstm` below. The reference computes both in jnp,
@@ -234,6 +237,29 @@ def slstm_cell_(pre, h_prev, c, n, m, R, h_out):
     return h_out
 
 
+def slstm_cell(pre, h_prev, c, n, m, R):
+    """`slstm_cell_`'s step as autograd takes it: the same ops in the same
+    order, each making a new tensor. Returns (h, c, n, m)."""
+    H, B, _ = pre.shape
+    z, i_s, f_s, o = torch.baddbmm(pre, h_prev, R).view(H, B, 4, -1).unbind(2)
+    logf = F.logsigmoid(f_s) + m                  # log f + m_prev
+    m = torch.maximum(logf, i_s)
+    i_s, f_s = torch.exp(i_s - m), torch.exp(logf - m)   # i', f'
+    c = torch.addcmul(c * f_s, i_s, torch.tanh(z))
+    n = torch.addcmul(i_s, f_s, n).clamp_min(1e-6)
+    return torch.div(c, n) * torch.sigmoid(o), c, n, m
+
+
+def scan_grad(pre, R, h, c, n, m):
+    """`scan` through `slstm_cell`: pre [S,H,B,4P], state [H,B,P]. Returns
+    (every step's h [S,H,B,P], h, c, n, m)."""
+    hs = []
+    for t in range(pre.shape[0]):
+        h, c, n, m = slstm_cell(pre[t], h, c, n, m, R)
+        hs.append(h)
+    return torch.stack(hs), h, c, n, m
+
+
 # A CUDA prefill's scan replays each whole chunk of SCAN_CHUNK cell steps
 # as one captured CUDA graph: the same launches from one host call, where
 # a step's 14 launches take ~190 us of host time against ~24 us of device
@@ -339,8 +365,11 @@ def slstm_apply(params, x, spec: SLstmSpec, cfg: ModelConfig, ctx: Ctx,
     R = recurrent_weights(params["r_gates"])
     h, c, n, m = (x.new_zeros(H, B, P, dtype=torch.float32)
                   for _ in range(4))
-    hs = x.new_empty(S, H, B, P, dtype=torch.float32)
-    h = scan(pre, R, h, c, n, m, hs)
+    if torch.is_grad_enabled() and (pre.requires_grad or R.requires_grad):
+        hs, h, c, n, m = scan_grad(pre, R, h, c, n, m)
+    else:
+        hs = x.new_empty(S, H, B, P, dtype=torch.float32)
+        h = scan(pre, R, h, c, n, m, hs)
     out = _slstm_out(params, hs.permute(2, 0, 1, 3).reshape(B, S, D), cfg,
                      ctx, d_up)
     if cache is not None:
