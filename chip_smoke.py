@@ -4,7 +4,12 @@
 Drives the port's serving path on the card and checks it, in phases:
 
   1. the card's name and power limit (exits non-zero without CUDA);
-  2. builds the hand-written CUDA kernels from `src/repro_torch/csrc`;
+  2. builds the hand-written CUDA kernels from `src/repro_torch/csrc`,
+     printing ptxas's registers and spills; flash_attention_bwd's kernels
+     by name, with each bf16 pass's dynamic shared memory and its wgmma
+     instructions (HGMMA in `cuobjdump -sass`), failing on a spill or a
+     bf16 pass without wgmma, and on an old CUDA-core pass built for
+     another type than float32;
   3. holds each kernel against its plain PyTorch version on the card at
      the serving path's shapes (float32 and bfloat16, ragged lengths, a
      GQA case beside gemma's MQA, flash attention at head dims 16, 32 and
@@ -370,8 +375,12 @@ Drives the port's serving path on the card and checks it, in phases:
      plain outputs' largest |value|; bf16 within twice the plain bf16's
      own distance from the plain float32), a bitwise repeat, and timed
      beside the bound and the library call (autograd through SDPA with
-     enable_gqa, and through F.rms_norm; none for the window and the
-     cap); (b) one float32 train step of every reduced config (and
+     enable_gqa, through compiled flex_attention for the window and the
+     cap in both types, its gradients held first to the plain float32
+     ones within TOL's atol + rtol x their largest |value|, and through
+     F.rms_norm), flash_attention_bwd's bf16 passes (rows, dk/dv, the
+     group sum, dq) at gemma's shape by their kernels' names under
+     torch.profiler; (b) one float32 train step of every reduced config (and
      reduced Gemma 2) through the kernels on the card against the same
      step on the CPU from one weight set: the loss within 1e-5
      (relative), every gradient leaf within 1e-4 of its largest |g|, both
@@ -383,7 +392,10 @@ Drives the port's serving path on the card and checks it, in phases:
      then 5 train steps over SyntheticLM batches (2 x 1,024 tokens) under
      the Watchdog, each with 36 flash_attention, 73 rmsnorm, 18
      flash_attention_bwd and 37 rmsnorm_bwd launches; prints the loss
-     curve, the step wall, tokens/s, peak device memory against the
+     curve, each step's wall beside what could stall its host (the
+     caching allocator's retries and cudaMalloc calls, the seconds of
+     Python's garbage collections), the step wall, tokens/s, peak device
+     memory against the
      state's reckoned 40.10 GB, the device-idle share of one profiled
      step and AdamW's update alone.
 
@@ -407,6 +419,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -6185,10 +6198,45 @@ def _grad_hold(label, got, plain, plain_f32, out_dtypes):
                for g, p in zip(got, plain))
 
 
-def _flash_bwd_case(form, dtype_name, gen, timed):
+# the bf16 form's passes, by the names of their kernels
+BWD_PASS_KERNELS = (("rows", "flash_bwd_rows_tc"),
+                    ("dk/dv", "flash_bwd_dkdv_tc"),
+                    ("group sum", "flash_bwd_group_sum"),
+                    ("dq", "flash_bwd_dq_tc"))
+BWD_PASS_CALLS = 10            # calls profiled for the split
+
+
+def _flash_bwd_passes(call, label):
+    """Prints the device time of each pass of flash_attention_bwd's bf16
+    form, a call's mean over BWD_PASS_CALLS calls under torch.profiler, by
+    kernel name."""
+    ops, _ = _profiled(lambda: [call() for _ in range(BWD_PASS_CALLS)])
+    split = {name: sum(e.device_time_total for e in ops if key in e.key)
+             / 1e3 / BWD_PASS_CALLS for name, key in BWD_PASS_KERNELS}
+    assert split["rows"] and split["dk/dv"] and split["dq"], split
+    print(f"  passes of flash_attention_bwd {label} (torch.profiler, the "
+          f"mean of {BWD_PASS_CALLS} calls): " + ", ".join(
+              f"{name} {ms:.4f} ms" for name, ms in split.items())
+          + f"; sum {sum(split.values()):.4f} ms")
+
+
+def _library_grad_hold(label, got, plain_f32, dtype_name):
+    """A library call's gradients against the plain float32 version's:
+    max abs error <= TOL's atol + rtol x the plain outputs' largest
+    |value|: TOL's terms on the scale of the largest gradient, as
+    `_grad_hold` holds a float32 output. Returns the max abs error."""
+    top = max(float(w.abs().max()) for w in plain_f32)
+    err = max(float((g.float() - w).abs().max())
+              for g, w in zip(got, plain_f32))
+    tol = TOL[dtype_name]["atol"] + TOL[dtype_name]["rtol"] * top
+    assert err <= tol, f"{label}: {err:.3e} > {tol:.3e}"
+    return err
+
+
+def _flash_bwd_case(form, dtype_name, gen):
     """flash_attention_bwd at one form and type against
     reference_attention_bwd on the card, a bitwise repeat, and its times.
-    Returns the record."""
+    Returns (the record, a call of the kernel on the form's inputs)."""
     import torch
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_bwd)
@@ -6219,8 +6267,6 @@ def _flash_bwd_case(form, dtype_name, gen, timed):
           f"{list(ks)} {dtype_name}: max_abs_err={err:.3e} (plain max "
           f"{max(float(t.abs().max()) for t in plain_f32):.3e}), repeat "
           f"bitwise ok")
-    if not timed:
-        return None
     B, H, S, hd = qs
     KV, T = ks[1], ks[2]
     i = torch.arange(S, device="cuda")[:, None]
@@ -6234,14 +6280,38 @@ def _flash_bwd_case(form, dtype_name, gen, timed):
     nbytes = (4 * B * H * S * hd + 4 * B * KV * T * hd) * q.element_size()
     b_ms, b_by = _bound_ms(nbytes, 10 * pairs * hd, dt)
     calls = [lambda: flash_attention_bwd(q, k, v, out, dout, **kw)]
-    lib_ms = None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     if has_lib:
         import torch.nn.functional as F
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, scale=kw["scale"],
                                            is_causal=causal, enable_gqa=True)
         lib_ms = _time_ms([lambda: torch.autograd.grad(
             o, leaves, dout, retain_graph=True)], iters=5)
+    else:
+        # compiled flex_attention: the cap its score_mod, the causal
+        # window its block mask (as phase 24 times the forward), its
+        # gradients held to the plain float32 ones before they are timed.
+        # Its backward is compiled without donated buffers, which would
+        # refuse the retained graph that the timing calls it on again
+        import torch._functorch.config as functorch_config
+        assert softcap and causal, "flex is timed for the capped forms"
+        band = ((lambda b, i, j: (i >= j) & (i - j < window)) if window
+                else (lambda b, i, j: i >= j))
+        with functorch_config.patch(donated_buffer=False):
+            o = _capped_flex(softcap, band, B, S, T, kw["scale"],
+                             "cuda")(*leaves)
+            lib_err = _library_grad_hold(
+                f"flex_attention's backward {label} {dtype_name}",
+                torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                plain_f32, dtype_name)
+            lib_ms = _time_ms([lambda: torch.autograd.grad(
+                o, leaves, dout, retain_graph=True)], iters=5)
+        own = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, plain_f32))
+        print(f"  check library flash_attention_bwd {label} {dtype_name}: "
+              f"autograd through compiled flex_attention, max_abs_err "
+              f"{lib_err:.3e} from the plain float32 gradients (the "
+              f"kernel's {own:.3e}) ok")
     return dict(
         shape=(f"q {list(qs)} k,v {list(ks)} {dtype_name}"
                f"{'' if causal else ' non-causal'}"
@@ -6251,7 +6321,7 @@ def _flash_bwd_case(form, dtype_name, gen, timed):
         launch_ms=_time_ms(calls, iters=5, queued=False),
         plain_ms=_time_ms([lambda: reference_attention_bwd(
             q, k, v, out, dout, **kw)], iters=3),
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), calls[0]
 
 
 def _flash_bwd_padded(qs, ks, dtype_name, gen):
@@ -6513,9 +6583,10 @@ def phase_training():
     rec = {}
     for form in FLASH_BWD_FORMS:
         for dtype_name in ("float32", "bfloat16"):
-            r = _flash_bwd_case(form, dtype_name, gen, timed=True)
+            r, call = _flash_bwd_case(form, dtype_name, gen)
             _print_record("flash_attention_bwd", r)
             if form[0] == "gemma-2b training" and dtype_name == "bfloat16":
+                _flash_bwd_passes(call, f"{form[0]} {dtype_name}")
                 rec["flash_attention_bwd"] = r
     for dtype_name, (qs, ks) in zip(("bfloat16", "float32"),
                                     FLASH_BWD_PADDED):
@@ -6561,12 +6632,16 @@ def phase_training():
             "flash_attention_bwd": _attn_layers(cfg),
             "rmsnorm_bwd": _norms(cfg)}
     total = dict.fromkeys(want, 0)
+    gc_clock = _GcClock()
     for step in range(TRAIN_STEPS):
         batch = data.batch_at(step + 1)
         kernels.reset_launch_counts()
         wd.begin_step()
+        before = _host_stalls(gc_clock)
         (state, m), wall = _timed(lambda: TS.train_step(
             state, batch, cfg=cfg, tcfg=tcfg))
+        stalls = {k: v - before[k] for k, v in
+                  _host_stalls(gc_clock).items()}
         loss = float(m["loss"])
         events = wd.end_step(step, loss)
         counts = kernels.launch_counts()
@@ -6579,8 +6654,12 @@ def phase_training():
         print(f"  step {step + 1}: loss {loss:.6f} (ce {float(m['ce']):.6f}, "
               f"z_loss {float(m['z_loss']):.3e}), lr {float(m['lr']):.3e}, "
               f"grad_norm {float(m['grad_norm']):.4f}; wall {wall:.4f} s "
-              f"(host clock, synchronised); watchdog {events or 'quiet'} "
-              f"[{smi}]")
+              f"(host clock, synchronised; alloc retries "
+              f"{stalls['retries']}, cudaMalloc {stalls['mallocs']}, "
+              f"garbage collection {stalls['gc_s']:.4f} s in "
+              f"{stalls['gc_runs']} runs, {stalls['gc_full']} of the "
+              f"oldest generation); watchdog {events or 'quiet'} [{smi}]")
+    gc_clock.close()
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
@@ -6627,6 +6706,123 @@ def phase_training():
     return total, rec
 
 
+class _GcClock:
+    """Seconds and runs of Python's garbage collections since it was made
+    (a gc callback), until close()."""
+
+    def __init__(self):
+        import gc
+        self.seconds, self.runs, self.full, self._t = 0.0, 0, 0, None
+        gc.callbacks.append(self)
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.seconds += time.perf_counter() - self._t
+            self.runs += 1
+            self.full += info["generation"] == 2
+            self._t = None
+
+    def close(self):
+        import gc
+        gc.callbacks.remove(self)
+
+
+def _host_stalls(gc_clock) -> dict:
+    """The caching allocator's retries (a free of cached blocks and a
+    second cudaMalloc, after a first one failed) and cudaMalloc calls so
+    far, and the garbage collections' seconds and runs."""
+    import torch
+    st = torch.cuda.memory_stats()
+    return dict(retries=st.get("num_alloc_retries", 0),
+                mallocs=st.get("num_device_alloc", 0),
+                gc_s=gc_clock.seconds, gc_runs=gc_clock.runs,
+                gc_full=gc_clock.full)
+
+
+# phase 2: flash_attention_bwd's kernels by name, "flash_bwd_dkdv_tc<256,
+# window 0, cap 1>": the bf16 passes at each head_dim and form, and the
+# float32 CUDA-core passes and the group sum, which are no templates
+BWD_TC_PASSES = ("rows_tc", "dkdv_tc", "dq_tc")
+BWD_TC_HEAD_DIMS = (64, 128, 256)
+BWD_PLAIN_KERNELS = ("rows", "dkdv", "dq", "group_sum")
+
+
+def _bwd_kernel_name(mangled: str) -> str | None:
+    """The label of a flash_attention_bwd kernel's mangled name, or None
+    where it is not one the source defines."""
+    m = re.search(r"flash_bwd_([a-z_]+)(?:ILi(\d+)ELb([01])ELb([01])EE|E)",
+                  mangled)
+    if not m:
+        return None
+    if m.group(2):
+        return (f"flash_bwd_{m.group(1)}<{m.group(2)}, window {m.group(3)}, "
+                f"cap {m.group(4)}>")
+    return f"flash_bwd_{m.group(1)}"
+
+
+def _bwd_build_report() -> None:
+    """Phase 2's lines for flash_attention_bwd: each kernel's registers
+    and spill bytes as ptxas (-v) gave them, the dynamic shared memory of
+    the bf16 passes' blocks, and each kernel's wgmma instructions (HGMMA)
+    in `cuobjdump -sass` of the built library. Fails unless the kernels
+    are exactly the 3 bf16 passes x 3 head_dims x 4 forms (window, cap)
+    and the 4 float32 ones, each found in the SASS, and on a spill or no
+    wgmma in a bf16 pass."""
+    from repro_torch.kernels import _build
+    stem = _build.BUILD_DIR / f"flash_attention_bwd-{_build._digest()}"
+    props, name = {}, None
+    for line in (stem.parent / (stem.name + ".log")).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            props[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            props[name]["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            props[name]["registers"] = int(m.group(1))
+    cuobjdump = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(stem) + ".so"],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            hgmma[fn] = 0
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    labels = {mangled: _bwd_kernel_name(mangled) for mangled in props}
+    unparsed = [k for k, v in labels.items() if v is None]
+    assert not unparsed, f"flash_attention_bwd: unknown kernels {unparsed}"
+    want = sorted([f"flash_bwd_{p}<{hd}, window {w}, cap {c}>"
+                   for p in BWD_TC_PASSES for hd in BWD_TC_HEAD_DIMS
+                   for w in (0, 1) for c in (0, 1)]
+                  + [f"flash_bwd_{p}" for p in BWD_PLAIN_KERNELS])
+    assert sorted(labels.values()) == want, sorted(labels.values())
+    assert set(props) <= set(hgmma), set(props) - set(hgmma)
+    smem = _build.library("flash_attention_bwd_smem")
+    for mangled in sorted(props, key=labels.get):
+        p, label = props[mangled], labels[mangled]
+        line = (f"  flash_attention_bwd: {label}: {p['registers']} "
+                f"registers, {p['spill'][0]} B spill stores, "
+                f"{p['spill'][1]} B spill loads, {hgmma[mangled]} HGMMA")
+        if "<" in label:
+            pass_ = BWD_TC_PASSES.index(label[len("flash_bwd_"):
+                                              label.index("<")])
+            hd = int(label[label.index("<") + 1:label.index(",")])
+            line += f", {smem(hd, pass_)} B dynamic shared memory"
+            assert p["spill"] == (0, 0) and hgmma[mangled] > 0, line
+        print(line)
+    print(f"  flash_attention_bwd: {len(want) - len(BWD_PLAIN_KERNELS)} "
+          f"bf16 pass instances, each with wgmma and no spill, and "
+          f"{len(BWD_PLAIN_KERNELS)} float32 kernels ok")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6651,9 +6847,12 @@ def main() -> int:
     print(f"[2] built {len(_build.SOURCES)} kernels in "
           f"{built['seconds']:.1f} s")
     for name, log in built["logs"].items():
+        if name == "flash_attention_bwd":
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    _bwd_build_report()
 
     cfg = get_config("gemma-2b")
     rng = np.random.default_rng(SEED)

@@ -54,10 +54,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   __syncwarp();   // the warp leaves together: wgmma needs it converged
 }
 
+// one thread's wait, as mbar_wait without the warp's convergence point
+__device__ __forceinline__ void mbar_wait_thread(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one plain arrival (no transactions)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
 // a barrier among `threads` threads (a multiple of 32) under `id` in
 // 1..15 (0 is __syncthreads'), e.g. one warpgroup of a block
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting: with threads that
+// named_barrier(id, threads) there, a producer's half of a hand-off (its
+// shared-memory writes are seen by the waiting threads once it completes)
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ------------------------------------------------------------------ TMA

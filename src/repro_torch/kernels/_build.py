@@ -53,7 +53,7 @@ SIGNATURES = {
     "rmsnorm_bwd": ("rmsnorm_bwd", [_P] * 7 + [_LL, _LL, _I, _F, _I, _P]),
     "flash_attention_bwd": (
         "flash_attention_bwd",
-        [_P] * 10 + [_I] * 6 + [_LL] * 9 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 12 + [_I] * 6 + [_LL] * 9 + [_F, _F, _I, _I, _I, _P]),
 }
 # further C entry points, {name: (source, function, argtypes)}: queries a
 # wrapper makes of the card before it launches
@@ -62,6 +62,8 @@ QUERIES = {
     "rmsnorm_plan_of": ("rmsnorm", "rmsnorm_plan_of", [_LL, _I, _I, _I, _P]),
     "cuckoo_probe_plan_of": ("cuckoo_probe", "cuckoo_probe_plan_of",
                              [_LL, _I, _I, _P]),
+    "flash_attention_bwd_smem": ("flash_attention_bwd",
+                                 "flash_attention_bwd_smem", [_I, _I]),
 }
 
 

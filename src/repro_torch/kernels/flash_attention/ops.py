@@ -120,13 +120,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
-        # the tensor maps of the TMA loads need 16-byte aligned rows
-        for t in (q, k, v):
-            if t.data_ptr() % 16 or any(
-                    st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])
-                    if n > 1):
-                raise ValueError("flash_attention: bfloat16 inputs need "
-                                 "16-byte aligned rows")
+        _check_tma_rows("flash_attention", q, k, v)
     out = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
     err = library("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -140,6 +134,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def _check_tma_rows(name: str, *tensors: torch.Tensor) -> None:
+    """The bfloat16 kernels' tensor maps (TMA loads) need 16-byte aligned
+    rows: an aligned base and strides of whole 8-element steps."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(
+                st % 8 for n, st in zip(t.shape[:3], t.stride()[:3])
+                if n > 1):
+            raise ValueError(f"{name}: bfloat16 inputs need 16-byte "
+                             f"aligned rows")
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, scale: float,
@@ -162,8 +167,8 @@ def flash_attention_bwd(q, k, v, out, dout, *, scale: float,
 
 def _launch_bwd(q, k, v, out, dout, *, scale: float, causal: bool,
                 window: int, softcap: float):
-    """The backward kernel's three passes on CUDA tensors; raises on what
-    it does not take."""
+    """The backward kernel's passes on CUDA tensors (three in float32,
+    three or four in bfloat16); raises on what it does not take."""
     code = dtype_code("flash_attention_bwd", q, k, v, out, dout)
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
@@ -179,15 +184,24 @@ def _launch_bwd(q, k, v, out, dout, *, scale: float, causal: bool,
                          f")")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention_bwd: head_dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_tma_rows("flash_attention_bwd", q, k, v)
     out, dout = out.contiguous(), dout.contiguous()
     dq = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, KV, T, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    # bfloat16 with H > KV: each query head's float32 dk and dv, which the
+    # kernel's third launch sums over the head's group
+    part = (torch.empty((2, B, H, T, hd), dtype=torch.float32,
+                        device=q.device)
+            if q.dtype == torch.bfloat16 and H > KV else None)
     err = library("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), B, H, KV, S, T, hd,
+        stats[0].data_ptr(), stats[1].data_ptr(),
+        None if part is None else part[0].data_ptr(),
+        None if part is None else part[1].data_ptr(), B, H, KV, S, T, hd,
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2), float(scale),
         float(softcap), int(causal), int(window), code,

@@ -128,6 +128,88 @@ def test_attention_bwd_bf16_rounds_once():
         assert torch.equal(g, w.to(torch.bfloat16))
 
 
+# the forms the bf16 tensor-core kernel's numerics are held on: (name, q
+# shape, k/v shape, causal, window, softcap)
+TC_FORMS = [
+    ("causal", (1, 4, 24, 32), (1, 4, 24, 32), True, 0, 0.0),
+    ("window_cap", (1, 4, 28, 32), (1, 1, 28, 32), True, 7, 0.5),
+    ("gqa4_causal", (1, 8, 20, 32), (1, 2, 20, 32), True, 0, 0.0),
+    ("cross_non_causal", (1, 4, 13, 16), (1, 4, 30, 16), False, 0, 0.0),
+    ("s1_non_causal", (1, 4, 1, 32), (1, 2, 30, 32), False, 0, 0.0),
+    ("t1_non_causal", (1, 4, 9, 32), (1, 2, 1, 32), False, 0, 0.0),
+]
+
+
+def _split_bf16(x):
+    """float32 x as bf16 hi = bf16(x) and lo = bf16(x - hi), in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_bwd(q, k, v, out, dout, *, scale, causal, window,
+                     softcap):
+    """The arithmetic of `csrc/flash_attention_bwd.cu`'s bf16 passes in
+    plain torch: every product of bf16 values (q, k, v, out, dout, or a bf16
+    part) summed in float32, as the tensor cores do; lse, p, delta, dp and
+    ds in float32; p and ds entering their products as bf16 hi + lo parts,
+    each part's product summed into one float32 result; every gradient
+    rounded once to bf16."""
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, S, D)
+    kf, vf = k.float(), v.float()
+    of = out.float().reshape(B, KV, H // KV, S, D)
+    gf = dout.float().reshape(B, KV, H // KV, S, D)
+    s = torch.einsum("bgqsd,bgtd->bgqst", qf, kf) * scale
+    dcap = 1.0
+    if softcap:
+        th = torch.tanh(s / softcap)
+        s, dcap = th * softcap, 1.0 - th * th
+    visible = torch.ones(S, T, dtype=torch.bool)
+    if causal:
+        i, j = torch.arange(S)[:, None], torch.arange(T)[None, :]
+        visible = (i >= j) & ((i - j < window) if window else True)
+    s = torch.where(visible, s, -torch.inf)
+    p = torch.where(visible, torch.exp(s - torch.logsumexp(
+        s, dim=-1, keepdim=True)), 0.0)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dp = torch.einsum("bgqsd,bgtd->bgqst", gf, vf)
+    ds = p * (dp - delta) * dcap
+    dv = sum(torch.einsum("bgqst,bgqsd->bgtd", x, gf) for x in _split_bf16(p))
+    dk = sum(torch.einsum("bgqst,bgqsd->bgtd", x, qf)
+             for x in _split_bf16(ds)) * scale
+    dq = sum(torch.einsum("bgqst,bgtd->bgqsd", x, kf)
+             for x in _split_bf16(ds)) * scale
+    return (dq.reshape(B, H, S, D).to(torch.bfloat16),
+            dk.to(torch.bfloat16), dv.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("form", TC_FORMS, ids=[f[0] for f in TC_FORMS])
+def test_tensor_core_numerics_meet_the_bf16_rule(form):
+    """The bf16 kernel's numerics (`_tensor_core_bwd`: bf16 products summed
+    in float32, p and ds as bf16 hi + lo) on bf16 inputs and the plain
+    forward's bf16 output, held to phase 25's rule for a bf16 gradient
+    (chip_smoke.py's `_grad_hold`): the largest distance of the three
+    gradients from reference_attention_bwd in float32 at most twice the
+    plain bf16 version's own."""
+    _, qs, ks, causal, window, softcap = form
+    q, k, v, dout = _flash_inputs(qs, ks, seed=11)
+    tb = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v, dout)]
+    kw = dict(scale=qs[-1] ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    ins = (*tb[:3], reference_attention(*tb[:3], **kw), tb[3])
+    got = _tensor_core_bwd(*ins, **kw)
+    plain = reference_attention_bwd(*ins, **kw)
+    plain_f32 = reference_attention_bwd(*(t.float() for t in ins), **kw)
+    for g, w in zip(got, plain):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+    own = max(float((p.float() - f).abs().max())
+              for p, f in zip(plain, plain_f32))
+    err = max(float((g.float() - f).abs().max())
+              for g, f in zip(got, plain_f32))
+    assert 0 < own and err <= 2 * own, (err, own)
+
+
 @pytest.mark.parametrize("D", [64, 130])
 @pytest.mark.parametrize("fused", [False, True], ids=["rmsnorm",
                                                       "add_rmsnorm"])
@@ -210,6 +292,20 @@ def test_backward_wrappers_refuse_other_devices():
         K.rmsnorm_bwd(x, torch.empty(2, 64), torch.ones(64))
     assert K.launch_counts()["flash_attention_bwd"] == 0
     assert K.launch_counts()["rmsnorm_bwd"] == 0
+
+
+def test_bf16_wrappers_check_the_rows_tma_loads_take():
+    """`_check_tma_rows`, which the bf16 forward and backward wrappers run
+    before a launch: views whose strides are whole 8-element steps pass;
+    a row stride of 65 elements, or a base 2 bytes past an aligned one,
+    raises."""
+    wide = torch.zeros(1, 2, 5, 72, dtype=torch.bfloat16)
+    flash_ops._check_tma_rows("flash_attention_bwd", wide, wide[..., :64])
+    odd = torch.zeros(1, 2, 5, 65, dtype=torch.bfloat16)[..., :64]
+    shifted = torch.zeros(641, dtype=torch.bfloat16)[1:].view(1, 2, 5, 64)
+    for t in (odd, shifted):
+        with pytest.raises(ValueError, match="16-byte aligned rows"):
+            flash_ops._check_tma_rows("flash_attention_bwd", wide, t)
 
 
 def test_flash_function_wiring_and_padding(monkeypatch):
